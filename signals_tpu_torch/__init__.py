@@ -1,0 +1,68 @@
+"""signals_tpu_torch — the PyTorch/CUDA port of ``signals_tpu``.
+
+The same node/port/patch API as ``signals_tpu`` (its module tree and class
+names are mirrored one to one), executed by PyTorch on a CPU or an NVIDIA
+GPU.  Two engines share one set of node kernel definitions:
+
+* the **pull interpreter** (:mod:`signals_tpu_torch.graph`) — numpy, the
+  reference pull-evaluation semantics, used as the parity oracle;
+* the **compiler** (:mod:`signals_tpu_torch.compiler`) — lowers a patch to
+  eager PyTorch over whole multi-block windows, with the filter cascade in
+  hand-written CUDA kernels on a GPU (plain PyTorch on the CPU).
+
+This package never imports ``jax`` or ``signals_tpu``.  Flags and the root
+error type mirror the reference (``src/signals/__init__.py:18-64``).
+"""
+
+from __future__ import annotations
+
+import enum
+import typing
+
+import numpy as np
+
+__version__ = '0.1.0'
+
+PortName = str
+
+
+class SignalsError(Exception):
+    """Root of the framework's error taxonomy (space-joined ``__str__``,
+    as the REPL error reporting of the reference formats it)."""
+
+    def __str__(self) -> str:
+        return ' '.join((type(self).__name__,
+                         *(str(a) for a in self.args)))
+
+
+#: Value types a node state property may hold.
+SigStateValue = typing.Union[float, int, bool, str, np.ndarray]
+
+
+class SignalFlags(enum.Flag):
+    """Node classification flags (reference ``src/signals/__init__.py:27-58``)."""
+
+    #: may participate in cycles (implemented for Delay nodes, which this
+    #: port does not have yet)
+    CYCLIC = enum.auto()
+
+    SINK_DEVICE = enum.auto()
+    SOURCE_DEVICE = enum.auto()
+    DEVICE = SINK_DEVICE | SOURCE_DEVICE
+
+    #: Generates audio from non-audio input.
+    GENERATOR = enum.auto()
+    #: Generates audio from audio.
+    EFFECT = enum.auto()
+    AUDIO = GENERATOR | EFFECT | SOURCE_DEVICE
+
+    #: Has a predetermined maximum duration.
+    EPOCH = enum.auto()
+    #: Facilitates recording.
+    RECORDER = enum.auto()
+    #: Facilitates visualization.
+    VIS = enum.auto()
+    #: When disabled, returns its input instead of an empty result.
+    PASSTHRU = enum.auto()
+    #: Never alters its input; produces a side effect when enabled.
+    SIDE_EFFECT = VIS | RECORDER | PASSTHRU

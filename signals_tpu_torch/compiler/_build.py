@@ -1,0 +1,105 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled at first use with ``nvcc`` into a shared library
+with a plain C interface, which is loaded with :mod:`ctypes`.  The library
+lands in ``build/torch_ext/`` at the repository root, named by a hash of
+the sources and flags, so an edited source never loads a stale build.
+Nothing here runs at import time: the CPU-only tests import every module.
+
+A failed build raises :class:`KernelBuildError` with the compiler's output;
+there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import typing
+
+_CSRC = pathlib.Path(__file__).parent / 'csrc'
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'torch_ext'
+NVCC_FLAGS = ('-O3', '-std=c++17', '-gencode=arch=compute_90a,code=sm_90a',
+              '-shared', '-Xcompiler', '-fPIC')
+
+_lib: typing.Optional[ctypes.CDLL] = None
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    """``$CUDA_HOME/bin/nvcc``, else ``/usr/local/cuda/bin/nvcc``, else
+    the first ``nvcc`` on ``PATH``."""
+    for home in (os.environ.get('CUDA_HOME'), '/usr/local/cuda'):
+        if home and (pathlib.Path(home) / 'bin' / 'nvcc').is_file():
+            return str(pathlib.Path(home) / 'bin' / 'nvcc')
+    found = shutil.which('nvcc')
+    if found is None:
+        raise KernelBuildError('nvcc not found: set CUDA_HOME or put the '
+                               'CUDA toolkit on PATH')
+    return found
+
+
+def _sources() -> list[pathlib.Path]:
+    return sorted(_CSRC.glob('*.cu'))
+
+
+def _target(flags: tuple[str, ...]) -> pathlib.Path:
+    h = hashlib.sha256(' '.join(flags).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f'libsignals_kernels_{h.hexdigest()[:16]}.so'
+
+
+def build(*, verbose: bool = False) -> tuple[pathlib.Path, str]:
+    """Compile the sources (if this exact build is not there yet) and
+    return ``(library path, compiler output)``.  ``verbose`` adds
+    ``-Xptxas -v``, whose per-kernel register and spill report is part of
+    the returned output (the binary is the same either way)."""
+    target = _target(NVCC_FLAGS)
+    flags = NVCC_FLAGS + (('-Xptxas', '-v') if verbose else ())
+    if target.is_file():
+        return target, ''
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f'.{os.getpid()}.tmp')
+    cmd = [nvcc_path(), *flags, '-o', str(tmp), *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise KernelBuildError(f'nvcc failed ({proc.returncode}):\n'
+                               f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    os.replace(tmp, target)
+    return target, proc.stdout + proc.stderr
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        path, _ = build()
+        lib = ctypes.CDLL(str(path))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.sosfilt_segments_launch.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                i, p]
+        lib.sosfilt_segments_launch.restype = i
+        lib.sosfilt_segments_gen_launch.argtypes = [p, p, p, f, i, p, p, p,
+                                                    i, i, i, i, i, i, p]
+        lib.sosfilt_segments_gen_launch.restype = i
+        lib.signals_partial_width.argtypes = [i, i]
+        lib.signals_partial_width.restype = i
+        lib.signals_cuda_error_string.argtypes = [i]
+        lib.signals_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error."""
+    if code != 0:
+        msg = library().signals_cuda_error_string(code).decode()
+        raise RuntimeError(f'{what} launch failed: CUDA error {code} ({msg})')

@@ -1,0 +1,292 @@
+"""The segment-cascade kernels (``signals_tpu.compiler.pallas_kernels``).
+
+Two entry points, each with a plain PyTorch version of the same signature:
+
+* :func:`sosfilt_segments_gen` — the coupled-form biquad cascade over carry
+  segments with its input synthesized from an oscillator spec (replaces the
+  TPU kernel ``_seg_kernel_gen``);
+* :func:`sosfilt_segments` — the same cascade fed from a timeline in memory
+  (replaces ``_seg_kernel`` / ``_seg_kernel_reuse``).
+
+Both take ``sum_groups = g`` (the mix epilogue: return each ``g``-lane
+group's sum instead of the lanes) and ``blocks_per_seg = m`` (carry
+segments: ``m`` coefficient blocks share one state that warms up over
+``context`` rows under the segment's first block's coefficients).
+
+A wrapper runs the plain version only because its tensors lie on the CPU.
+On a CUDA tensor it launches the hand-written kernel (``csrc/segments.cu``,
+built at first use by :mod:`._build`) or raises; each launch adds one to
+:data:`LAUNCHES`.  The kernels take one order-2 section per lane (``nsec``
+= 1, all the slice designs) and lane groups of any width that divides the
+lanes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from signals_tpu_torch.compiler.filters import sosfilt_stream
+from signals_tpu_torch.core.mathx import _SIN2PI_COEFFS, sin2pi
+from signals_tpu_torch.core.xp import TorchXP
+
+OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
+
+#: launches of each hand-written kernel since :func:`reset_launch_counts`
+LAUNCHES = {'segments_gen': 0, 'segments': 0}
+
+_SIN_C = (ctypes.c_double * len(_SIN2PI_COEFFS))(*_SIN2PI_COEFFS)
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check_common(coeffs, n_segments, seg_frames, context, sum_groups,
+                  blocks_per_seg):
+    if coeffs.dtype != torch.float32 or coeffs.dim() != 4 \
+            or coeffs.shape[-1] != 11:
+        raise ValueError(f'coeffs must be float32 (n_blocks, nsec, lanes, '
+                         f'11), got {tuple(coeffs.shape)} {coeffs.dtype}')
+    n, nsec, lanes, _ = coeffs.shape
+    if n != n_segments:
+        raise ValueError(f'coeffs hold {n} blocks, expected {n_segments}')
+    if nsec != 1:
+        raise ValueError(f'{nsec} sections: the kernels take 1')
+    if seg_frames < 1 or context < 0:
+        raise ValueError(f'bad geometry F={seg_frames} C={context}')
+    if n_segments % blocks_per_seg:
+        raise ValueError(f'n_segments {n_segments} must be a multiple of '
+                         f'blocks_per_seg {blocks_per_seg}')
+    if sum_groups and lanes % sum_groups:
+        raise ValueError(f'sum_groups {sum_groups} must divide the {lanes} '
+                         f'lanes')
+    return lanes
+
+
+def _device_kind(*tensors) -> str:
+    kinds = {t.device.type for t in tensors}
+    if len(kinds) != 1:
+        raise ValueError(f'tensors on mixed devices {kinds}')
+    kind = kinds.pop()
+    if kind not in ('cpu', 'cuda'):
+        raise ValueError(f'unsupported device {kind!r}')
+    return kind
+
+
+def _outputs(lib, coeffs, seg_frames, lanes, sum_groups):
+    """The output tensor and, for a lane group wider than one thread block,
+    the kernel's partial-sum buffer (else a null pointer)."""
+    n = coeffs.shape[0]
+    width = lanes // sum_groups if sum_groups else lanes
+    out = torch.empty((n, seg_frames, width), dtype=torch.float32,
+                      device=coeffs.device)
+    pw = lib.signals_partial_width(lanes, sum_groups) if sum_groups else 0
+    partial = (torch.empty((n, seg_frames, pw), dtype=torch.float32,
+                           device=coeffs.device) if pw else None)
+    return out, partial, (partial.data_ptr() if pw else None)
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+# --- the generator-fed cascade ------------------------------------------------
+
+
+def gen_source_rows(toff, lanef, *, n_segments: int, seg_frames: int,
+                    context: int, osc_code: int, rate: int):
+    """The oscillator rows the generator kernel synthesizes:
+    ``(n_segments, context + seg_frames, lanes)`` from per-lane frame
+    offsets ``toff`` and ``lanef`` = (hertz, phase, amplitude) rows —
+    ``nodes/osc.py``'s op sequence; rows with a negative frame index are
+    zero."""
+    xp = TorchXP(toff.device)
+    f32 = np.float32
+    seg = (torch.arange(n_segments, dtype=torch.int32, device=toff.device)
+           * seg_frames)[:, None, None]
+    row = torch.arange(context + seg_frames, dtype=torch.int32,
+                       device=toff.device)[None, :, None]
+    t_i = toff[None, None, :] + seg + row
+    tf = t_i.to(torch.float32)
+    hz, ph, amp = lanef[0], lanef[1], lanef[2]
+
+    def frac(v):
+        return v - torch.floor(v)
+
+    turns = frac(tf * f32(1.0 / rate) * hz)
+    tt = frac(turns + ph)
+    if osc_code == OSC_SINE:
+        x = sin2pi(xp, tt)
+    elif osc_code == OSC_SQUARE:
+        x = torch.sign(f32(0.5) - frac(tt))
+    elif osc_code == OSC_SAW:
+        x = f32(2.0) * frac(tt - f32(0.5)) - f32(1.0)
+    elif osc_code == OSC_TRIANGLE:
+        t3 = tt - f32(0.25)
+        x = ((f32(4.0) * (f32(0.5) * frac(t3 * f32(2.0))) - f32(1.0))
+             * torch.sign(frac(t3) - f32(0.5)))
+    else:
+        raise ValueError(f'unknown osc_code {osc_code}')
+    return torch.where(t_i >= 0, amp * x, torch.zeros((), device=x.device))
+
+
+def _cascade_windows_plain(coeffs, xw, *, seg_frames, context, sum_groups,
+                           blocks_per_seg):
+    """Shared body of the plain versions: ``xw`` (n_units, C + m*F, lanes)
+    input windows of the carry segments; segments ride the channel axis of
+    :func:`~signals_tpu_torch.compiler.filters.sosfilt_stream`."""
+    m, F, C = blocks_per_seg, seg_frames, context
+    n_blocks, nsec, lanes, _ = coeffs.shape
+    n_units = n_blocks // m
+    # (rows, n_units*lanes) timeline; coefficient block j of every unit as
+    # (nsec, n_units*lanes, 11)
+    x = xw.permute(1, 0, 2).reshape(C + m * F, n_units * lanes)
+    co = coeffs.reshape(n_units, m, nsec, lanes, 11)
+
+    def block_coeffs(j):
+        return co[:, j].permute(1, 0, 2, 3).reshape(nsec, n_units * lanes, 11)
+
+    z = torch.zeros((nsec, 2, n_units * lanes), dtype=torch.float32,
+                    device=coeffs.device)
+    _, z = sosfilt_stream(block_coeffs(0), x[:C], z)
+    ys = []
+    for j in range(m):
+        y, z = sosfilt_stream(block_coeffs(j), x[C + j * F:C + (j + 1) * F],
+                              z)
+        ys.append(y.reshape(F, n_units, lanes))
+    y = torch.stack(ys, dim=1)                       # (F, m, n_units, lanes)
+    y = y.permute(2, 1, 0, 3).reshape(n_blocks, F, lanes)
+    if sum_groups:
+        y = y.reshape(n_blocks, F, lanes // sum_groups, sum_groups).sum(-1)
+    return y
+
+
+def sosfilt_segments_gen_plain(coeffs, toff, lanef, *, n_segments: int,
+                               seg_frames: int, context: int, osc_code: int,
+                               rate: int, sum_groups: int = 0,
+                               blocks_per_seg: int = 1):
+    """Plain PyTorch version of :func:`sosfilt_segments_gen`: the source
+    rows synthesized in one vectorized pass, then the cascade as a Python
+    loop over rows, vectorized over segments x lanes."""
+    m = blocks_per_seg
+    xw = gen_source_rows(toff, lanef, n_segments=n_segments // m,
+                         seg_frames=m * seg_frames, context=context,
+                         osc_code=osc_code, rate=rate)
+    return _cascade_windows_plain(coeffs, xw, seg_frames=seg_frames,
+                                  context=context, sum_groups=sum_groups,
+                                  blocks_per_seg=m)
+
+
+def sosfilt_segments_gen(coeffs, toff, lanef, *, n_segments: int,
+                         seg_frames: int, context: int, osc_code: int,
+                         rate: int, sum_groups: int = 0,
+                         blocks_per_seg: int = 1):
+    """The cascade with its input synthesized in-kernel from an oscillator
+    spec — zero input memory traffic.
+
+    ``coeffs``: ``(n_segments, nsec, lanes, 11)`` float32 (one coefficient
+    block per ``seg_frames`` frames); ``toff``: ``(lanes,)`` int32 absolute
+    frame of each lane's first context row; ``lanef``: ``(3, lanes)``
+    float32 (hertz, phase, amplitude); ``osc_code``: one of ``OSC_*``;
+    ``1/rate`` reaches the kernel as a runtime value.  Carry segment ``u``
+    synthesizes frames ``toff + u*m*F + [0, C + m*F)``.  Returns
+    ``(n_segments, seg_frames, lanes)``, or ``(..., lanes // sum_groups)``
+    group sums.
+    """
+    m = max(1, int(blocks_per_seg))
+    lanes = _check_common(coeffs, n_segments, seg_frames, context,
+                          sum_groups, m)
+    if toff.dtype != torch.int32 or tuple(toff.shape) != (lanes,):
+        raise ValueError(f'toff must be int32 ({lanes},)')
+    if lanef.dtype != torch.float32 or tuple(lanef.shape) != (3, lanes):
+        raise ValueError(f'lanef must be float32 (3, {lanes})')
+    if osc_code not in (OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE):
+        raise ValueError(f'unknown osc_code {osc_code}')
+    kw = dict(n_segments=n_segments, seg_frames=seg_frames,
+              context=context, osc_code=osc_code, rate=rate,
+              sum_groups=sum_groups, blocks_per_seg=m)
+    if _device_kind(coeffs, toff, lanef) == 'cpu':
+        return sosfilt_segments_gen_plain(coeffs, toff, lanef, **kw)
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    coeffs, toff, lanef = (t.contiguous() for t in (coeffs, toff, lanef))
+    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, lanes,
+                                          sum_groups)
+    code = lib.sosfilt_segments_gen_launch(
+        coeffs.data_ptr(), toff.data_ptr(), lanef.data_ptr(),
+        float(np.float32(1.0 / rate)), osc_code, _SIN_C, out.data_ptr(),
+        partial_ptr, n_segments, lanes, seg_frames, context, m, sum_groups,
+        _stream(coeffs.device))
+    _build.check(code, 'sosfilt_segments_gen')
+    LAUNCHES['segments_gen'] += 1
+    return out
+
+
+# --- the timeline-fed cascade -------------------------------------------------
+
+
+def _timeline(coeffs, x, n_segments, seg_frames, context):
+    """``x`` broadcast to the coefficient lanes and zero-padded to the
+    ``context + n_segments*seg_frames`` rows the segments read."""
+    lanes = max(coeffs.shape[2], x.shape[1])
+    coeffs = torch.broadcast_to(coeffs, coeffs.shape[:2] + (lanes, 11))
+    x = torch.broadcast_to(x, (x.shape[0], lanes))
+    need = context + n_segments * seg_frames
+    if x.shape[0] < need:
+        x = torch.cat([x, x.new_zeros((need - x.shape[0], lanes))])
+    return coeffs, x[:need]
+
+
+def sosfilt_segments_plain(coeffs, x, *, n_segments: int, seg_frames: int,
+                           context: int, sum_groups: int = 0,
+                           blocks_per_seg: int = 1):
+    """Plain PyTorch version of :func:`sosfilt_segments`."""
+    m = blocks_per_seg
+    coeffs, x = _timeline(coeffs, x, n_segments, seg_frames, context)
+    n_units, L = n_segments // m, context + m * seg_frames
+    xw = x.unfold(0, L, m * seg_frames)[:n_units].permute(0, 2, 1)
+    return _cascade_windows_plain(coeffs, xw, seg_frames=seg_frames,
+                                  context=context, sum_groups=sum_groups,
+                                  blocks_per_seg=m)
+
+
+def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
+                     context: int, sum_groups: int = 0,
+                     blocks_per_seg: int = 1):
+    """Filter the carry segments of a ``(context + n_segments*seg_frames,
+    ch)`` timeline.  Coefficient block ``b`` covers rows ``[C + b*F, C +
+    (b+1)*F)``; carry segment ``u`` (``m`` blocks) reads rows ``[u*m*F, u*m*F
+    + C + m*F)``, warming up from zero state over its first ``C`` rows.
+    ``x`` and ``coeffs`` ``(n_segments, nsec, ch, 11)`` broadcast to the
+    wider channel count.  Returns ``(n_segments, seg_frames, ch)``
+    block-major, or ``(..., ch // sum_groups)`` group sums."""
+    m = max(1, int(blocks_per_seg))
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f'x must be float32 (T, ch), got '
+                         f'{tuple(x.shape)} {x.dtype}')
+    if coeffs.dim() != 4:
+        raise ValueError(f'coeffs must be (n_blocks, nsec, ch, 11), got '
+                         f'{tuple(coeffs.shape)}')
+    coeffs, x = _timeline(coeffs, x, n_segments, seg_frames, context)
+    lanes = _check_common(coeffs, n_segments, seg_frames, context,
+                          sum_groups, m)
+    kw = dict(n_segments=n_segments, seg_frames=seg_frames,
+              context=context, sum_groups=sum_groups, blocks_per_seg=m)
+    if _device_kind(coeffs, x) == 'cpu':
+        return sosfilt_segments_plain(coeffs, x, **kw)
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    coeffs, x = coeffs.contiguous(), x.contiguous()
+    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, lanes,
+                                          sum_groups)
+    code = lib.sosfilt_segments_launch(
+        coeffs.data_ptr(), x.data_ptr(), out.data_ptr(), partial_ptr,
+        n_segments, lanes, seg_frames, context, m, sum_groups,
+        _stream(coeffs.device))
+    _build.check(code, 'sosfilt_segments')
+    LAUNCHES['segments'] += 1
+    return out

@@ -1,0 +1,128 @@
+"""The two array namespaces node kernels are written against.
+
+``signals_tpu`` writes every node kernel once against ``ctx.xp``: numpy in
+the pull engine, ``jax.numpy`` in the compiler.  The port keeps that design
+with two small namespaces of the calls both engines need:
+
+* :data:`NP` — numpy, plus :func:`astype` (numpy spells it as a method);
+* :class:`TorchXP` — the same names over torch on one ``device``.
+
+Kernels call ``xp.where``, ``xp.floor``, ``xp.maximum``, ``xp.sign``,
+``xp.broadcast_to``, ``xp.astype(x, dtype)`` and friends; dtypes are
+``xp.float32`` / ``xp.float64`` / ``xp.int32``.  Python and numpy scalars
+mix with tensors as weak scalars (the tensor's dtype wins), as they do with
+numpy arrays.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+class _NumpyXP:
+    """numpy with the extra spellings of :class:`TorchXP`."""
+
+    is_torch = False
+    float32, float64, int32 = np.float32, np.float64, np.int32
+
+    def __getattr__(self, name):
+        return getattr(np, name)
+
+    @staticmethod
+    def astype(x, dtype):
+        return np.asarray(x).astype(dtype)
+
+
+NP = _NumpyXP()
+
+
+class TorchXP:
+    """numpy-style functions over torch tensors on ``device``."""
+
+    is_torch = True
+    float32, float64, int32 = torch.float32, torch.float64, torch.int32
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def _t(self, x):
+        """Tensor view of ``x``: numpy values keep their dtype, Python
+        floats become f32 (the engines' audio dtype)."""
+        if isinstance(x, torch.Tensor):
+            return x
+        if isinstance(x, float):
+            return torch.tensor(x, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(np.asarray(x), device=self.device)
+
+    def asarray(self, x, dtype=None):
+        return self._t(x) if dtype is None else self._t(x).to(dtype)
+
+    @staticmethod
+    def astype(x, dtype):
+        return x.to(dtype)
+
+    def _pair(self, a, b):
+        """Both operands as tensors; a scalar takes the other's dtype
+        (numpy's weak-scalar rule)."""
+        if not isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+            a = torch.tensor(a, dtype=b.dtype, device=b.device)
+        elif not isinstance(b, torch.Tensor) and isinstance(a, torch.Tensor):
+            b = torch.tensor(b, dtype=a.dtype, device=a.device)
+        return self._t(a), self._t(b)
+
+    def where(self, cond, a, b):
+        a, b = self._pair(a, b)
+        return torch.where(self._t(cond), a, b)
+
+    def maximum(self, a, b):
+        return torch.maximum(*self._pair(a, b))
+
+    def clip(self, x, lo, hi):
+        return torch.clamp(self._t(x), lo, hi)
+
+    def floor(self, x):
+        return torch.floor(x)
+
+    def sign(self, x):
+        return torch.sign(x)
+
+    def sqrt(self, x):
+        return torch.sqrt(x)
+
+    def tan(self, x):
+        return torch.tan(x)
+
+    def mod(self, x, n):
+        return torch.remainder(x, n)
+
+    def broadcast_to(self, x, shape):
+        return torch.broadcast_to(self._t(x), shape)
+
+    def concatenate(self, xs, axis=0):
+        return torch.cat([self._t(x) for x in xs], dim=axis)
+
+    def stack(self, xs, axis=0):
+        return torch.stack([self._t(x) for x in xs], dim=axis)
+
+    def repeat(self, x, n, axis=0):
+        return torch.repeat_interleave(x, n, dim=axis)
+
+    def arange(self, n, dtype=None):
+        return torch.arange(n, dtype=dtype or torch.int64, device=self.device)
+
+    @staticmethod
+    def zeros_like(x):
+        return torch.zeros_like(x)
+
+    @staticmethod
+    def ones_like(x):
+        return torch.ones_like(x)
+
+    @staticmethod
+    def full_like(x, value):
+        return torch.full_like(x, value)
+
+    @staticmethod
+    def cummax(x, axis=0):
+        return torch.cummax(x, dim=axis).values

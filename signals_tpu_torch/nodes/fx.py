@@ -1,0 +1,397 @@
+"""Effects and filters (``signals_tpu.nodes.fx``).
+
+Elementwise effects (Mix/RingMod/Gain) lower to eager tensor ops.  The
+critically-tuned Butterworth filters keep the reference's *stateless
+context-window* semantics — re-pull context frames, filter from zero
+initial state, return the tail — with coefficients designed per block from
+the cutoff signal.  Swept (non-``Fixed``) cutoffs additionally carry state
+across multi-block segments (:meth:`CritFilter.swept_carry_m`).  In the
+compiler the cascade runs in the segment kernels of
+:mod:`signals_tpu_torch.compiler.kernels`.
+"""
+
+from __future__ import annotations
+
+import abc
+import typing
+
+import numpy as np
+import torch
+
+from signals_tpu_torch import SignalFlags
+from signals_tpu_torch.compiler import filters as _filters
+from signals_tpu_torch.core.state import Param, all_of, ge, instance_of
+from signals_tpu_torch.graph import (
+    BlockCachingEmitter,
+    ImplicitChannels,
+    KernelCtx,
+    Receiver,
+    StatefulEmitter,
+    port,
+)
+from signals_tpu_torch.registry import register
+
+F32 = np.float32
+
+
+class Effect(BlockCachingEmitter, ImplicitChannels, abc.ABC):
+
+    @classmethod
+    def flags(cls) -> SignalFlags:
+        return super().flags() | SignalFlags.EFFECT
+
+
+class BinaryEffect(Effect, abc.ABC):
+    left: Receiver.BoundPort = port('left')
+    right: Receiver.BoundPort = port('right')
+
+
+@register('signals.chain.fx.Mix')
+class Mix(BinaryEffect):
+    """Crossfade: ``mix*L + (1-mix)*R`` with ``mix`` at block rate."""
+
+    mix: Receiver.BoundPort = port('mix')
+
+    def kernel(self, ctx: KernelCtx):
+        mix = ctx.in_block_rate('mix')
+        return mix * ctx.in_('left') + (F32(1.0) - mix) * ctx.in_('right')
+
+
+@register('signals.chain.fx.RingMod')
+class RingMod(BinaryEffect):
+
+    def kernel(self, ctx: KernelCtx):
+        return ctx.in_('left') * ctx.in_('right')
+
+
+@register('signals.chain.fx.Gain')
+class Gain(BinaryEffect):
+    """``L * R`` with the gain side sampled at block rate."""
+
+    def kernel(self, ctx: KernelCtx):
+        return ctx.in_('left') * ctx.in_block_rate('right')
+
+
+class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
+    """Critically-tuned order-2 Butterworth filtering.
+
+    Filtering is a pure function of the last ``context_frames() +
+    nframes`` input frames (state recomputed from a bounded context window
+    every block), with coefficients recomputed per block from the cutoff
+    signal.  ``streaming=True`` (exact carried-state IIR) runs in the pull
+    engine only; the port's compiler does not lower it yet.
+    """
+
+    input: Receiver.BoundPort = port('input')
+
+    order = 2
+
+    class State(StatefulEmitter.State):
+        #: structural: frames of input history recomputed each block
+        context: int = Param(1024, validate=all_of(instance_of(int), ge(1)))
+        #: structural: exact carried-state IIR instead of context windows
+        streaming: bool = Param(False, validate=instance_of(bool))
+        #: structural: blocks per state-carry segment for SWEPT crits
+        #: (0 = engine default ``SEG_CARRY_BLOCKS``, 1 = per-block context
+        #: replay).  See :meth:`swept_carry_m`.
+        carry: int = Param(0, validate=all_of(instance_of(int), ge(0)))
+
+    @classmethod
+    def flags(cls) -> SignalFlags:
+        return super().flags() | SignalFlags.EFFECT
+
+    def is_stateful(self) -> bool:
+        return self._state.streaming
+
+    @property
+    def n_sections(self) -> int:
+        return 2 if self.type_code() in (_filters.BANDPASS,
+                                         _filters.BANDSTOP) else 1
+
+    def init_carry(self, *, channels: int, rate: int,
+                   block_frames: int) -> dict:
+        return {'zi': np.zeros((self.n_sections, 2, channels), dtype=F32)}
+
+    def step(self, ctx: KernelCtx, carry: dict):
+        nyquist = ctx.rate_f32 * F32(0.5)
+        coeffs = _filters.design_coupled(ctx.xp, self.type_code(),
+                                         self._crits(ctx), nyquist)
+        x = ctx.xp.broadcast_to(ctx.in_('input'),
+                                (ctx.nframes, self.channels))
+        y, zf = ctx.sosfilt_stream(coeffs, x, carry['zi'])
+        return y, {'zi': zf}
+
+    def context_frames(self) -> int:
+        return 0 if self._state.streaming else self._state.context
+
+    @staticmethod
+    def context_for(min_hz: float, rate: int = 44100,
+                    tol: float = 1e-7) -> int:
+        """Smallest 128-aligned context window whose truncation error is
+        below ``tol`` for every pole frequency at or above ``min_hz``: the
+        replayed state differs from the exact IIR state by at most
+        ``|pole|**C = exp(-xi * 2*pi*f0/rate * C)``, with a conservative
+        ``xi = 0.5``.
+
+        >>> CritFilter.context_for(550.0)
+        512
+        """
+        import math
+        decay = 0.5 * 2.0 * math.pi * float(min_hz) / float(rate)
+        n = math.log(1.0 / tol) / max(decay, 1e-12)
+        return max(128, -(-int(math.ceil(n)) // 128) * 128)
+
+    def crits_static(self) -> bool:
+        """Whether every crit input is a ``Fixed`` or unconnected — the
+        coefficients are then the same for every block."""
+        from signals_tpu_torch.nodes.fixed import Fixed
+        for pname in self.port_names():
+            if pname == 'input':
+                continue
+            sig = self._ports[pname].sig
+            if sig is not None and type(sig) is not Fixed:
+                return False
+        return True
+
+    def swept_carry_m(self, engine_m: typing.Optional[int] = None) -> int:
+        """Blocks per state-carry segment for SWEPT (non-``Fixed``) crits —
+        the product semantics of time-varying filtering, identical in the
+        numpy pull oracle and the compiled kernels.
+
+        On the :data:`~signals_tpu_torch.compiler.filters.CARRY_GRID_FRAMES`
+        block grid, blocks group into segments of ``m`` aligned to ABSOLUTE
+        frame multiples of ``m * F``; at each segment start the state
+        restarts from zero and warms up over the ``context`` window under
+        the segment's first block's coefficients; inside a segment the
+        state carries across blocks while coefficients switch per block.
+        ``State.carry = 1`` restores per-block replay.
+
+        Returns 1 when carry does not engage: streaming filters, static
+        crits (every block replays its own context), or ``carry = 1``.
+        """
+        if self._state.streaming:
+            return 1
+        m = self._state.carry
+        if m == 0:
+            m = (_filters.resolve_seg_carry_blocks() if engine_m is None
+                 else engine_m)
+        if m <= 1 or self.crits_static():
+            return 1
+        return m
+
+    @abc.abstractmethod
+    def type_code(self) -> str:
+        """One of the :mod:`signals_tpu_torch.compiler.filters` type codes."""
+        raise NotImplementedError
+
+    @abc.abstractmethod
+    def _crits(self, ctx: KernelCtx) -> tuple:
+        raise NotImplementedError
+
+    @abc.abstractmethod
+    def _crits_grid(self, ctx) -> tuple:
+        raise NotImplementedError
+
+    def kernel(self, ctx: KernelCtx):
+        nyquist = ctx.rate_f32 * F32(0.5)
+        grid = getattr(ctx, 'block_grid', None)
+        if grid is not None:
+            return self._mega_kernel(ctx, grid, nyquist)
+        if ctx.xp.is_torch:
+            from signals_tpu_torch.compiler import CompileError
+            raise CompileError(
+                f'{self.cls_name()} at window {ctx.window}: filters lower '
+                f'only over whole blocks in this port')
+        req = getattr(ctx, 'request', None)
+        if req is not None:
+            # numpy pull oracle: carry engages on whole-block-aligned
+            # requests (see swept_carry_m's contract)
+            m = self.swept_carry_m()
+            loc = req.loc
+            FC = _filters.CARRY_GRID_FRAMES
+            if (m > 1 and loc.shape.frames % FC == 0
+                    and loc.position % FC == 0):
+                return self._pull_carry_kernel(ctx, m, nyquist)
+        coeffs = _filters.design_coupled(ctx.xp, self.type_code(),
+                                         self._crits(ctx), nyquist)
+        x = ctx.in_context('input', self.context_frames())
+        y = ctx.sosfilt(coeffs, x)
+        return y[-ctx.nframes:]
+
+    def _pull_carry_kernel(self, ctx, m: int, nyquist):
+        """Swept-carry semantics in the pull oracle: statelessly replay
+        each requested block's containing segment — ``context`` warmup
+        under the segment's first block's coefficients from zero state,
+        then the blocks up to the requested one with per-block
+        coefficients, the coupled-form state threaded.  Multi-block
+        requests evaluate blockwise and concatenate."""
+        from signals_tpu_torch.core import Request, Shape
+        loc = ctx.request.loc
+        F = _filters.CARRY_GRID_FRAMES
+        n_blocks = loc.shape.frames // F
+        beta0 = loc.position // F
+
+        def one_block(beta):
+            seg0 = (beta // m) * m
+            zi = None
+            out = None
+            ch = self.channels
+            for b in range(seg0, beta + 1):
+                bloc = loc._replace(position=b * F,
+                                    shape=Shape(F, loc.shape.channels))
+                bctx = type(ctx)(self, Request(
+                    requestor=ctx.request.requestor,
+                    port=ctx.request.port, loc=bloc))
+                coeffs = _filters.design_coupled(
+                    ctx.xp, self.type_code(), self._crits(bctx), nyquist)
+                if b == seg0:
+                    xw = bctx.in_context('input', self.context_frames())
+                    ch = max(ch, xw.shape[1], coeffs.shape[1])
+                    zi = np.zeros((coeffs.shape[0], 2, ch), dtype=F32)
+                    y, zi = bctx.sosfilt_stream(coeffs, xw, zi)
+                    out = y[-F:]
+                else:
+                    xb = bctx.in_('input')
+                    xb = np.broadcast_to(xb, (F, max(xb.shape[1], ch)))
+                    out, zi = bctx.sosfilt_stream(coeffs, xb, zi)
+            return out
+
+        blocks = [one_block(beta0 + i) for i in range(n_blocks)]
+        ch = max(b.shape[1] for b in blocks)
+        return np.concatenate(
+            [np.broadcast_to(b, (F, ch)) for b in blocks], axis=0)
+
+    # --- compiled engine ----------------------------------------------------
+
+    def _mega_kernel(self, ctx, grid, nyquist):
+        """Whole-window lowering: every block of the window through one
+        segment-kernel call, output ``(nb*F, ch)`` — the JAX package's
+        ``_mega_kernel`` and ``_mega_carry`` kernel branches in one (the
+        carry is the ``m`` of :meth:`_family_compute`)."""
+        F_, nb = grid
+        y = self._family_compute(ctx, grid, nyquist, sum_groups=0)
+        return y.reshape(nb * F_, y.shape[-1])
+
+    def family_sum(self, ctx, grid):
+        """The voice sum of this filter's output over the window, computed
+        *in-kernel* (the mix epilogue: the full-width output is never
+        written to device memory): ``(nb, F, 1)``, before ``enabled``
+        gating."""
+        nyquist = ctx.rate_f32 * F32(0.5)
+        return self._family_compute(ctx, grid, nyquist,
+                                    sum_groups=self.channels)
+
+    def _family_compute(self, ctx, grid, nyquist, sum_groups: int):
+        """Per-block coefficients for the window's blocks, then ONE segment
+        kernel call: the generator-fed kernel when the input is an eligible
+        oscillator (and the compile-time ``SEG_SOURCE_GEN`` snapshot is
+        on), else the timeline kernel over the lowered input with its
+        context.  Swept crits on the carry grid run ``m``-block carry
+        segments; the window must start on an absolute segment boundary
+        and hold whole segments (the render plans guarantee it)."""
+        from signals_tpu_torch.compiler import CompileError
+        from signals_tpu_torch.compiler.kernels import sosfilt_segments
+        F_, nb = grid
+        comp = ctx.compiler
+        m = (self.swept_carry_m(comp.index.seg_carry_blocks)
+             if F_ == _filters.CARRY_GRID_FRAMES else 1)
+        start = comp.position + ctx.window.offset
+        if start % (m * F_) or nb % m:
+            raise CompileError(
+                f'{self.cls_name()}: window of {nb} blocks at frame {start} '
+                f'is not whole {m}-block carry segments')
+        C = self.context_frames()
+        xp = ctx.xp
+        grids = self._crits_grid(ctx)                      # each (nb, ch_i)
+        chs = max(g.shape[1] for g in grids)
+        crits = tuple(xp.broadcast_to(g, (nb, chs)).reshape(1, -1)
+                      for g in grids)                      # (1, nb*chs)
+        coeffs = _filters.design_coupled(xp, self.type_code(), crits,
+                                         nyquist)          # (nsec, nb*chs, 11)
+        nsec = coeffs.shape[0]
+        co = coeffs.reshape(nsec, nb, chs, 11).permute(1, 0, 2, 3)
+        chx = max(ctx.in_channels('input') or 1, chs)
+        co = torch.broadcast_to(co, (nb, nsec, chx, 11))
+        gen = (self._gen_input_spec(chx) if comp.index.seg_source_gen
+               else None)
+        if gen is not None:
+            return self._family_gen(ctx, gen, co, F_, nb, C, chx, m,
+                                    sum_groups)
+        x = ctx.in_context('input', C)                     # (C + nb*F, ch)
+        return sosfilt_segments(co, x, n_segments=nb, seg_frames=F_,
+                                context=C, sum_groups=sum_groups,
+                                blocks_per_seg=m)
+
+    def _gen_input_spec(self, chx):
+        """``(osc_code, osc, hz_node, phase_node)`` when this filter's
+        input is an oscillator the segment kernel can synthesize in-kernel:
+        a Sine/Saw/Square/Triangle whose ``hertz``/``phase`` are ``Fixed``
+        (or unconnected) with widths broadcastable to ``chx`` lanes.  All
+        four waves are synthesized bit-exactly (the sine with the f64
+        ``sin2pi`` chain)."""
+        from signals_tpu_torch.compiler.kernels import (
+            OSC_SAW, OSC_SINE, OSC_SQUARE, OSC_TRIANGLE)
+        from signals_tpu_torch.nodes.fixed import Fixed
+        from signals_tpu_torch.nodes.osc import (Sawtooth, Sine, Square,
+                                                 Triangle)
+        inp = self._ports['input'].sig
+        code = {Sine: OSC_SINE, Sawtooth: OSC_SAW, Square: OSC_SQUARE,
+                Triangle: OSC_TRIANGLE}.get(type(inp))
+        if code is None:
+            return None
+        nodes = []
+        for pname in ('hertz', 'phase'):
+            sig = inp._ports[pname].sig
+            if sig is not None:
+                if type(sig) is not Fixed:
+                    return None
+                v = sig.get_state().value
+                if v.shape not in ((1, 1), (1, chx)):
+                    return None
+            nodes.append(sig)
+        return code, inp, nodes[0], nodes[1]
+
+    def _family_gen(self, ctx, gen, co, F_, nb, C, chx, m, sum_groups):
+        """Generator-fed lowering: per-lane oscillator parameters from the
+        traced ``Fixed`` values (``enabled`` gates folded in), zero input
+        memory traffic."""
+        from signals_tpu_torch.compiler.kernels import sosfilt_segments_gen
+        code, osc_node, hz_node, ph_node = gen
+        comp = ctx.compiler
+        dev = co.device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+
+        def lane_row(node):
+            if node is None:
+                return torch.zeros((chx,), dtype=torch.float32, device=dev)
+            v = comp.node_param(node, 'value').reshape(1, -1)
+            v = torch.where(comp.node_param(node, 'enabled'), v, zero)
+            return torch.broadcast_to(v, (1, chx)).reshape(chx)
+
+        amp = torch.where(comp.node_param(osc_node, 'enabled'),
+                          torch.ones((), device=dev), zero)
+        lanef = torch.stack([lane_row(hz_node), lane_row(ph_node),
+                             torch.broadcast_to(amp, (chx,))])
+        toff = torch.full((chx,), comp.position + ctx.window.offset - C,
+                          dtype=torch.int32, device=dev)
+        return sosfilt_segments_gen(
+            co, toff, lanef, n_segments=nb, seg_frames=F_, context=C,
+            osc_code=code, rate=ctx.rate, sum_groups=sum_groups,
+            blocks_per_seg=m)
+
+
+class SingleCritFilter(CritFilter, abc.ABC):
+    cutoff: Receiver.BoundPort = port('cutoff')
+
+    def _crits(self, ctx: KernelCtx) -> tuple:
+        return (ctx.in_block_rate('cutoff'),)
+
+    def _crits_grid(self, ctx) -> tuple:
+        return (ctx.in_block_rate_grid('cutoff'),)
+
+
+@register('signals.chain.fx.LowPass')
+class LowPass(SingleCritFilter):
+
+    def type_code(self) -> str:
+        return _filters.LOWPASS

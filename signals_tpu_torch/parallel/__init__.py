@@ -1,0 +1,156 @@
+"""Polyphony (``signals_tpu.parallel``).
+
+A :class:`PolyPatch` renders one voice patch as ``n_voices`` parallel
+instances with the voices riding the **channel axis**: per-voice overrides
+of scalar parameters become ``(1, V)`` rows, every kernel processes all
+voices as one wide block, and the master mix is the sum over channels.
+"""
+
+from __future__ import annotations
+
+import typing
+
+import numpy as np
+import torch
+
+from signals_tpu_torch.compiler import CompiledPatch, check_device, \
+    compile_node
+from signals_tpu_torch.graph import Emitter
+
+F32 = np.float32
+
+
+class PolyPatch:
+    """A patch rendered as ``n_voices`` parallel instances on ``device``.
+
+    ``overrides`` maps ``(node, param_name)`` to a per-voice array whose
+    leading dimension is ``n_voices``: a 1-D array puts one scalar per voice
+    into a ``(1, V)`` row, a 2-D array puts per-voice rows into a ``(V, E)``
+    array.  The overridden values are installed into the live nodes'
+    states (the patch *becomes* V-channel).  Only ``layout='channels'``
+    without a device mesh is ported.
+
+    ``mix_epilogue`` (None = on for a CUDA device) folds the voice sum into
+    the filter kernel when the patch allows it
+    (:meth:`~signals_tpu_torch.compiler.CompiledPatch.mega_mix`); otherwise
+    the plain plan renders every voice and sums them.
+
+    >>> # poly = PolyPatch(root, n_voices=64,
+    >>> #                  overrides={(hz_node, 'value'): freqs},
+    >>> #                  device='cuda')
+    >>> # audio = poly.render(n_blocks=256)
+    """
+
+    def __init__(self,
+                 root: Emitter,
+                 *,
+                 n_voices: int,
+                 overrides: dict,
+                 block_frames: int = 1024,
+                 rate: int = 44100,
+                 channels: typing.Optional[int] = None,
+                 layout: str = 'channels',
+                 mix_epilogue: typing.Optional[bool] = None,
+                 device='cpu'):
+        if layout != 'channels':
+            raise NotImplementedError(f'layout {layout!r} is not ported yet')
+        self.device = check_device(device)
+        if mix_epilogue is None:
+            mix_epilogue = self.device.type == 'cuda'
+        self.layout = layout
+        self.n_voices = n_voices
+        self._mix_epilogue = mix_epilogue
+        self._render_cache: dict[int, typing.Any] = {}
+        #: (node, pname, voice_axis, stacked array)
+        self._channel_overrides: list[tuple] = []
+        for (node, pname), values in overrides.items():
+            arr = np.asarray(values, dtype=F32)
+            if arr.shape[0] != n_voices:
+                raise ValueError(
+                    f'override for {pname!r} has leading dim '
+                    f'{arr.shape[0]}, expected n_voices={n_voices}')
+            state = node.get_state()
+            old = getattr(state, pname)
+            # an already-stacked row count is accepted too: a second
+            # PolyPatch over the same root re-installs the same layout
+            if not (isinstance(old, np.ndarray)
+                    and old.shape[0] in (1, n_voices)):
+                raise ValueError(
+                    f'channel layout requires single-row array params; '
+                    f'{pname!r} is {old!r}')
+            if arr.ndim == 1:
+                stacked, axis = arr.reshape(1, n_voices), 1
+            else:
+                stacked = np.ascontiguousarray(np.broadcast_to(
+                    arr.reshape(n_voices, -1), (n_voices, old.shape[1])))
+                axis = 0
+            setattr(state, pname, stacked)
+            self._channel_overrides.append((node, pname, axis, stacked))
+        if root.channels != n_voices:
+            raise ValueError(
+                f'patch does not propagate the voice channel axis: root '
+                f'has {root.channels} channels, expected {n_voices}')
+        self.compiled: CompiledPatch = compile_node(
+            root, block_frames=block_frames, rate=rate, channels=n_voices,
+            device=self.device)
+        self._out_channels = 1 if channels is None else channels
+
+    def set_override(self, node, pname: str, values) -> None:
+        """Update a per-voice override's values live (no recompilation)."""
+        arr = np.asarray(values, dtype=F32)
+        if arr.shape[0] != self.n_voices:
+            raise ValueError(
+                f'override for {pname!r} has leading dim {arr.shape[0]}, '
+                f'expected n_voices={self.n_voices}')
+        for i, (n, p, axis, stacked) in enumerate(self._channel_overrides):
+            if n is node and p == pname:
+                new = (arr.reshape(1, self.n_voices) if axis == 1
+                       else np.ascontiguousarray(np.broadcast_to(
+                           arr.reshape(self.n_voices, -1), stacked.shape)))
+                self._channel_overrides[i] = (n, p, axis, new)
+                setattr(node.get_state(), pname, new)
+                return
+        raise KeyError((node, pname))
+
+    def params(self) -> tuple[dict, None]:
+        """(params dict ``uid -> name -> tensor`` on the device, None) — the
+        second slot mirrors the JAX package's in_axes (vmap layout only)."""
+        return self.compiled.params(), None
+
+    def render_fn(self, n_blocks: int):
+        """``(params, position0) -> mix (n_blocks, F, out_ch)`` on the
+        mix-epilogue plan when enabled and eligible, else the plain plan
+        (cached per batch size)."""
+        if n_blocks in self._render_cache:
+            return self._render_cache[n_blocks]
+        compiled = self.compiled
+        F = compiled.block_frames
+        out_ch = self._out_channels
+        mixplan = compiled.mega_mix(n_blocks) if self._mix_epilogue else None
+        if mixplan is not None:
+            def render(params, position0):
+                mix = mixplan(params, position0)            # (n, F, 1)
+                return torch.broadcast_to(mix, (n_blocks, F, out_ch))
+        else:
+            whole = compiled.mega_core(n_blocks)
+
+            def render(params, position0):
+                blocks = whole(params, position0)           # (n, F, V)
+                mix = blocks.sum(dim=2, keepdim=True)
+                return torch.broadcast_to(mix, (n_blocks, F, out_ch))
+
+        self._render_cache[n_blocks] = render
+        return render
+
+    def render(self, *, position: int = 0, n_blocks: int = 1,
+               params: typing.Optional[dict] = None):
+        """Render the master mix: audio ``(n*F, out_ch)`` on the device.
+        ``params`` defaults to the live graph's (:meth:`params`); pass
+        e.g. :func:`signals_tpu_torch.interop.params_from_jax` output to
+        replay another engine's values."""
+        self.compiled.check_position(position, n_blocks)
+        if params is None:
+            params, _ = self.params()
+        mix = self.render_fn(n_blocks)(params, position)
+        F = self.compiled.block_frames
+        return mix.reshape(n_blocks * F, self._out_channels)
