@@ -5,14 +5,18 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Three phases; any failure raises and exits non-zero:
+Four phases; any failure raises and exits non-zero:
 
-1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` and
-   print the toolchain and the card.
+1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
+   ``nvcc`` per source, all at once) and print the toolchain and the card.
 2. **Each kernel against its plain PyTorch version** on the card, at the
-   shapes the flagship render gives it (64 lanes, F=1024, C=512, 8-block
-   carry segments, 256 blocks): the identity-cascade saw source bit-exact,
-   filtered lanes within 1e-5 max-abs, group sums within 1e-5 of their max.
+   shapes the main paths give it: the segment kernels at the flagship's
+   (64 lanes, F=1024, C=512, 8-block carry segments, 256 blocks) — the
+   identity-cascade saw source bit-exact, filtered lanes within 1e-5
+   max-abs, group sums within 1e-5 of their max; the batched replay at the
+   render-ahead shape (L = C + F = 1152, 8 windows, 16 lanes, tail F) and
+   the timeline kernel at the step shape (1152, 16), each at 1 and 2
+   sections, within 1e-5 max-abs.
 3. **The flagship render**: the 64-voice swept-subtractive PolyPatch built
    from the port's nodes, rendered on the card for 256 blocks through the
    product default (generator + mix epilogue), the per-voice plan and the
@@ -21,6 +25,18 @@ Three phases; any failure raises and exits non-zero:
    numpy pull oracle within 64 x 1e-5 raw max-abs, every render to the
    default one.  Then the render time of a 60 s batch, kernel path and
    plain path.
+4. **The per-block and render-ahead paths**, each render with its launch
+   counts reset just before it and checked just after, every block held to
+   the port's numpy pull oracle within 1e-5 per lane: (a) the mono
+   subtractive voice (``bench.py:87-128``, one channel), 60 s from 0, then
+   13 blocks from block 3 (off the carry-segment grid); (b) the
+   static-cutoff voice (``bench.py:131-162``, context 128) at 16 channels
+   through the ``Transport``: a seek to block 3, then three 8-block
+   batches, one batched-replay launch each; (c) ``step`` of that voice and
+   of a band voice (BandPass 300-3000 Hz in place of the LowPass), one
+   timeline-kernel launch each.  Then the p50 of 50 steps, the p50 per
+   block of 20 render-ahead batches and the 60 s mono render's realtime
+   factor.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -28,6 +44,7 @@ limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import subprocess
@@ -45,6 +62,9 @@ N_BLOCKS = 256      # the main-path render
 ORACLE_BLOCKS = 32
 TOL = 1e-5          # per-voice parity budget
 SECONDS = 60.0
+STATIC_CH = 16      # the render-ahead voice's width
+STATIC_C = 128      # LowPass.context_for(2000 Hz)
+AHEAD = 8           # Transport.blocks_per_call
 
 
 def run(cmd) -> str:
@@ -57,18 +77,39 @@ def poly_freqs(n):
             * (1 + 0.001 * np.arange(n))).astype(np.float32)
 
 
-def build_subtractive_voice():
-    """Saw -> LowPass (cutoff 2000 + 900*Sine(0.5 Hz)/2 via Gain/Mix) ->
-    RingMod with an ADSR gated by a 2 Hz Square -> Gain 1/V."""
-    from signals_tpu_torch.nodes.env import ADSR
+def fixed(value):
     from signals_tpu_torch.nodes.fixed import Fixed
-    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix, RingMod
-    from signals_tpu_torch.nodes.osc import Sawtooth, Sine, Square
+    f = Fixed()
+    f.get_state().value = np.atleast_2d(np.float32(value))
+    return f
 
-    def fixed(value):
-        f = Fixed()
-        f.get_state().value = np.atleast_2d(np.float32(value))
-        return f
+
+def envelope(filtered, gain):
+    """``filtered`` -> RingMod with an ADSR gated by a 2 Hz Square -> Gain
+    ``gain``."""
+    from signals_tpu_torch.nodes.env import ADSR
+    from signals_tpu_torch.nodes.fx import Gain, RingMod
+    from signals_tpu_torch.nodes.osc import Square
+    gate = Square()
+    gate.hertz = fixed(2.0)
+    env = ADSR()
+    env.gate = gate
+    st = env.get_state()
+    st.attack, st.decay, st.sustain, st.release = 0.01, 0.08, 0.6, 0.1
+    voiced = RingMod()
+    voiced.left = filtered
+    voiced.right = env
+    out = Gain()
+    out.left = voiced
+    out.right = fixed(gain)
+    return out
+
+
+def build_subtractive_voice(gain=1.0 / V):
+    """Saw -> LowPass (cutoff 2000 + 900*Sine(0.5 Hz)/2 via Gain/Mix) ->
+    RingMod with an ADSR gated by a 2 Hz Square -> Gain ``gain``."""
+    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix
+    from signals_tpu_torch.nodes.osc import Sawtooth, Sine
 
     hz = fixed(110.0)
     saw = Sawtooth()
@@ -86,19 +127,27 @@ def build_subtractive_voice():
     lp.input = saw
     lp.cutoff = cutoff
     lp.get_state().context = LowPass.context_for(550.0, RATE)
-    gate = Square()
-    gate.hertz = fixed(2.0)
-    env = ADSR()
-    env.gate = gate
-    st = env.get_state()
-    st.attack, st.decay, st.sustain, st.release = 0.01, 0.08, 0.6, 0.1
-    voiced = RingMod()
-    voiced.left = lp
-    voiced.right = env
-    out = Gain()
-    out.left = voiced
-    out.right = fixed(1.0 / V)
-    return out, hz
+    return envelope(lp, gain), hz
+
+
+def build_static_voice(band=False):
+    """The static-cutoff voice (``bench.py:131-162``) at STATIC_CH
+    pitches: saw -> LowPass 2000 Hz (context 128), or with ``band`` a
+    BandPass 300-3000 Hz -> the envelope -> Gain 1/64."""
+    from signals_tpu_torch.nodes.fx import BandPass, LowPass
+    from signals_tpu_torch.nodes.osc import Sawtooth
+    saw = Sawtooth()
+    saw.hertz = fixed(poly_freqs(STATIC_CH).reshape(1, STATIC_CH))
+    if band:
+        filt = BandPass()
+        filt.low = fixed(300.0)
+        filt.high = fixed(3000.0)
+    else:
+        filt = LowPass()
+        filt.cutoff = fixed(2000.0)
+    filt.input = saw
+    filt.get_state().context = STATIC_C
+    return envelope(filt, 1.0 / 64)
 
 
 def cuda_ms(fn, reps):
@@ -115,6 +164,24 @@ def cuda_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, kernel):
+    """Device milliseconds per call of the kernels whose name contains
+    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls (after
+    one warmup call); None when the trace holds no device time for them."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and kernel in e.name)
+    return us / reps / 1e3 if us > 0 else None
 
 
 def phase_build():
@@ -197,7 +264,71 @@ def phase_kernels():
         plain_ms = cuda_ms(lambda: plain(sum_groups=V), 1)
         print(f'[kernels] {name} sum_groups={V}, {nb} blocks: kernel '
               f'{ms:.4f} ms, plain {plain_ms:.1f} ms')
-        results[name] = (err, ms, plain_ms)
+        results[name] = (err, ms, plain_ms,
+                         device_ms(lambda: call(sum_groups=V), 5,
+                                   'seg_cascade'))
+
+    # the zero-state kernels at the shapes the per-block and render-ahead
+    # paths give them, at 1 (low-pass) and 2 (band-pass) sections
+    L = STATIC_C + F
+    x3 = torch.as_tensor(rng.standard_normal((L, AHEAD, STATIC_CH)).astype(
+        np.float32), device=dev)
+    rows, cos = {}, {}
+    for nsec, btype in ((1, 'lp'), (2, 'bp')):
+        lo = torch.as_tensor(rng.uniform(300.0, 3000.0, (1, AHEAD * STATIC_CH))
+                             .astype(np.float32), device=dev)
+        crits = (lo,) if nsec == 1 else (lo, lo * 4.0)
+        co3 = design_coupled(TorchXP(dev), btype, crits, np.float32(RATE / 2))
+        co3 = co3.reshape(nsec, AHEAD, STATIC_CH, 11).permute(
+            1, 0, 2, 3).contiguous()
+        cos[nsec] = co3
+        rows[f'batch/{nsec}'] = (
+            lambda co3=co3: K.sosfilt_batch(co3, x3, tail=F),
+            lambda co3=co3: K.sosfilt_batch_plain(co3, x3, tail=F))
+        rows[f'timeline/{nsec}'] = (
+            lambda co3=co3: K.sosfilt_timeline(co3[0], x3[:, 0]),
+            lambda co3=co3: K.sosfilt_timeline_plain(co3[0], x3[:, 0]))
+    for key, (call, plain) in rows.items():
+        name, nsec = key.split('/')
+        got, want = call(), plain()
+        err = float((got - want).abs().max())
+        print(f'[kernels] {name} {nsec} section(s) {tuple(got.shape)} vs '
+              f'plain: max abs {err!r} (tol {TOL})')
+        assert torch.isfinite(got).all() and err <= TOL, err
+        ms = cuda_ms(call, 50)
+        dev_ms = device_ms(call, 20, f'{name}_cascade')
+        plain_ms = cuda_ms(plain, 1)
+        dev_txt = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
+        print(f'[kernels] {name} {nsec} section(s): {ms:.4f} ms per call '
+              f'(CUDA events, wrapper included), device {dev_txt} '
+              f'(profiler); plain {plain_ms:.1f} ms  [{card_line()}]')
+        if nsec == '1':
+            results[name] = (err, ms, plain_ms, dev_ms)
+        else:
+            results[name] = (max(err, results[name][0]),) + results[name][1:]
+
+    # the segment gate's two sides at one shape: the render-ahead batch's
+    # windows through the timeline segment kernel instead (per-block
+    # segments over the (C + 8F, 16) timeline), 1 section
+    xt = torch.as_tensor(rng.standard_normal((L + (AHEAD - 1) * F, STATIC_CH))
+                         .astype(np.float32), device=dev)
+    co_seg = cos[1]
+    idx = (torch.arange(L, device=dev)[:, None]
+           + F * torch.arange(AHEAD, device=dev)[None, :])
+    seg = K.sosfilt_segments(co_seg, xt, n_segments=AHEAD, seg_frames=F,
+                             context=STATIC_C)
+    bat = K.sosfilt_batch(co_seg, xt[idx], tail=F).permute(1, 0, 2)
+    err = float((seg - bat).abs().max())
+    assert err <= TOL, err
+    seg_ms = device_ms(lambda: K.sosfilt_segments(
+        co_seg, xt, n_segments=AHEAD, seg_frames=F, context=STATIC_C), 20,
+        'seg_cascade')
+    bat_ms = device_ms(lambda: K.sosfilt_batch(co_seg, xt[idx], tail=F), 20,
+                       'batch_cascade')
+    print(f'[kernels] gate, render-ahead shape ({AHEAD} blocks x '
+          f'{STATIC_CH} lanes, C={STATIC_C}): segments {seg_ms} ms vs batch '
+          f'{bat_ms} ms device (profiler); outputs agree to {err!r}  '
+          f'[{card_line()}]')
     return results
 
 
@@ -229,13 +360,16 @@ def plain_kernels():
     PyTorch versions (the node lowerings look them up at call time): the
     plain path on the card, for timing it beside the kernels."""
     from signals_tpu_torch.compiler import kernels as K
-    saved = K.sosfilt_segments_gen, K.sosfilt_segments
-    K.sosfilt_segments_gen = K.sosfilt_segments_gen_plain
-    K.sosfilt_segments = K.sosfilt_segments_plain
+    names = ('sosfilt_segments_gen', 'sosfilt_segments', 'sosfilt_batch',
+             'sosfilt_timeline')
+    saved = {n: getattr(K, n) for n in names}
+    for n in names:
+        setattr(K, n, getattr(K, f'{n}_plain'))
     try:
         yield
     finally:
-        K.sosfilt_segments_gen, K.sosfilt_segments = saved
+        for n, fn in saved.items():
+            setattr(K, n, fn)
 
 
 def phase_render():
@@ -253,20 +387,15 @@ def phase_render():
     gen_off = make_poly()
     filters.SEG_SOURCE_GEN = 'auto'
     variants = (
-        ('default (generator + mix epilogue)', default,
-         {'segments_gen': 1, 'segments': 0}),
-        ('mix_epilogue=False', per_voice, {'segments_gen': 1, 'segments': 0}),
-        ('generator off (timeline kernel)', gen_off,
-         {'segments_gen': 0, 'segments': 1}),
+        ('default (generator + mix epilogue)', default, {'segments_gen': 1}),
+        ('mix_epilogue=False', per_voice, {'segments_gen': 1}),
+        ('generator off (timeline kernel)', gen_off, {'segments': 1}),
     )
     mixes, counts = {}, {}
     for name, poly, expect in variants:
-        K.reset_launch_counts()
-        mixes[name] = poly.render(n_blocks=N_BLOCKS)
-        torch.cuda.synchronize()
+        mixes[name] = launched(name, lambda: poly.render(n_blocks=N_BLOCKS),
+                               expect)
         counts[name] = dict(K.LAUNCHES)
-        print(f'[render] {name}: launches {counts[name]}')
-        assert counts[name] == expect, (name, counts[name], expect)
 
     t0 = time.perf_counter()
     want = oracle_mix(ORACLE_BLOCKS)
@@ -308,6 +437,138 @@ def phase_render():
                          variants[2][0])}
 
 
+def pull_oracle(root, n_blocks, channels):
+    """The port's numpy pull oracle: blocks 0 .. n_blocks-1 of ``root`` in
+    order (the ADSR's pull evaluation is block-monotonic)."""
+    from signals_tpu_torch.core import BlockLoc, Request, Shape
+    out = []
+    for i in range(n_blocks):
+        loc = BlockLoc(position=i * F, rate=RATE, shape=Shape(F, channels))
+        b = root.respond(Request(requestor=None, port='oracle', loc=loc))
+        out.append(np.broadcast_to(b, (F, channels)))
+    return np.concatenate(out)
+
+
+def launched(name, fn, expect, total=None):
+    """Run ``fn`` with the launch counts reset just before it; assert the
+    counts just after (every other kernel 0) and add them to ``total``.
+    Returns ``fn``'s result."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    K.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    want = {k: expect.get(k, 0) for k in counts}
+    print(f'[launches] {name}: {counts}')
+    assert counts == want, (name, counts, want)
+    if total is not None:
+        total.update(counts)
+    return out
+
+
+def held(name, got, want):
+    """``got`` within TOL per lane of the oracle ``want``."""
+    got = np.asarray(got)
+    assert got.shape == want.shape and np.isfinite(got).all(), name
+    err = float(np.abs(got - want).max())
+    print(f'[paths] {name}: vs oracle max abs {err!r} (tol {TOL}, peak '
+          f'{float(np.abs(want).max())!r})')
+    assert err <= TOL, (name, err)
+
+
+def phase_paths():
+    """The per-block and render-ahead paths through the port's entry points
+    (``compile_node``, ``render``, ``step``, ``Transport``).  Returns, per
+    zero-state kernel, ``(launches, what launched it)``."""
+    import torch
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.runtime import Transport
+    from signals_tpu_torch.utils import LatencyStats
+    card = card_line()
+    total = collections.Counter()      # launches of the K3/K4 renders
+
+    # (a) the mono subtractive voice: 60 s from 0, 13 blocks from block 3
+    mono = compile_node(build_subtractive_voice(gain=1.0 / 64)[0],
+                        block_frames=F, rate=RATE, channels=1, device='cuda')
+    assert mono.carry_seg_align == M
+    n60 = int(np.ceil(SECONDS * RATE / F / M)) * M
+    t0 = time.perf_counter()
+    want = pull_oracle(build_subtractive_voice(gain=1.0 / 64)[0], 16, 1)
+    print(f'[paths] mono oracle, 16 blocks: {time.perf_counter() - t0:.1f} s')
+    full = launched('mono 60 s from 0', lambda: mono.render(n_blocks=n60),
+                    {'segments_gen': 1}).cpu().numpy()
+    held('mono 60 s from 0, blocks 0-15', full[:16 * F], want)
+    part = launched('mono 13 blocks from block 3',
+                    lambda: mono.render(position=3 * F, n_blocks=13),
+                    {'segments_gen': 1}).cpu().numpy()
+    held('mono 13 blocks from block 3', part, want[3 * F:])
+    diff = float(np.abs(part - full[3 * F:16 * F]).max())
+    print(f'[paths] mono from block 3 vs the 60 s render, same blocks: '
+          f'max abs {diff!r}')
+    assert diff <= TOL, diff
+
+    # (b) the static voice through the Transport's render-ahead batches
+    static = compile_node(build_static_voice(), block_frames=F, rate=RATE,
+                          channels=STATIC_CH, device='cuda')
+    assert static.carry_seg_align == 1
+    want = pull_oracle(build_static_voice(), 3 + 3 * AHEAD + 1, STATIC_CH)
+    tr = Transport(static, consumer=None, blocks_per_call=AHEAD)
+    tr.seek(3 * F)
+    batches = [launched(f'Transport batch at block {3 + i * AHEAD}',
+                        lambda: tr.render(AHEAD), {'batch': 1}, total)
+               for i in range(3)]
+    held('static voice, 3 Transport batches', np.concatenate(batches),
+         want[3 * F:(3 + 3 * AHEAD) * F])
+
+    # (c) step() of the static voice and of the band voice
+    band = compile_node(build_static_voice(band=True), block_frames=F,
+                        rate=RATE, channels=STATIC_CH, device='cuda')
+    want_band = pull_oracle(build_static_voice(band=True), 28, STATIC_CH)
+    for name, patch, ref in (('static', static, want),
+                             ('band', band, want_band)):
+        params = patch.params()
+        for b in (0, 3, 27):
+            got = launched(f'{name} step at block {b}',
+                           lambda: patch.step(params, b * F),
+                           {'timeline': 1}, total)
+            held(f'{name} step at block {b}', got.cpu().numpy(),
+                 ref[b * F:(b + 1) * F])
+
+    # timings (host clock, each including the copy off the card)
+    for name, patch in (('static', static), ('band', band)):
+        params = patch.params()
+        stats = LatencyStats()
+        for i in range(51):
+            t0 = time.perf_counter()
+            patch.step(params, i * F).cpu()
+            if i:
+                stats.record(time.perf_counter() - t0)
+        print(f'[paths] {name} step, p50 of 50: {stats.p50 * 1e3:.4f} ms '
+              f'({stats.headroom(F, RATE):.1f}x realtime)  [{card}]')
+    tr = Transport(static, consumer=None, blocks_per_call=AHEAD)
+    tr.render(AHEAD)
+    tr.stats = LatencyStats()
+    for _ in range(20):
+        tr.render(AHEAD)
+    print(f'[paths] static render-ahead, p50 per block of 20 {AHEAD}-block '
+          f'batches: {tr.stats.p50 * 1e3:.4f} ms '
+          f'({tr.stats.headroom(F, RATE):.1f}x realtime)  [{card}]')
+    audio_s = n60 * F / RATE
+    ms = cuda_ms(lambda: mono.render(n_blocks=n60), 3)
+    print(f'[paths] mono 60 s render: {n60} blocks ({audio_s:.3f} s audio) '
+          f'in {ms:.3f} ms = {audio_s / (ms / 1e3):.1f}x realtime  [{card}]')
+    with plain_kernels():
+        ms = cuda_ms(lambda: mono.render(n_blocks=n60), 1)
+    print(f'[paths] mono 60 s render, plain PyTorch cascade: {ms:.1f} ms = '
+          f'{audio_s / (ms / 1e3):.1f}x realtime  [{card}]')
+    torch.cuda.synchronize()
+    return {'batch': (total['batch'], 'Transport render-ahead: static '
+                      'voice, 16 channels, 3 batches of 8 blocks'),
+            'timeline': (total['timeline'], 'step(): static and band '
+                         'voices, 3 blocks each')}
+
+
 def main() -> int:
     try:
         import torch
@@ -322,17 +583,23 @@ def main() -> int:
     assert 'jax' not in sys.modules and 'signals_tpu' not in sys.modules
     phase_build()
     kern = phase_kernels()
-    launches = phase_render()
+    launches = {name: (n, f'flagship render, {how}')
+                for name, (n, how) in phase_render().items()}
+    launches.update(phase_paths())
     assert 'jax' not in sys.modules and 'signals_tpu' not in sys.modules
-    src = 'signals_tpu_torch/compiler/csrc/segments.cu'
-    replaces = {'segments_gen': 'signals_tpu/compiler/pallas_kernels.py:1228',
-                'segments': 'signals_tpu/compiler/pallas_kernels.py:519'}
+    csrc = 'signals_tpu_torch/compiler/csrc/'
+    pk = 'signals_tpu/compiler/pallas_kernels.py:'
+    where = {'segments_gen': ('segments.cu', '1228'),
+             'segments': ('segments.cu', '519'),
+             'batch': ('rows.cu', '288'),
+             'timeline': ('rows.cu', '34')}
     print(json.dumps({'kernels': [
-        {'name': f'sosfilt_{name}', 'route': 'cuda', 'source': src,
-         'replaces': replaces[name], 'launches': launches[name][0],
-         'launched_by': f'flagship render, {launches[name][1]}',
+        {'name': f'sosfilt_{name}', 'route': 'cuda',
+         'source': csrc + where[name][0], 'replaces': pk + where[name][1],
+         'launches': launches[name][0], 'launched_by': launches[name][1],
          'max_abs_err': kern[name][0], 'ms': kern[name][1],
-         'plain_ms': kern[name][2]} for name in ('segments_gen', 'segments')]}))
+         'plain_ms': kern[name][2], 'device_ms': kern[name][3]}
+        for name in where]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

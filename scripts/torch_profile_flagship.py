@@ -1,14 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time of the port's flagship render goes, on one NVIDIA GPU.
+"""Where the time of the port's renders goes, on one NVIDIA GPU.
 
-Renders the 64-voice swept-subtractive PolyPatch (``chip_smoke.py``'s
-patch) for a 60 s batch through both plans — the mix-epilogue plan (the
-CUDA default) and the per-voice plan — and prints, per plan: the render
-time by CUDA events, and from one ``torch.profiler`` run the device-side
-events only (kernels and memory copies/sets, each counted once, not again
-under the host op that issued it): device time by name, the number of
-kernels, and the device busy share (device time over the profiled wall
-time).  Writes the full tables to ``chiprun_out/profile_flagship.txt``.
+Renders ``chip_smoke.py``'s patches through the port's entry points:
+
+* the 64-voice swept-subtractive PolyPatch, a 60 s batch, through both
+  plans (the mix-epilogue plan, the CUDA default, and the per-voice plan);
+* the mono subtractive voice, a 60 s batch;
+* the static-cutoff voice at 16 channels: one ``step`` and one 8-block
+  render-ahead batch, as the ``Transport`` renders them (each copied off
+  the card).
+
+For each it prints the time by CUDA events, and from one ``torch.profiler``
+run the device-side events only (kernels and memory copies/sets, each
+counted once, not again under the host op that issued it): device time by
+name, the number of kernels, and the device busy share (device time over
+the profiled wall time).  Writes the full tables to
+``chiprun_out/profile.txt``.
 
     python3 scripts/torch_profile_flagship.py
 """
@@ -47,47 +54,67 @@ def is_kernel(name: str) -> bool:
     return not name.startswith(('Memcpy', 'Memset'))
 
 
+def cells():
+    """``(name, render callable, audio seconds it renders)``."""
+    from signals_tpu_torch.compiler import compile_node
+    n = int(np.ceil(cs.SECONDS * cs.RATE / cs.F / cs.M)) * cs.M
+    audio_s = n * cs.F / cs.RATE
+    for name, kw in (('flagship, mix-epilogue plan', {}),
+                     ('flagship, per-voice plan', {'mix_epilogue': False})):
+        poly = cs.make_poly(**kw)
+        yield name, lambda poly=poly: poly.render(n_blocks=n), audio_s
+    mono = compile_node(cs.build_subtractive_voice(gain=1.0 / 64)[0],
+                        block_frames=cs.F, rate=cs.RATE, channels=1,
+                        device='cuda')
+    yield 'mono voice, 60 s', lambda: mono.render(n_blocks=n), audio_s
+    static = compile_node(cs.build_static_voice(), block_frames=cs.F,
+                          rate=cs.RATE, channels=cs.STATIC_CH, device='cuda')
+    params = static.params()
+    yield ('static voice, one step',
+           lambda: static.step(params, 5 * cs.F).cpu(), cs.F / cs.RATE)
+    yield ('static voice, one 8-block render-ahead batch',
+           lambda: static.render(position=8 * cs.F,
+                                 n_blocks=cs.AHEAD).cpu(),
+           cs.AHEAD * cs.F / cs.RATE)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('needs an NVIDIA GPU', file=sys.stderr)
         return 2
-    n = int(np.ceil(cs.SECONDS * cs.RATE / cs.F / cs.M)) * cs.M
-    audio_s = n * cs.F / cs.RATE
     card = cs.card_line()
     out = ROOT / 'chiprun_out'
     out.mkdir(exist_ok=True)
     lines = []
-    for name, kw in (('mix-epilogue plan', {}),
-                     ('per-voice plan', {'mix_epilogue': False})):
-        poly = cs.make_poly(**kw)
-        ms = cs.cuda_ms(lambda: poly.render(n_blocks=n), 5)
+    for name, render, audio_s in cells():
+        ms = cs.cuda_ms(render, 5)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            poly.render(n_blocks=n)
+            render()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         evts = device_events(prof)
         dev_us = sum(us for _, us in evts.values())
         n_kernels = sum(c for k, (c, _) in evts.items() if is_kernel(k))
         n_copies = sum(c for k, (c, _) in evts.items() if not is_kernel(k))
-        head = (f'{name}: {n} blocks ({audio_s:.3f} s) in {ms:.3f} ms by '
-                f'CUDA events = {audio_s / (ms / 1e3):.1f}x realtime; '
-                f'profiled: device {dev_us / 1e3:.3f} ms in {n_kernels} '
-                f'kernels + {n_copies} copies/sets over {wall_us / 1e3:.3f} '
-                f'ms wall, busy share {dev_us / wall_us:.3f}  [{card}]')
+        head = (f'{name}: {audio_s:.3f} s of audio in {ms:.3f} ms by CUDA '
+                f'events = {audio_s / (ms / 1e3):.1f}x realtime; profiled: '
+                f'device {dev_us / 1e3:.3f} ms in {n_kernels} kernels + '
+                f'{n_copies} copies/sets over {wall_us / 1e3:.3f} ms wall, '
+                f'busy share {dev_us / wall_us:.3f}  [{card}]')
         print(head)
         lines.append(head)
         ranked = sorted(evts.items(), key=lambda kv: -kv[1][1])
         for i, (key, (count, us)) in enumerate(ranked):
             row = f'  {us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}'
-            if i < 12:
+            if i < 8:
                 print(row)
             lines.append(row)
         lines.append(prof.key_averages().table(
             sort_by='self_cpu_time_total', row_limit=40))
-    (out / 'profile_flagship.txt').write_text('\n'.join(lines) + '\n')
+    (out / 'profile.txt').write_text('\n'.join(lines) + '\n')
     return 0
 
 

@@ -5,7 +5,8 @@ keeps its lowering design — node kernels evaluated against a lowering
 context, memoized per ``(node, window)`` so fan-out is shared — but runs it
 eagerly: a render lowers the whole batch as ONE multi-block window on the
 target device, with the filter cascade in the hand-written segment kernels
-(:mod:`signals_tpu_torch.compiler.kernels`).
+(:mod:`signals_tpu_torch.compiler.kernels`).  A per-block step
+(:meth:`CompiledPatch.step`) lowers one block the same way.
 
 * **Windows.**  A request is a static ``Window(offset, frames, stride)``
   relative to the render position: the main window spans the batch,
@@ -17,10 +18,17 @@ target device, with the filter cascade in the hand-written segment kernels
   ``enabled``, envelope times) are parameter tensors, editable without
   recompiling; structural state is keyed by the canonical graph hash.
 
+* **Carry segments.**  Swept-cutoff filters carry state across segments
+  of ``m`` blocks aligned to absolute multiples of ``m`` blocks; a window
+  that starts inside a segment is widened back to the segment's start by
+  the filter itself (:meth:`~signals_tpu_torch.nodes.fx.CritFilter.
+  _family_compute`), so a render may start at any block.
+
 Ported so far: carry-free patches (no delays, host sources, taps or
-stateful nodes other than the grid-lowered ADSR), rendered through two
-plans — the plain whole-window plan (:meth:`CompiledPatch.mega_core`) and
-the mix-epilogue plan (:meth:`CompiledPatch.mega_mix`).
+stateful nodes other than the grid-lowered ADSR), rendered through three
+plans — the per-block step (:meth:`CompiledPatch.step`), the plain
+whole-window plan (:meth:`CompiledPatch.mega_core`) and the mix-epilogue
+plan (:meth:`CompiledPatch.mega_mix`).
 """
 
 from __future__ import annotations
@@ -294,13 +302,22 @@ class LowerCtx(KernelCtx):
     @property
     def block_grid(self):
         """``(block_frames, n_blocks)`` when this window is a contiguous run
-        of whole blocks (the render windows), else None.  Kernels with
-        block-rate internals (filters) branch on it."""
+        of more than one whole block (a multi-block render window), else
+        None — as in the JAX package, a one-block window (the per-block
+        step) is not a grid.  Kernels with block-rate internals (filters)
+        branch on it."""
         w = self.window
         F = self.compiler.block_frames
-        if w.stride == 1 and w.frames % F == 0 and w.offset % F == 0:
+        if (w.stride == 1 and w.frames > F and w.frames % F == 0
+                and w.offset % F == 0):
             return F, w.frames // F
         return None
+
+    def at_window(self, offset: int, frames: int) -> 'LowerCtx':
+        """A sibling ctx for the same node at another window (window
+        coordinates) — how a filter widens its window back to a carry
+        segment's start."""
+        return LowerCtx(self.compiler, self.node, Window(offset, frames))
 
     @property
     def _frame_ints(self):
@@ -349,11 +366,12 @@ class LowerCtx(KernelCtx):
         return self.compiler.lower(inp, Window(self.window.offset, 1))
 
     def in_block_rate_grid(self, name: PortName):
-        """Raw per-block control samples ``(n_blocks, ch)`` of a multi-block
-        window (for kernels that consume block-rate values structurally,
-        e.g. filter coefficient design)."""
+        """Raw per-block control samples ``(n_blocks, ch)`` of a window of
+        whole blocks (for kernels that consume block-rate values
+        structurally, e.g. filter coefficient design)."""
         inp = self._input(name)
-        F, n_blocks = self.block_grid
+        F = self.compiler.block_frames
+        n_blocks = self.window.frames // F
         if inp is None:
             return self._zeros(n_blocks)
         g = self.compiler.lower(
@@ -400,8 +418,8 @@ class LowerCtx(KernelCtx):
         return self.compiler.node_param(self.node, name)
 
     def sosfilt(self, coeffs, x):
-        raise CompileError('zero-state filtering outside a block window is '
-                           'not ported')
+        from signals_tpu_torch.compiler import filters as _filters
+        return _filters.sosfilt(coeffs, x)
 
 
 class _Compiler:
@@ -513,9 +531,9 @@ class _Compiler:
 class CompiledPatch:
     """A patch compiled at fixed (block_frames, rate, channels, device).
 
-    ``render_core(n_blocks)`` returns the render callable;
-    ``params()`` re-reads traced state off the live graph, so node edits
-    apply without recompiling.
+    ``step(params, position)`` renders one block, ``render_core(n_blocks)``
+    returns the multi-block render callable; ``params()`` re-reads traced
+    state off the live graph, so node edits apply without recompiling.
     """
 
     def __init__(self, root: Emitter, *, block_frames: int, rate: int,
@@ -542,10 +560,12 @@ class CompiledPatch:
 
     @property
     def carry_seg_align(self) -> int:
-        """Blocks-per-segment alignment the patch's SWEPT-carry filters
-        impose on render windows (1 = none): the lcm of every filter's
-        ``swept_carry_m``.  Render windows start on absolute multiples of
-        this many blocks and hold whole segments."""
+        """Blocks per carry segment of the patch's SWEPT-carry filters (1 =
+        none): the lcm of every filter's ``swept_carry_m``.  A render that
+        starts off a multiple of this many blocks widens each swept filter's
+        window back to its segment start (at most ``align - 1`` extra
+        blocks); :class:`~signals_tpu_torch.runtime.Transport` re-aligns
+        its batches after such a seek."""
         import math as _math
         from signals_tpu_torch.compiler import filters as _filters
         from signals_tpu_torch.nodes.fx import CritFilter
@@ -558,32 +578,37 @@ class CompiledPatch:
                 m = m * mm // _math.gcd(m, mm)
         return m
 
-    def _window_blocks(self, n_blocks: int) -> int:
-        """Blocks the render window spans: ``n_blocks`` rounded up to
-        whole carry segments (the extra blocks are the timeline's causal
-        continuation and are dropped)."""
-        align = self.carry_seg_align
-        return -(-n_blocks // align) * align
-
     def _compiler(self, params, position: int) -> _Compiler:
         comp = _Compiler(self.index)
         comp.params = params
         comp.position = position
         return comp
 
+    def step(self, params, position: int):
+        """One block at ``position`` (any block multiple), lowered at
+        ``Window(0, F)``: returns ``(F, ch)`` on the patch's device.  Every
+        patch the port lowers is carry-free, so there is no carry in or out.
+        Filters take their per-block paths: zero-state replay of each
+        block's context (:func:`~signals_tpu_torch.compiler.kernels.
+        sosfilt_timeline`), or, for swept cutoffs, one segment-kernel call
+        over the block's carry segment up to it."""
+        F = self.block_frames
+        block = self._compiler(params, position).lower(self.root,
+                                                       Window(0, F))
+        return torch.broadcast_to(block, (F, self.channels))
+
     def mega_core(self, n_blocks: int):
         """The plain plan ``(params, position0) -> blocks (n, F, ch)``: the
-        whole batch lowers as ONE window of whole carry segments — controls
-        as per-block grid samples, each filter as one segment-kernel call
-        writing ``(n_blocks, F, V)``, the downstream nodes elementwise."""
+        whole batch lowers as ONE window — controls as per-block grid
+        samples, each filter as one kernel call writing ``(n_blocks, F,
+        V)``, the downstream nodes elementwise."""
         F = self.block_frames
-        S = self._window_blocks(n_blocks)
 
         def many(params, position0: int):
             comp = self._compiler(params, position0)
-            block = comp.lower(self.root, Window(0, S * F))
-            block = torch.broadcast_to(block, (S * F, self.channels))
-            return block[:n_blocks * F].reshape(n_blocks, F, self.channels)
+            block = comp.lower(self.root, Window(0, n_blocks * F))
+            block = torch.broadcast_to(block, (n_blocks * F, self.channels))
+            return block.reshape(n_blocks, F, self.channels)
 
         return many
 
@@ -620,16 +645,15 @@ class CompiledPatch:
         if f.channels != V or not _voice_linear_to_root(f, self.root):
             return None
         F = self.block_frames
-        S = self._window_blocks(n_blocks)
-        main = Window(0, S * F)
+        main = Window(0, n_blocks * F)
         inv_v = F32(1.0 / V)
         dependent = _downstream(f)
 
         def many_mix(params, position0: int):
             comp = self._compiler(params, position0)
-            ysum = f.family_sum(LowerCtx(comp, f, main), (F, S))
+            ysum = f.family_sum(LowerCtx(comp, f, main), (F, n_blocks))
             ys = torch.where(comp.node_param(f, 'enabled'),
-                             ysum.reshape(S * F, 1),
+                             ysum.reshape(n_blocks * F, 1),
                              torch.zeros((), device=self.device))
             shared: dict = {}
 
@@ -647,7 +671,7 @@ class CompiledPatch:
             s0 = sub_sum(0.0)
             s1 = sub_sum(1.0)
             mix = (s1 - s0) * (ys * inv_v) + s0
-            return mix[:n_blocks * F].reshape(n_blocks, F, 1)
+            return mix.reshape(n_blocks, F, 1)
 
         return many_mix
 
@@ -659,29 +683,29 @@ class CompiledPatch:
         return self._render_cache[n_blocks]
 
     def check_position(self, position: int, n_blocks: int) -> None:
-        """Render starts must be block-aligned and, for swept-carry
-        filters, on an absolute carry-segment boundary: the port renders
-        no per-block alignment prefix (the JAX package does), so an
-        unaligned start raises instead of diverging from the semantics."""
+        """Render starts must be whole blocks, and every frame a render
+        touches (up to the end of its last carry segment, plus one block)
+        must stay addressable by an int32 frame index.  Any block may
+        start a render: swept filters widen their windows back to the
+        segment start themselves."""
         F = self.block_frames
         if position % F:
             raise ValueError(f'position {position} is not a multiple of the '
                              f'block size {F}')
         align = self.carry_seg_align
-        if (position // F) % align:
-            raise ValueError(
-                f'position {position} is not on a {align}-block carry-segment '
-                f'boundary ({align * F} frames); swept-cutoff filters render '
-                f'from aligned starts only')
-        end = position + (self._window_blocks(n_blocks) + 1) * F
-        if end > np.iinfo(np.int32).max:
+        last = -(-(position // F + n_blocks) // align) * align
+        if (last + 1) * F > np.iinfo(np.int32).max:
             raise ValueError(f'frames past {np.iinfo(np.int32).max} are not '
                              f'addressable (int32 frame index)')
 
     def render(self, *, position: int = 0, n_blocks: int = 1):
-        """Render ``n_blocks`` blocks; returns audio ``(n*F, ch)`` on the
-        patch's device."""
+        """Render ``n_blocks`` blocks from ``position`` (any block
+        multiple; one block goes through :meth:`step`); returns audio
+        ``(n*F, ch)`` on the patch's device.  The output equals the
+        oracle's absolute-aligned semantics at any start."""
         self.check_position(position, n_blocks)
+        if n_blocks == 1:
+            return self.step(self.params(), position)
         blocks = self.render_core(n_blocks)(self.params(), position)
         return blocks.reshape(n_blocks * self.block_frames, self.channels)
 

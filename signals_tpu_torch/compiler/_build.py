@@ -1,10 +1,12 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources are compiled at first use with ``nvcc`` into a shared library
-with a plain C interface, which is loaded with :mod:`ctypes`.  The library
-lands in ``build/torch_ext/`` at the repository root, named by a hash of
-the sources and flags, so an edited source never loads a stale build.
-Nothing here runs at import time: the CPU-only tests import every module.
+with a plain C interface, which is loaded with :mod:`ctypes`.  Each source
+compiles to its own object file, all ``nvcc`` processes started together,
+and one more ``nvcc`` links them.  The library lands in ``build/torch_ext/``
+at the repository root, named by a hash of the sources, the headers and the
+flags, so an edited source never loads a stale build.  Nothing here runs at
+import time: the CPU-only tests import every module.
 
 A failed build raises :class:`KernelBuildError` with the compiler's output;
 there is no fallback.
@@ -22,8 +24,10 @@ import typing
 
 _CSRC = pathlib.Path(__file__).parent / 'csrc'
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / 'build' / 'torch_ext'
-NVCC_FLAGS = ('-O3', '-std=c++17', '-gencode=arch=compute_90a,code=sm_90a',
-              '-shared', '-Xcompiler', '-fPIC')
+ARCH_FLAGS = ('-gencode=arch=compute_90a,code=sm_90a',)
+COMPILE_FLAGS = ('-O3', '-std=c++17', *ARCH_FLAGS, '-Xcompiler', '-fPIC',
+                 '-c')
+LINK_FLAGS = ('-shared', *ARCH_FLAGS)
 
 _lib: typing.Optional[ctypes.CDLL] = None
 
@@ -49,12 +53,26 @@ def _sources() -> list[pathlib.Path]:
     return sorted(_CSRC.glob('*.cu'))
 
 
-def _target(flags: tuple[str, ...]) -> pathlib.Path:
-    h = hashlib.sha256(' '.join(flags).encode())
-    for src in _sources():
+def _digest() -> str:
+    h = hashlib.sha256(' '.join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for src in sorted(_CSRC.glob('*.cu*')):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f'libsignals_kernels_{h.hexdigest()[:16]}.so'
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands concurrently; raise with the output of the first
+    that fails, else return all their output."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise KernelBuildError(f'nvcc failed ({p.returncode}):\n'
+                                   f'{" ".join(cmd)}\n{out}')
+    return ''.join(outs)
 
 
 def build(*, verbose: bool = False) -> tuple[pathlib.Path, str]:
@@ -62,19 +80,24 @@ def build(*, verbose: bool = False) -> tuple[pathlib.Path, str]:
     return ``(library path, compiler output)``.  ``verbose`` adds
     ``-Xptxas -v``, whose per-kernel register and spill report is part of
     the returned output (the binary is the same either way)."""
-    target = _target(NVCC_FLAGS)
-    flags = NVCC_FLAGS + (('-Xptxas', '-v') if verbose else ())
+    digest = _digest()
+    target = BUILD_DIR / f'libsignals_kernels_{digest}.so'
     if target.is_file():
         return target, ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    tag = f'{digest}.{os.getpid()}'
+    objs = [BUILD_DIR / f'{src.stem}_{tag}.o' for src in _sources()]
+    extra = ('-Xptxas', '-v') if verbose else ()
+    out = _run_all([[nvcc, *COMPILE_FLAGS, *extra, '-o', str(obj), str(src)]
+                    for src, obj in zip(_sources(), objs)])
     tmp = target.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [nvcc_path(), *flags, '-o', str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(f'nvcc failed ({proc.returncode}):\n'
-                               f'{" ".join(cmd)}\n{proc.stdout}{proc.stderr}')
+    out += _run_all([[nvcc, *LINK_FLAGS, '-o', str(tmp),
+                      *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, target)
-    return target, proc.stdout + proc.stderr
+    return target, out
 
 
 def library() -> ctypes.CDLL:
@@ -84,12 +107,16 @@ def library() -> ctypes.CDLL:
         path, _ = build()
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sosfilt_segments_launch.argtypes = [p, p, p, p, i, i, i, i, i,
+        lib.sosfilt_segments_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
                                                 i, p]
         lib.sosfilt_segments_launch.restype = i
         lib.sosfilt_segments_gen_launch.argtypes = [p, p, p, f, i, p, p, p,
-                                                    i, i, i, i, i, i, p]
+                                                    i, i, i, i, i, i, i, p]
         lib.sosfilt_segments_gen_launch.restype = i
+        lib.sosfilt_timeline_launch.argtypes = [p, p, p, i, i, i, p]
+        lib.sosfilt_timeline_launch.restype = i
+        lib.sosfilt_batch_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.sosfilt_batch_launch.restype = i
         lib.signals_partial_width.argtypes = [i, i]
         lib.signals_partial_width.restype = i
         lib.signals_cuda_error_string.argtypes = [i]

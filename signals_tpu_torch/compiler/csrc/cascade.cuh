@@ -1,0 +1,66 @@
+// The coupled-form biquad cascade shared by every kernel of this directory
+// (the counterpart of _run_cascade in signals_tpu/compiler/pallas_kernels.py),
+// so that their numerics cannot drift apart.
+//
+// Per section and row:
+//   y = d0 x + d1 s1 + d2 s2;  s1' = rc s1 - rs s2 + x;  s2' = rs s1 + rc s2
+// NSEC sections run back to back on each row with all taps and state in
+// registers.  The multiply-adds are left to nvcc's default contraction
+// (--fmad=true), which changes results only at f32 round-off.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace signals {
+
+constexpr int kChunk = 32;     // rows per register chunk (and per flush)
+constexpr int kMaxTile = 128;  // threads (lanes) per block, at most
+
+struct Taps { float rc, rs, d0, d1, d2; };
+
+template <int NSEC>
+struct Cascade {
+    Taps tp[NSEC];
+    float s1[NSEC], s2[NSEC];
+
+    __device__ __forceinline__ void reset() {
+#pragma unroll
+        for (int s = 0; s < NSEC; ++s) s1[s] = s2[s] = 0.f;
+    }
+
+    // Taps of every section from an 11-column design_coupled row layout:
+    // section s of this lane starts at c + s * sec_stride.
+    __device__ __forceinline__ void load(const float* __restrict__ c,
+                                         int64_t sec_stride) {
+#pragma unroll
+        for (int s = 0; s < NSEC; ++s) {
+            const float* r = c + s * sec_stride;
+            tp[s] = Taps{r[6], r[7], r[8], r[9], r[10]};
+        }
+    }
+
+    __device__ __forceinline__ float step(float v) {
+#pragma unroll
+        for (int s = 0; s < NSEC; ++s) {
+            const Taps& t = tp[s];
+            const float y = t.d0 * v + t.d1 * s1[s] + t.d2 * s2[s];
+            const float n1 = t.rc * s1[s] - t.rs * s2[s] + v;
+            const float n2 = t.rs * s1[s] + t.rc * s2[s];
+            s1[s] = n1;
+            s2[s] = n2;
+            v = y;
+        }
+        return v;
+    }
+};
+
+// Threads per block for a launch over `lanes` independent lanes: at most
+// kMaxTile, never more than the lanes rounded up to a warp.
+inline int lane_tile(int lanes) {
+    const int cap = lanes < kMaxTile ? lanes : kMaxTile;
+    return (cap + 31) / 32 * 32;
+}
+
+}  // namespace signals

@@ -5,17 +5,18 @@
 //     (the oscillator input is synthesized in registers from the frame index)
 //   * seg_cascade<.., GEN=false> <- _seg_kernel, _seg_kernel_reuse /
 //     sosfilt_segments (the input is read from a timeline in memory)
-// Both run the one coupled-form biquad step (cascade_step, the counterpart of
-// _run_cascade) and the one lane-group sum (flush_group_sums, the counterpart
-// of _group_sum_chunk), so their numerics cannot drift apart.
+// Both run the one coupled-form cascade (signals::Cascade in cascade.cuh, the
+// counterpart of _run_cascade) and the one lane-group sum (flush_group_sums,
+// the counterpart of _group_sum_chunk), so their numerics cannot drift apart.
 //
 // What computes: for each carry segment u (m coefficient blocks of F frames)
 // and lane, C context rows warm the state up from zero under block u*m's
 // coefficients, then m*F rows run with per-block coefficients and the state
 // carried; only those m*F rows are written, block-major (n_blocks, F, lanes),
 // or, with sum_groups = g, the sum of each g-lane group (n_blocks, F, lanes/g).
-// One order-2 section per lane: the slice designs nothing with more.  A block
-// holds at most kMaxTile lanes; a group wider than that is summed as
+// One or two order-2 sections per lane (NSEC, as the Butterworth designs give:
+// low/high-pass 1, band-pass/band-stop 2), all in registers.  A block holds at
+// most kMaxTile lanes; a group wider than that is summed as
 // tile-wide partials, which a second small kernel (sum_partials) adds up.
 //
 // What bounds it on this card: the recurrence is serial in time, so one
@@ -35,13 +36,14 @@
 // 2.0 spike).  The cascade itself is left to nvcc's default contraction
 // (--fmad=true): that changes results only at f32 round-off.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "cascade.cuh"
 
 namespace {
 
-constexpr int kChunk = 32;     // rows per register chunk (and per flush)
-constexpr int kMaxTile = 128;  // threads (lanes) per block, at most
+using signals::Cascade;
+using signals::kChunk;
+using signals::kMaxTile;
+
 constexpr int kSinTerms = 7;   // Horner terms of sin(2*pi*y), mathx.sin2pi
 
 enum { OSC_SINE = 0, OSC_SQUARE = 1, OSC_SAW = 2, OSC_TRIANGLE = 3 };
@@ -50,8 +52,6 @@ struct GenSpec {
     double sin_c[kSinTerms];   // mathx._SIN2PI_COEFFS, passed from Python
     float inv_rate;            // 1/rate as a runtime value, never folded
 };
-
-struct Taps { float rc, rs, d0, d1, d2; };
 
 __device__ __forceinline__ float frac_rn(float v) {
     return __fsub_rn(v, floorf(v));
@@ -100,23 +100,13 @@ __device__ __forceinline__ float synth(int t, float hz, float ph, float amp,
     return __fmul_rn(amp, x);
 }
 
-// Coefficient block blk of one lane; coeffs is (n_blocks, 1, lanes, 11).
-__device__ __forceinline__ Taps load_taps(const float* __restrict__ coeffs,
+// Coefficient block blk of one lane; coeffs is (n_blocks, NSEC, lanes, 11).
+template <int NSEC>
+__device__ __forceinline__ void load_taps(Cascade<NSEC>& cas,
+                                          const float* __restrict__ coeffs,
                                           int64_t blk, int lanes, int lane) {
-    const float* c = coeffs + (blk * lanes + lane) * 11;
-    return Taps{c[6], c[7], c[8], c[9], c[10]};
-}
-
-// The coupled-form biquad section, one row:
-//   y = d0 x + d1 s1 + d2 s2;  s1' = rc s1 - rs s2 + x;  s2' = rs s1 + rc s2
-__device__ __forceinline__ float cascade_step(float v, const Taps& tp,
-                                              float& s1, float& s2) {
-    const float y = tp.d0 * v + tp.d1 * s1 + tp.d2 * s2;
-    const float n1 = tp.rc * s1 - tp.rs * s2 + v;
-    const float n2 = tp.rs * s1 + tp.rc * s2;
-    s1 = n1;
-    s2 = n2;
-    return y;
+    cas.load(coeffs + ((blk * NSEC) * lanes + lane) * 11,
+             (int64_t)lanes * 11);
 }
 
 // kChunk timeline rows of one lane from row r0 (zeros past n_rows).
@@ -157,7 +147,7 @@ __device__ __forceinline__ void flush_group_sums(
 // With sum_groups = g, each g-lane group of the tile is summed per row into
 // out (rows, lanes / g) (g never exceeds the tile here: launch() turns a
 // wider group into tile-wide partial groups that sum_partials finishes).
-template <bool GEN, int OSC>
+template <bool GEN, int OSC, int NSEC>
 __global__ void __launch_bounds__(kMaxTile)
 seg_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
             const int* __restrict__ toff, const float* __restrict__ lanef,
@@ -173,9 +163,10 @@ seg_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
     const int64_t row0 = seg * seg_total;   // first timeline/output row
     const int stride = blockDim.x + 1;      // padded sbuf row
 
-    float s1 = 0.f, s2 = 0.f;
+    Cascade<NSEC> cas;
+    cas.reset();
     int64_t blk = seg * m;
-    Taps tp = load_taps(coeffs, blk, lanes, lane_c);
+    load_taps(cas, coeffs, blk, lanes, lane_c);
     int next_switch = C + F;
 
     int t0 = 0;
@@ -205,10 +196,10 @@ seg_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
 #pragma unroll
         for (int i = 0; i < kChunk; ++i) {
             if (r0 + i == next_switch && next_switch < n_rows) {
-                tp = load_taps(coeffs, ++blk, lanes, lane_c);
+                load_taps(cas, coeffs, ++blk, lanes, lane_c);
                 next_switch += F;
             }
-            v[i] = cascade_step(v[i], tp, s1, s2);
+            v[i] = cas.step(v[i]);
         }
         // 3. the chunk's output rows [i_lo, i_hi): stores or group sums
         const int i_lo = max(C - r0, 0);
@@ -256,18 +247,18 @@ int tile_lanes(int lanes, int sum_groups) {
     return t;
 }
 
-template <bool GEN, int OSC>
-int launch(const float* coeffs, const float* x, const int* toff,
-           const float* lanef, const GenSpec& gen, float* out,
-           float* partial, int n_blocks, int lanes, int F, int C, int m,
-           int sum_groups, cudaStream_t stream) {
+template <bool GEN, int OSC, int NSEC>
+int launch_n(const float* coeffs, const float* x, const int* toff,
+             const float* lanef, const GenSpec& gen, float* out,
+             float* partial, int n_blocks, int lanes, int F, int C, int m,
+             int sum_groups, cudaStream_t stream) {
     const int tile = tile_lanes(lanes, sum_groups);
     const bool wide = sum_groups > tile;
     if (wide && partial == nullptr) return (int)cudaErrorInvalidValue;
     const dim3 grid(n_blocks / m, (lanes + tile - 1) / tile);
     const size_t smem =
         sum_groups ? (size_t)kChunk * (tile + 1) * sizeof(float) : 0;
-    seg_cascade<GEN, OSC><<<grid, tile, smem, stream>>>(
+    seg_cascade<GEN, OSC, NSEC><<<grid, tile, smem, stream>>>(
         coeffs, x, toff, lanef, gen, wide ? partial : out, lanes, F, C, m,
         wide ? tile : sum_groups);
     cudaError_t e = cudaGetLastError();
@@ -276,6 +267,25 @@ int launch(const float* coeffs, const float* x, const int* toff,
     sum_partials<<<(unsigned)((n_out + 255) / 256), 256, 0, stream>>>(
         partial, out, n_out, sum_groups / tile);
     return (int)cudaGetLastError();
+}
+
+template <bool GEN, int OSC>
+int launch(const float* coeffs, const float* x, const int* toff,
+           const float* lanef, const GenSpec& gen, float* out,
+           float* partial, int n_blocks, int nsec, int lanes, int F, int C,
+           int m, int sum_groups, cudaStream_t stream) {
+    switch (nsec) {
+    case 1:
+        return launch_n<GEN, OSC, 1>(coeffs, x, toff, lanef, gen, out,
+                                     partial, n_blocks, lanes, F, C, m,
+                                     sum_groups, stream);
+    case 2:
+        return launch_n<GEN, OSC, 2>(coeffs, x, toff, lanef, gen, out,
+                                     partial, n_blocks, lanes, F, C, m,
+                                     sum_groups, stream);
+    default:
+        return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -291,20 +301,21 @@ int signals_partial_width(int lanes, int sum_groups) {
 
 // The launchers return the cudaError_t of the launch (0 on success).
 int sosfilt_segments_launch(const float* coeffs, const float* x, float* out,
-                            float* partial, int n_blocks, int lanes, int F,
-                            int C, int m, int sum_groups, void* stream) {
+                            float* partial, int n_blocks, int nsec, int lanes,
+                            int F, int C, int m, int sum_groups,
+                            void* stream) {
     GenSpec gen{};
     return launch<false, 0>(coeffs, x, nullptr, nullptr, gen, out, partial,
-                            n_blocks, lanes, F, C, m, sum_groups,
+                            n_blocks, nsec, lanes, F, C, m, sum_groups,
                             (cudaStream_t)stream);
 }
 
 int sosfilt_segments_gen_launch(const float* coeffs, const int* toff,
                                 const float* lanef, float inv_rate, int osc,
                                 const double* sin_coeffs, float* out,
-                                float* partial, int n_blocks, int lanes,
-                                int F, int C, int m, int sum_groups,
-                                void* stream) {
+                                float* partial, int n_blocks, int nsec,
+                                int lanes, int F, int C, int m,
+                                int sum_groups, void* stream) {
     GenSpec gen{};
     for (int k = 0; k < kSinTerms; ++k) gen.sin_c[k] = sin_coeffs[k];
     gen.inv_rate = inv_rate;
@@ -312,20 +323,20 @@ int sosfilt_segments_gen_launch(const float* coeffs, const int* toff,
     switch (osc) {
     case OSC_SINE:
         return launch<true, OSC_SINE>(coeffs, nullptr, toff, lanef, gen, out,
-                                      partial, n_blocks, lanes, F, C, m,
-                                      sum_groups, st);
+                                      partial, n_blocks, nsec, lanes, F, C,
+                                      m, sum_groups, st);
     case OSC_SQUARE:
         return launch<true, OSC_SQUARE>(coeffs, nullptr, toff, lanef, gen,
-                                        out, partial, n_blocks, lanes, F, C,
-                                        m, sum_groups, st);
+                                        out, partial, n_blocks, nsec, lanes,
+                                        F, C, m, sum_groups, st);
     case OSC_SAW:
         return launch<true, OSC_SAW>(coeffs, nullptr, toff, lanef, gen, out,
-                                     partial, n_blocks, lanes, F, C, m,
-                                     sum_groups, st);
+                                     partial, n_blocks, nsec, lanes, F, C,
+                                     m, sum_groups, st);
     default:
         return launch<true, OSC_TRIANGLE>(coeffs, nullptr, toff, lanef, gen,
-                                          out, partial, n_blocks, lanes, F,
-                                          C, m, sum_groups, st);
+                                          out, partial, n_blocks, nsec,
+                                          lanes, F, C, m, sum_groups, st);
     }
 }
 

@@ -5,14 +5,18 @@ The cutoff is a *signal* sampled per block, so coefficients are designed
 inside the render from the lowered cutoff values:
 
 * :func:`design_coupled` — closed-form bilinear-transform Butterworth
-  design (order 2 low/high-pass), written against an array namespace
+  design (order-2 low/high-pass, order-4 band-pass/band-stop as two
+  sections), written against an array namespace
   (:data:`~signals_tpu_torch.core.xp.NP` or a
   :class:`~signals_tpu_torch.core.xp.TorchXP`).  The design math runs in
   **float64** in both engines and rounds to float32 once, so the
   coefficients are bit-identical across engines; the coupled taps involve a
   catastrophic cancellation and are derived inside the f64 pipeline.
 * :func:`sosfilt_stream` — the stateful cascade in plain PyTorch (a loop
-  over frames), the reference the CUDA segment kernels are held to.
+  over frames), the reference the CUDA segment kernels are held to;
+* :func:`sosfilt` — the zero-state cascade of a whole timeline: the CUDA
+  kernel :func:`~signals_tpu_torch.compiler.kernels.sosfilt_timeline` on a
+  GPU, its plain version :func:`sosfilt_scan` on the CPU.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import torch
 F32 = np.float32
 
 #: filter type codes (reference ``fx.py:124-163``); the port designs the
-#: order-2 low/high-pass so far
+#: Butterworth family (the RBJ EQ types are not ported yet)
 LOWPASS, HIGHPASS, BANDPASS, BANDSTOP = 'lp', 'hp', 'bp', 'bs'
 
 _WN_MIN = 1e-5
@@ -83,24 +87,110 @@ def _design_lp_hp(xp, btype, wn):
     return xp.stack([b0, b1, b0, one, a1, a2], axis=-1)[None]  # (1, ch, 6)
 
 
+def _csqrt(xp, re, im):
+    """Principal complex sqrt via real arithmetic."""
+    mag = xp.sqrt(xp.sqrt(re * re + im * im))
+    ang = 0.5 * xp.arctan2(im, re)
+    return mag * xp.cos(ang), mag * xp.sin(ang)
+
+
+def _bilinear_pole(xp, re, im):
+    """z = (4 + s) / (4 - s) for a complex pole s, returning (Re z, |z|^2,
+    |4-s|^2) — everything the section denominator and gain need."""
+    nr, ni = 4.0 + re, im
+    dr, di = 4.0 - re, -im
+    den = dr * dr + di * di
+    zr = (nr * dr + ni * di) / den
+    zmag2 = (nr * nr + ni * ni) / den
+    return zr, zmag2, den
+
+
+def _design_band(xp, btype, w1, w2):
+    """Order-2 prototype -> order-4 band filter as two biquad sections.
+
+    scipy's zpk pipeline (buttap -> lp2bp/lp2bs -> bilinear -> sos) in
+    closed form.  Prototype poles are exp(±i 3π/4); only one of each
+    conjugate pair is tracked (sections pair conjugates).  The pre-warp is
+    ``warped = 2*fs*tan(pi*Wn/fs)`` at fs=2 (scipy convention).  The op
+    sequence is the JAX package's, so the numpy design is bit-identical.
+    """
+    warped1 = 4.0 * xp.tan((math.pi / 2) * w1)
+    warped2 = 4.0 * xp.tan((math.pi / 2) * w2)
+    bw = warped2 - warped1
+    wo2 = warped1 * warped2
+    half = 0.5 * bw
+    # one prototype pole p = exp(i 3π/4) = (-√2/2, +√2/2)
+    if btype == BANDPASS:
+        # lp2bp: u = p*bw/2 ; poles = u ± sqrt(u² - wo²)
+        ur, ui = (-_SQRT2 / 2) * half, (_SQRT2 / 2) * half
+    else:
+        # lp2bs: u = (bw/2)/p = (bw/2) * conj(p)  (|p| = 1)
+        ur, ui = (-_SQRT2 / 2) * half, -(_SQRT2 / 2) * half
+    dr = ur * ur - ui * ui - wo2
+    di = 2.0 * ur * ui
+    sr, si = _csqrt(xp, dr, di)
+    poles = [(ur + sr, ui + si), (ur - sr, ui - si)]
+    zr_list, zmag2_list, den_list = [], [], []
+    for (re, im) in poles:
+        zr, zmag2, den = _bilinear_pole(xp, re, im)
+        zr_list.append(zr)
+        zmag2_list.append(zmag2)
+        den_list.append(den)
+
+    # gain after bilinear: k_d = k_analog * prod(4 - z_analog)/prod(4 - p_analog)
+    # prod over all 4 poles = |4-P1|² |4-P2|² = den1 * den2
+    pole_prod = den_list[0] * den_list[1]
+    if btype == BANDPASS:
+        # analog zeros: two at 0 -> prod(4 - 0) = 16 ; k_analog = bw²
+        k = bw * bw * 16.0 / pole_prod
+        # digital zeros: +1, +1, -1, -1 -> numerator (z-1)(z+1) per section
+        n0s, n2s = (1.0, 1.0), (-1.0, -1.0)
+        zz = xp.zeros_like(k)
+        n1s = [zz, zz]
+    else:
+        # analog zeros: ±i wo twice -> prod = (16 + wo²)² ; k_analog = 1
+        k = (16.0 + wo2) ** 2 / pole_prod
+        # digital zeros: conj pair at (4+i wo)/(4-i wo), |z| = 1, duplicated
+        zzr = (16.0 - wo2) / (16.0 + wo2)
+        n0s, n2s = (1.0, 1.0), (1.0, 1.0)
+        n1s = [-2.0 * zzr, -2.0 * zzr]
+    sections = []
+    ones = xp.ones_like(k)
+    for idx in range(2):
+        g = k if idx == 0 else ones
+        sections.append(xp.stack(
+            [g * n0s[idx], g * n1s[idx], g * n2s[idx],
+             ones, -2.0 * zr_list[idx], zmag2_list[idx]], axis=-1))
+    return xp.stack(sections, axis=0)  # (2, ch, 6)
+
+
 def _design64(xp, btype: str, crits, nyquist):
     """Crit normalization + per-type dispatch in float64: SOS
     ``(nsec, ch, 6)``.  Cutoffs clip to the open interval (0, 1) of
     Nyquist (the reference clips to the closed one and then crashes in
-    scipy)."""
+    scipy); band crits broadcast to a common channel count."""
     f64 = xp.float64
     crits64 = [xp.astype(xp.asarray(c), f64).reshape(-1) for c in crits]
+    if len(crits64) > 1:
+        ch = max(c.shape[0] for c in crits64)
+        crits64 = [xp.broadcast_to(c, (ch,)) for c in crits64]
     nyq = xp.astype(xp.asarray(nyquist), f64)
     if btype in (LOWPASS, HIGHPASS):
         (c,) = crits64
         return _design_lp_hp(xp, btype, xp.clip(c / nyq, _WN_MIN, _WN_MAX))
+    if btype in (BANDPASS, BANDSTOP):
+        c1, c2 = crits64
+        return _design_band(xp, btype,
+                            xp.clip(c1 / nyq, _WN_MIN, _WN_MAX),
+                            xp.clip(c2 / nyq, _WN_MIN, _WN_MAX))
     raise NotImplementedError(f'filter type {btype!r} is not ported yet')
 
 
 def design_coupled(xp, btype: str, crits, nyquist):
     """Design order-2 Butterworth sections, vectorized over channels.
 
-    ``crits``: one cutoff array in hertz, ``(1, ch)``; ``nyquist``: rate/2.
+    ``crits``: one (lp/hp) or two (bp/bs) cutoff arrays in hertz, each
+    ``(1, ch)``; ``nyquist``: rate/2.
     Returns float32 ``(nsec, ch, 11)``: ``[b0 b1 b2 1 a1 a2 | rc rs d0 d1
     d2]`` — the b/a form for reference implementations plus the
     **coupled-form** parameters the cascade kernels run on.
@@ -152,3 +242,23 @@ def sosfilt_stream(coeffs, x, zi):
         x = torch.stack(ys) if ys else x
         zf.append(torch.stack([s1, s2]))
     return x, torch.stack(zf)
+
+
+def sosfilt_scan(coeffs, x):
+    """Zero-initial-state cascade in plain PyTorch: :func:`sosfilt_stream`
+    from zero state.  ``coeffs`` ``(nsec, ch, 11)`` from
+    :func:`design_coupled`; ``x`` ``(N, ch)`` (the channel axes broadcast
+    to the wider count).  The plain version of the CUDA kernel
+    :func:`~signals_tpu_torch.compiler.kernels.sosfilt_timeline`."""
+    ch = max(coeffs.shape[1], x.shape[1])
+    zi = torch.zeros((coeffs.shape[0], 2, ch), dtype=torch.float32,
+                     device=x.device)
+    return sosfilt_stream(coeffs, x, zi)[0]
+
+
+def sosfilt(coeffs, x):
+    """The zero-state cascade of a whole timeline (``signals_tpu``'s
+    ``filters.sosfilt``): the CUDA kernel for a tensor on a GPU, the plain
+    :func:`sosfilt_scan` for one on the CPU."""
+    from signals_tpu_torch.compiler.kernels import sosfilt_timeline
+    return sosfilt_timeline(coeffs, x)

@@ -1,24 +1,29 @@
-"""The segment-cascade kernels (``signals_tpu.compiler.pallas_kernels``).
+"""The cascade kernels (``signals_tpu.compiler.pallas_kernels``).
 
-Two entry points, each with a plain PyTorch version of the same signature:
+Four entry points, each with a plain PyTorch version of the same signature:
 
 * :func:`sosfilt_segments_gen` — the coupled-form biquad cascade over carry
   segments with its input synthesized from an oscillator spec (replaces the
   TPU kernel ``_seg_kernel_gen``);
 * :func:`sosfilt_segments` — the same cascade fed from a timeline in memory
-  (replaces ``_seg_kernel`` / ``_seg_kernel_reuse``).
+  (replaces ``_seg_kernel`` / ``_seg_kernel_reuse``);
+* :func:`sosfilt_batch` — the zero-state cascade over a batch of
+  independent windows, writing only each window's tail (replaces
+  ``_batch_kernel``);
+* :func:`sosfilt_timeline` — the zero-state cascade over one whole
+  timeline (replaces ``_section_kernel``, ``sosfilt_pallas``).
 
-Both take ``sum_groups = g`` (the mix epilogue: return each ``g``-lane
-group's sum instead of the lanes) and ``blocks_per_seg = m`` (carry
-segments: ``m`` coefficient blocks share one state that warms up over
-``context`` rows under the segment's first block's coefficients).
+The segment kernels take ``sum_groups = g`` (the mix epilogue: return each
+``g``-lane group's sum instead of the lanes) and ``blocks_per_seg = m``
+(carry segments: ``m`` coefficient blocks share one state that warms up
+over ``context`` rows under the segment's first block's coefficients).
 
 A wrapper runs the plain version only because its tensors lie on the CPU.
 On a CUDA tensor it launches the hand-written kernel (``csrc/segments.cu``,
-built at first use by :mod:`._build`) or raises; each launch adds one to
-:data:`LAUNCHES`.  The kernels take one order-2 section per lane (``nsec``
-= 1, all the slice designs) and lane groups of any width that divides the
-lanes.
+``csrc/rows.cu``, built at first use by :mod:`._build`) or raises; each
+launch adds one to :data:`LAUNCHES`.  The segment kernels take 1 or 2
+order-2 sections per lane (every Butterworth design), the zero-state
+kernels 1 to :data:`MAX_SECTIONS`.
 """
 
 from __future__ import annotations
@@ -28,14 +33,20 @@ import ctypes
 import numpy as np
 import torch
 
-from signals_tpu_torch.compiler.filters import sosfilt_stream
+from signals_tpu_torch.compiler.filters import sosfilt_scan, sosfilt_stream
 from signals_tpu_torch.core.mathx import _SIN2PI_COEFFS, sin2pi
 from signals_tpu_torch.core.xp import TorchXP
 
 OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
 
 #: launches of each hand-written kernel since :func:`reset_launch_counts`
-LAUNCHES = {'segments_gen': 0, 'segments': 0}
+LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0}
+
+#: sections per lane the segment kernels take (the Butterworth designs: 1
+#: for low/high-pass, 2 for band-pass/band-stop)
+SEGMENT_SECTIONS = (1, 2)
+#: most sections per lane the zero-state kernels keep in registers
+MAX_SECTIONS = 4
 
 _SIN_C = (ctypes.c_double * len(_SIN2PI_COEFFS))(*_SIN2PI_COEFFS)
 
@@ -54,8 +65,9 @@ def _check_common(coeffs, n_segments, seg_frames, context, sum_groups,
     n, nsec, lanes, _ = coeffs.shape
     if n != n_segments:
         raise ValueError(f'coeffs hold {n} blocks, expected {n_segments}')
-    if nsec != 1:
-        raise ValueError(f'{nsec} sections: the kernels take 1')
+    if nsec not in SEGMENT_SECTIONS:
+        raise ValueError(f'{nsec} sections: the segment kernels take '
+                         f'{SEGMENT_SECTIONS}')
     if seg_frames < 1 or context < 0:
         raise ValueError(f'bad geometry F={seg_frames} C={context}')
     if n_segments % blocks_per_seg:
@@ -219,8 +231,8 @@ def sosfilt_segments_gen(coeffs, toff, lanef, *, n_segments: int,
     code = lib.sosfilt_segments_gen_launch(
         coeffs.data_ptr(), toff.data_ptr(), lanef.data_ptr(),
         float(np.float32(1.0 / rate)), osc_code, _SIN_C, out.data_ptr(),
-        partial_ptr, n_segments, lanes, seg_frames, context, m, sum_groups,
-        _stream(coeffs.device))
+        partial_ptr, n_segments, coeffs.shape[1], lanes, seg_frames, context,
+        m, sum_groups, _stream(coeffs.device))
     _build.check(code, 'sosfilt_segments_gen')
     LAUNCHES['segments_gen'] += 1
     return out
@@ -285,8 +297,107 @@ def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
                                           sum_groups)
     code = lib.sosfilt_segments_launch(
         coeffs.data_ptr(), x.data_ptr(), out.data_ptr(), partial_ptr,
-        n_segments, lanes, seg_frames, context, m, sum_groups,
-        _stream(coeffs.device))
+        n_segments, coeffs.shape[1], lanes, seg_frames, context, m,
+        sum_groups, _stream(coeffs.device))
     _build.check(code, 'sosfilt_segments')
     LAUNCHES['segments'] += 1
+    return out
+
+
+# --- the zero-state cascades --------------------------------------------------
+
+
+def _check_rows_coeffs(coeffs, dims: int, layout: str):
+    if coeffs.dtype != torch.float32 or coeffs.dim() != dims \
+            or coeffs.shape[-1] != 11:
+        raise ValueError(f'coeffs must be float32 {layout}, got '
+                         f'{tuple(coeffs.shape)} {coeffs.dtype}')
+    nsec = coeffs.shape[-3]
+    if not 1 <= nsec <= MAX_SECTIONS:
+        raise ValueError(f'{nsec} sections: the zero-state kernels take 1 to '
+                         f'{MAX_SECTIONS}')
+    return nsec
+
+
+def sosfilt_timeline_plain(coeffs, x):
+    """Plain PyTorch version of :func:`sosfilt_timeline`."""
+    return sosfilt_scan(coeffs, x)
+
+
+def sosfilt_timeline(coeffs, x):
+    """Zero-state cascade over a whole ``(N, ch)`` float32 timeline with
+    coefficients ``(nsec, ch, 11)`` from ``design_coupled``; the channel
+    axes broadcast to the wider count.  Returns ``(N, ch)``.  Computes what
+    ``sosfilt_pallas`` computes (the TPU runs one section per call, the
+    kernel all sections per row; the result is the same up to rounding)."""
+    nsec = _check_rows_coeffs(coeffs, 3, '(nsec, ch, 11)')
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f'x must be float32 (N, ch), got '
+                         f'{tuple(x.shape)} {x.dtype}')
+    n, ch = x.shape[0], max(coeffs.shape[1], x.shape[1])
+    coeffs = torch.broadcast_to(coeffs, (nsec, ch, 11))
+    x = torch.broadcast_to(x, (n, ch))
+    if _device_kind(coeffs, x) == 'cpu':
+        return sosfilt_timeline_plain(coeffs, x)
+    out = torch.empty((n, ch), dtype=torch.float32, device=x.device)
+    if n * ch == 0:
+        return out
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    coeffs, x = coeffs.contiguous(), x.contiguous()
+    code = lib.sosfilt_timeline_launch(coeffs.data_ptr(), x.data_ptr(),
+                                       out.data_ptr(), nsec, ch, n,
+                                       _stream(x.device))
+    _build.check(code, 'sosfilt_timeline')
+    LAUNCHES['timeline'] += 1
+    return out
+
+
+def sosfilt_batch_plain(coeffs, x_t, *, tail=None):
+    """Plain PyTorch version of :func:`sosfilt_batch`: the windows ride the
+    channel axis of :func:`sosfilt_scan`."""
+    L, B = x_t.shape[0], x_t.shape[1]
+    nsec, ch = coeffs.shape[1], max(coeffs.shape[2], x_t.shape[2])
+    tail = L if tail is None else tail
+    co = torch.broadcast_to(coeffs, (B, nsec, ch, 11)).permute(1, 0, 2, 3)
+    x = torch.broadcast_to(x_t, (L, B, ch)).reshape(L, B * ch)
+    y = sosfilt_scan(co.reshape(nsec, B * ch, 11), x)
+    return y[L - tail:].reshape(tail, B, ch)
+
+
+def sosfilt_batch(coeffs, x_t, *, tail=None):
+    """Zero-state cascade over ``B`` independent windows.
+
+    ``x_t``: ``(L, B, ch)`` float32 — L frames of B windows (e.g. the
+    per-block context slices of a multi-block window) x ch channels;
+    ``coeffs``: ``(B, nsec, ch, 11)`` per-window ``design_coupled`` output.
+    The channel axes broadcast to the wider count.  Returns the last
+    ``tail`` rows ``(tail, B, ch)`` (all ``L`` rows by default): the first
+    ``L - tail`` rows only warm the state up and are never written."""
+    nsec = _check_rows_coeffs(coeffs, 4, '(B, nsec, ch, 11)')
+    if x_t.dim() != 3 or x_t.dtype != torch.float32:
+        raise ValueError(f'x_t must be float32 (L, B, ch), got '
+                         f'{tuple(x_t.shape)} {x_t.dtype}')
+    L, B = x_t.shape[0], x_t.shape[1]
+    if coeffs.shape[0] != B:
+        raise ValueError(f'coeffs hold {coeffs.shape[0]} windows, x_t {B}')
+    tail = L if tail is None else int(tail)
+    if not 1 <= tail <= L:
+        raise ValueError(f'tail {tail} must lie in [1, {L}]')
+    ch = max(coeffs.shape[2], x_t.shape[2])
+    coeffs = torch.broadcast_to(coeffs, (B, nsec, ch, 11))
+    x_t = torch.broadcast_to(x_t, (L, B, ch))
+    if _device_kind(coeffs, x_t) == 'cpu':
+        return sosfilt_batch_plain(coeffs, x_t, tail=tail)
+    out = torch.empty((tail, B, ch), dtype=torch.float32, device=x_t.device)
+    if B * ch == 0:
+        return out
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    coeffs, x_t = coeffs.contiguous(), x_t.contiguous()
+    code = lib.sosfilt_batch_launch(coeffs.data_ptr(), x_t.data_ptr(),
+                                    out.data_ptr(), nsec, B, ch, L, tail,
+                                    _stream(x_t.device))
+    _build.check(code, 'sosfilt_batch')
+    LAUNCHES['batch'] += 1
     return out

@@ -93,6 +93,15 @@ class TorchXP:
     def tan(self, x):
         return torch.tan(x)
 
+    def cos(self, x):
+        return torch.cos(x)
+
+    def sin(self, x):
+        return torch.sin(x)
+
+    def arctan2(self, y, x):
+        return torch.atan2(*self._pair(y, x))
+
     def mod(self, x, n):
         return torch.remainder(x, n)
 

@@ -1,13 +1,16 @@
 """Effects and filters (``signals_tpu.nodes.fx``).
 
 Elementwise effects (Mix/RingMod/Gain) lower to eager tensor ops.  The
-critically-tuned Butterworth filters keep the reference's *stateless
+critically-tuned Butterworth filters (LowPass, HighPass, BandPass,
+BandStop) keep the reference's *stateless
 context-window* semantics — re-pull context frames, filter from zero
 initial state, return the tail — with coefficients designed per block from
 the cutoff signal.  Swept (non-``Fixed``) cutoffs additionally carry state
 across multi-block segments (:meth:`CritFilter.swept_carry_m`).  In the
-compiler the cascade runs in the segment kernels of
-:mod:`signals_tpu_torch.compiler.kernels`.
+compiler the cascade runs in the kernels of
+:mod:`signals_tpu_torch.compiler.kernels`: the segment kernels or the
+batched replay over multi-block windows, the timeline kernel for a
+per-block step and for context windows.
 """
 
 from __future__ import annotations
@@ -197,11 +200,6 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
         grid = getattr(ctx, 'block_grid', None)
         if grid is not None:
             return self._mega_kernel(ctx, grid, nyquist)
-        if ctx.xp.is_torch:
-            from signals_tpu_torch.compiler import CompileError
-            raise CompileError(
-                f'{self.cls_name()} at window {ctx.window}: filters lower '
-                f'only over whole blocks in this port')
         req = getattr(ctx, 'request', None)
         if req is not None:
             # numpy pull oracle: carry engages on whole-block-aligned
@@ -212,6 +210,22 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
             if (m > 1 and loc.shape.frames % FC == 0
                     and loc.position % FC == 0):
                 return self._pull_carry_kernel(ctx, m, nyquist)
+        elif ctx.xp.is_torch:
+            w = ctx.window
+            if w.stride > 1:
+                return self._sampled_kernel(ctx, nyquist)
+            comp = ctx.compiler
+            FC = _filters.CARRY_GRID_FRAMES
+            m = self.swept_carry_m(comp.index.seg_carry_blocks)
+            if (m > 1 and comp.block_frames == FC and w.offset % FC == 0
+                    and w.frames % FC == 0):
+                # the per-block step of a swept filter: its carry segment
+                # up to this block, one segment-kernel call
+                y = self._family_compute(ctx, (FC, w.frames // FC), nyquist,
+                                         sum_groups=0)
+                return y.reshape(w.frames, y.shape[-1])
+        # per-block replay: zero-state filtering of the window and its
+        # context (the CUDA timeline kernel when compiled for a GPU)
         coeffs = _filters.design_coupled(ctx.xp, self.type_code(),
                                          self._crits(ctx), nyquist)
         x = ctx.in_context('input', self.context_frames())
@@ -265,9 +279,9 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
 
     def _mega_kernel(self, ctx, grid, nyquist):
         """Whole-window lowering: every block of the window through one
-        segment-kernel call, output ``(nb*F, ch)`` — the JAX package's
-        ``_mega_kernel`` and ``_mega_carry`` kernel branches in one (the
-        carry is the ``m`` of :meth:`_family_compute`)."""
+        kernel call, output ``(nb*F, ch)`` — the JAX package's
+        ``_mega_kernel`` and ``_mega_carry`` kernel branches in one (see
+        :meth:`_family_compute`)."""
         F_, nb = grid
         y = self._family_compute(ctx, grid, nyquist, sum_groups=0)
         return y.reshape(nb * F_, y.shape[-1])
@@ -281,26 +295,33 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
         return self._family_compute(ctx, grid, nyquist,
                                     sum_groups=self.channels)
 
-    def _family_compute(self, ctx, grid, nyquist, sum_groups: int):
-        """Per-block coefficients for the window's blocks, then ONE segment
-        kernel call: the generator-fed kernel when the input is an eligible
-        oscillator (and the compile-time ``SEG_SOURCE_GEN`` snapshot is
-        on), else the timeline kernel over the lowered input with its
-        context.  Swept crits on the carry grid run ``m``-block carry
-        segments; the window must start on an absolute segment boundary
-        and hold whole segments (the render plans guarantee it)."""
-        from signals_tpu_torch.compiler import CompileError
-        from signals_tpu_torch.compiler.kernels import sosfilt_segments
-        F_, nb = grid
-        comp = ctx.compiler
-        m = (self.swept_carry_m(comp.index.seg_carry_blocks)
-             if F_ == _filters.CARRY_GRID_FRAMES else 1)
-        start = comp.position + ctx.window.offset
-        if start % (m * F_) or nb % m:
-            raise CompileError(
-                f'{self.cls_name()}: window of {nb} blocks at frame {start} '
-                f'is not whole {m}-block carry segments')
-        C = self.context_frames()
+    @staticmethod
+    def _segment_gate(C: int, chx: int) -> bool:
+        """The JAX package's geometry gate for the timeline segment kernel
+        on a window without carry (``signals_tpu/nodes/fx.py:892-893``):
+        a 128-aligned context and a lane width of at least 32 that divides
+        128 or is a multiple of it.  Windows that fail it take the batched
+        per-block replay (:meth:`_batch_compute`), so both packages run the
+        same kernel for the same patch."""
+        return C % 128 == 0 and chx >= 32 and (128 % chx == 0
+                                               or chx % 128 == 0)
+
+    def _carry_blocks(self, ctx, nb: int) -> int:
+        """Blocks per segment of a timeline-kernel call without swept carry:
+        the largest divisor of ``nb`` within the compile-time
+        ``SEG_CARRY_BLOCKS`` snapshot when the crits are static (the
+        coefficients are the same for every block, so a longer segment only
+        warms the state up less often), else 1."""
+        if not self.crits_static():
+            return 1
+        m = min(ctx.compiler.index.seg_carry_blocks, nb)
+        while nb % m:
+            m -= 1
+        return m
+
+    def _block_coeffs(self, ctx, nb: int, nyquist):
+        """Coefficients of the window's ``nb`` blocks from per-block crit
+        samples: ``(nb, nsec, chs, 11)``."""
         xp = ctx.xp
         grids = self._crits_grid(ctx)                      # each (nb, ch_i)
         chs = max(g.shape[1] for g in grids)
@@ -309,18 +330,110 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
         coeffs = _filters.design_coupled(xp, self.type_code(), crits,
                                          nyquist)          # (nsec, nb*chs, 11)
         nsec = coeffs.shape[0]
-        co = coeffs.reshape(nsec, nb, chs, 11).permute(1, 0, 2, 3)
-        chx = max(ctx.in_channels('input') or 1, chs)
-        co = torch.broadcast_to(co, (nb, nsec, chx, 11))
-        gen = (self._gen_input_spec(chx) if comp.index.seg_source_gen
+        return coeffs.reshape(nsec, nb, chs, 11).permute(1, 0, 2, 3)
+
+    def _family_compute(self, ctx, grid, nyquist, sum_groups: int):
+        """The filter output over a window of ``nb`` whole blocks,
+        ``(nb, F, ch)`` (or ``(nb, F, 1)`` voice sums with ``sum_groups``).
+
+        * Swept crits on the carry grid (``m`` > 1): the window widens back
+          to the absolute carry-segment boundary at or before its start
+          (the segment phase is a host integer) and runs ONE segment-kernel
+          call — the segment up to the window if it is shorter than a
+          segment, else whole segments, the last one's trailing blocks the
+          timeline's causal continuation; the leading and trailing blocks
+          are dropped.  This is what the JAX package's per-block prefix and
+          ``_tv_carry_kernel`` compute, at one launch.
+        * Otherwise (static crits, ``carry = 1``, another block size): the
+          segment kernels when :meth:`_segment_gate` passes, else the
+          batched per-block replay."""
+        F_, nb = grid
+        comp = ctx.compiler
+        m = (self.swept_carry_m(comp.index.seg_carry_blocks)
+             if F_ == _filters.CARRY_GRID_FRAMES else 1)
+        chx = self.channels        # lanes: the input and crits broadcast
+        if m == 1:
+            if not self._segment_gate(self.context_frames(), chx):
+                y = self._batch_compute(ctx, grid, nyquist)
+                return y.sum(dim=-1, keepdim=True) if sum_groups else y
+            return self._segments_compute(ctx, grid, nyquist, chx, 1,
+                                          sum_groups)
+        lead = ((comp.position + ctx.window.offset) // F_) % m
+        span = lead + nb
+        per_seg = min(m, span)
+        nbp = -(-span // per_seg) * per_seg
+        wctx = ctx.at_window(ctx.window.offset - lead * F_, nbp * F_)
+        y = self._segments_compute(wctx, (F_, nbp), nyquist, chx, per_seg,
+                                   sum_groups)
+        return y[lead:lead + nb]
+
+    def _segments_compute(self, ctx, grid, nyquist, chx, m, sum_groups):
+        """Per-block coefficients for the window's blocks, then ONE segment
+        kernel call with ``m`` blocks per carry segment (the window starts
+        on a segment boundary): the generator-fed kernel when the input is
+        an eligible oscillator (and the compile-time ``SEG_SOURCE_GEN``
+        snapshot is on), else the timeline kernel over the lowered input
+        with its context."""
+        from signals_tpu_torch.compiler.kernels import sosfilt_segments
+        F_, nb = grid
+        C = self.context_frames()
+        co = self._block_coeffs(ctx, nb, nyquist)
+        co = torch.broadcast_to(co, (nb, co.shape[1], chx, 11))
+        gen = (self._gen_input_spec(chx) if ctx.compiler.index.seg_source_gen
                else None)
         if gen is not None:
             return self._family_gen(ctx, gen, co, F_, nb, C, chx, m,
                                     sum_groups)
         x = ctx.in_context('input', C)                     # (C + nb*F, ch)
+        if m == 1:
+            mc = self._carry_blocks(ctx, nb)
+            y = sosfilt_segments(co[::mc], x, n_segments=nb // mc,
+                                 seg_frames=mc * F_, context=C,
+                                 sum_groups=sum_groups)
+            return y.reshape(nb, F_, y.shape[-1])
         return sosfilt_segments(co, x, n_segments=nb, seg_frames=F_,
                                 context=C, sum_groups=sum_groups,
                                 blocks_per_seg=m)
+
+    def _batch_compute(self, ctx, grid, nyquist):
+        """Batched per-block replay (the JAX package's ``sosfilt_batch``
+        branch, ``signals_tpu/nodes/fx.py:939-958``): each block's context
+        window of ``C + F`` frames, gathered from the lowered timeline,
+        filtered from zero state with that block's coefficients, the last
+        ``F`` rows kept — ``(nb, F, ch)``."""
+        from signals_tpu_torch.compiler.kernels import sosfilt_batch
+        F_, nb = grid
+        C = self.context_frames()
+        co = self._block_coeffs(ctx, nb, nyquist)
+        x = ctx.in_context('input', C)                     # (C + nb*F, ch)
+        dev = x.device
+        idx = (torch.arange(C + F_, device=dev)[:, None]
+               + F_ * torch.arange(nb, device=dev)[None, :])
+        yt = sosfilt_batch(co, x[idx], tail=F_)            # (F, nb, ch)
+        return yt.permute(1, 0, 2)
+
+    def _sampled_kernel(self, ctx, nyquist):
+        """The filter sampled on a grid (one frame every ``stride``: the
+        block-rate side of a node under a multi-block window).  Each sample
+        is the last frame of its own ``context + 1``-frame window filtered
+        from zero state — what the per-block step computes at that frame —
+        so the windows run through one batched call with ``tail = 1``."""
+        from signals_tpu_torch.compiler.kernels import sosfilt_batch
+        w = ctx.window
+        n, C = w.frames, self.context_frames()
+        grids = self._crits(ctx)                 # sampled on w's grid
+        chs = max(g.shape[1] for g in grids)
+        crits = tuple(ctx.xp.broadcast_to(g, (n, chs)).reshape(1, -1)
+                      for g in grids)
+        coeffs = _filters.design_coupled(ctx.xp, self.type_code(), crits,
+                                         nyquist)
+        co = coeffs.reshape(coeffs.shape[0], n, chs, 11).permute(1, 0, 2, 3)
+        span = (n - 1) * w.stride + 1
+        x = ctx.at_window(w.offset, span).in_context('input', C)
+        dev = x.device
+        idx = (torch.arange(C + 1, device=dev)[:, None]
+               + w.stride * torch.arange(n, device=dev)[None, :])
+        return sosfilt_batch(co, x[idx], tail=1)[0]        # (n, ch)
 
     def _gen_input_spec(self, chx):
         """``(osc_code, osc, hz_node, phase_node)`` when this filter's
@@ -390,8 +503,42 @@ class SingleCritFilter(CritFilter, abc.ABC):
         return (ctx.in_block_rate_grid('cutoff'),)
 
 
+class DoubleCritFilter(CritFilter, abc.ABC):
+    """Band filters: two crit ports, an order-4 design as two sections."""
+    low: Receiver.BoundPort = port('low')
+    high: Receiver.BoundPort = port('high')
+
+    def _crits(self, ctx: KernelCtx) -> tuple:
+        return (ctx.in_block_rate('low'), ctx.in_block_rate('high'))
+
+    def _crits_grid(self, ctx) -> tuple:
+        return (ctx.in_block_rate_grid('low'),
+                ctx.in_block_rate_grid('high'))
+
+
 @register('signals.chain.fx.LowPass')
 class LowPass(SingleCritFilter):
 
     def type_code(self) -> str:
         return _filters.LOWPASS
+
+
+@register('signals.chain.fx.HighPass')
+class HighPass(SingleCritFilter):
+
+    def type_code(self) -> str:
+        return _filters.HIGHPASS
+
+
+@register('signals.chain.fx.BandPass')
+class BandPass(DoubleCritFilter):
+
+    def type_code(self) -> str:
+        return _filters.BANDPASS
+
+
+@register('signals.chain.fx.BandStop')
+class BandStop(DoubleCritFilter):
+
+    def type_code(self) -> str:
+        return _filters.BANDSTOP

@@ -36,4 +36,6 @@ def test_registry_keeps_reference_qualnames():
     from signals_tpu_torch.nodes import fx, osc
     assert load_signal('signals.chain.osc.Sine') is osc.Sine
     assert load_signal('signals.chain.fx.LowPass') is fx.LowPass
+    for name in ('HighPass', 'BandPass', 'BandStop'):
+        assert load_signal(f'signals.chain.fx.{name}') is getattr(fx, name)
     assert osc.Sawtooth.cls_name() == 'signals_tpu_torch.nodes.osc.Sawtooth'
