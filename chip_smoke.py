@@ -11,12 +11,16 @@ Four phases; any failure raises and exits non-zero:
    ``nvcc`` per source, all at once) and print the toolchain and the card.
 2. **Each kernel against its plain PyTorch version** on the card, at the
    shapes the main paths give it: the segment kernels at the flagship's
-   (64 lanes, F=1024, C=512, 8-block carry segments, 256 blocks) — the
-   identity-cascade saw source bit-exact, filtered lanes within 1e-5
-   max-abs, group sums within 1e-5 of their max; the batched replay at the
-   render-ahead shape (L = C + F = 1152, 8 windows, 16 lanes, tail F) and
-   the timeline kernel at the step shape (1152, 16), each at 1 and 2
-   sections, within 1e-5 max-abs.
+   (64 lanes, F=1024, C=512, 8-block carry segments) over 256 blocks and
+   over a 60 s render's 2584 (323 carry segments) — the identity-cascade
+   saw source bit-exact, filtered lanes within 1e-5 max-abs, group sums
+   within 1e-5 of their max, and each kernel's device time beside its
+   roofline bound (f32 operations at 67 TFLOP/s or bytes at 3.35 TB/s,
+   the H100 SXM's peaks) and the share of it reached; the batched replay at
+   the render-ahead shape (L = C + F = 1152, 8 windows, 16 lanes, tail F)
+   and the timeline kernel at the step shape (1152, 16), each at 1 and 2
+   sections, within 1e-5 max-abs; and the segment gate's two sides (K2 and
+   K3) at the render-ahead shape.
 3. **The flagship render**: the 64-voice swept-subtractive PolyPatch built
    from the port's nodes, rendered on the card for 256 blocks through the
    product default (generator + mix epilogue), the per-voice plan and the
@@ -65,6 +69,13 @@ SECONDS = 60.0
 STATIC_CH = 16      # the render-ahead voice's width
 STATIC_C = 128      # LowPass.context_for(2000 Hz)
 AHEAD = 8           # Transport.blocks_per_call
+# NVIDIA H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores,
+# HBM3 bandwidth
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+CASCADE_FLOP = 12   # per section and row: y (5), s1' (4), s2' (3)
+SAW_FLOP = 13       # nodes/osc.py's saw: 3 frac (2 each) and 7 mul/add
+SAW_PH0_FLOP = 10   # the same without frac(turns + ph): phase 0, hz >= 0
 
 
 def run(cmd) -> str:
@@ -166,22 +177,28 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps, kernel):
-    """Device milliseconds per call of the kernels whose name contains
-    ``kernel``, from a ``torch.profiler`` trace of ``reps`` calls (after
-    one warmup call); None when the trace holds no device time for them."""
+def device_ms(fn, reps, kernels):
+    """Device milliseconds per call of the kernels whose name contains one
+    of ``kernels``, from a ``torch.profiler`` trace of ``reps`` calls
+    (after one warmup call).  A trace that lost some of the calls' kernel
+    events (their count is not a multiple of ``reps``) is taken again, up
+    to three times; None when no trace holds them all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA and kernel in e.name)
-    return us / reps / 1e3 if us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and any(k in e.name for k in kernels)]
+        if us and len(us) % reps == 0:
+            return sum(us) / reps / 1e3
+    return None
 
 
 def phase_build():
@@ -205,16 +222,26 @@ def card_line() -> str:
                 '--format=csv,noheader']).splitlines()[0]
 
 
-def phase_kernels():
-    """Each kernel vs its plain version on the card; returns per-kernel
-    (max_abs_err, ms, plain_ms)."""
+def bound(flops, nbytes):
+    """``(ms, 'operations' | 'bytes')``: the least time the card could take
+    for ``flops`` f32 operations and ``nbytes`` bytes moved, and which of
+    the two sets it."""
+    ops_ms, bytes_ms = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
+                                                                 'bytes')
+
+
+def segment_cases(rng, nb):
+    """The segment kernels at the flagship's geometry over ``nb`` blocks
+    (``nb // M`` carry segments x V lanes, C context rows each), swept
+    per-block LowPass coefficients: ``{name: (call, plain, flops(g),
+    bytes(g))}``; ``call``/``plain`` take ``sum_groups``, ``flops``/``bytes``
+    count the work of a call with that group (0: per lane)."""
     import torch
     from signals_tpu_torch.compiler import kernels as K
     from signals_tpu_torch.compiler.filters import design_coupled
     from signals_tpu_torch.core.xp import TorchXP
     dev = torch.device('cuda')
-    rng = np.random.default_rng(0)
-    nb = N_BLOCKS
     geo = dict(n_segments=nb, seg_frames=F, context=C, blocks_per_seg=M)
     cuts = torch.as_tensor(rng.uniform(600.0, 5000.0, (1, nb * V))
                            .astype(np.float32), device=dev)
@@ -224,49 +251,104 @@ def phase_kernels():
     lanef = torch.as_tensor(np.stack([poly_freqs(V), np.zeros(V, np.float32),
                                       np.ones(V, np.float32)]), device=dev)
     gen = dict(geo, osc_code=K.OSC_SAW, rate=RATE)
-
-    # identity cascade (d0 = 1): the kernel's saw must be bit-exact
-    co_id = torch.zeros_like(co)
-    co_id[..., 8] = 1.0
-    src = K.gen_source_rows(toff, lanef, n_segments=nb // M,
-                            seg_frames=M * F, context=C, osc_code=K.OSC_SAW,
-                            rate=RATE)[:, C:].reshape(nb, F, V)
-    got_id = K.sosfilt_segments_gen(co_id, toff, lanef, **gen)
-    err_id = float((got_id - src).abs().max())
-    print(f'[kernels] segments_gen identity-cascade saw vs source rows: '
-          f'max abs {err_id!r} (must be 0.0)')
-    assert err_id == 0.0, err_id
-
-    results = {}
     x = K.gen_source_rows(toff, lanef, n_segments=1, seg_frames=nb * F,
                           context=C, osc_code=K.OSC_SAW, rate=RATE)[0]
-    cases = {
+    lane_rows = nb // M * V * (C + M * F)      # the rows the algorithm runs
+    co_bytes = co.numel() * 4
+    # the synthesis these lanes need: rows with a frame index >= 0 (the
+    # rest are zeros), at 10 or 13 operations (phase 0 and hz >= 0 or not)
+    lf, t0 = lanef.cpu().numpy(), toff.cpu().numpy().astype(np.int64)
+    first = np.arange(nb // M)[:, None] * (M * F) + t0[None, :]
+    synth_rows = (np.clip(first + C + M * F, 0, C + M * F)).sum(axis=0)
+    saw_flop = np.where((lf[1] == 0) & (lf[0] >= 0), SAW_PH0_FLOP, SAW_FLOP)
+    synth_flop = int((synth_rows * saw_flop).sum())
+
+    def out_bytes(g):
+        return nb * F * (V // g if g else V) * 4
+
+    return co, toff, lanef, gen, {
         'segments_gen': (
-            lambda **kw: K.sosfilt_segments_gen(co, toff, lanef, **gen, **kw),
-            lambda **kw: K.sosfilt_segments_gen_plain(co, toff, lanef, **gen,
-                                                      **kw)),
+            lambda g=0: K.sosfilt_segments_gen(co, toff, lanef, **gen,
+                                               sum_groups=g),
+            lambda g=0: K.sosfilt_segments_gen_plain(co, toff, lanef, **gen,
+                                                     sum_groups=g),
+            lambda g: (lane_rows * (CASCADE_FLOP + (1 if g else 0))
+                       + synth_flop),
+            lambda g: co_bytes + 4 * V * 4 + out_bytes(g)),
         'segments': (
-            lambda **kw: K.sosfilt_segments(co, x, **geo, **kw),
-            lambda **kw: K.sosfilt_segments_plain(co, x, **geo, **kw)),
+            lambda g=0: K.sosfilt_segments(co, x, **geo, sum_groups=g),
+            lambda g=0: K.sosfilt_segments_plain(co, x, **geo, sum_groups=g),
+            lambda g: lane_rows * (CASCADE_FLOP + (1 if g else 0)),
+            lambda g: co_bytes + x.numel() * 4 + out_bytes(g)),
     }
-    for name, (call, plain) in cases.items():
-        got, want = call(), plain()
-        err = float((got - want).abs().max())
-        print(f'[kernels] {name} lanes vs plain: max abs {err!r} '
-              f'(tol {TOL})')
-        assert torch.isfinite(got).all() and err <= TOL, err
-        gsum, wsum = call(sum_groups=V), plain(sum_groups=V)
-        rel = float((gsum - wsum).abs().max() / wsum.abs().max())
-        print(f'[kernels] {name} sum_groups={V} vs plain: max abs / max '
-              f'{rel!r} (tol {TOL})')
-        assert gsum.shape == (nb, F, 1) and rel <= TOL, rel
-        ms = cuda_ms(lambda: call(sum_groups=V), 20)
-        plain_ms = cuda_ms(lambda: plain(sum_groups=V), 1)
-        print(f'[kernels] {name} sum_groups={V}, {nb} blocks: kernel '
-              f'{ms:.4f} ms, plain {plain_ms:.1f} ms')
-        results[name] = (err, ms, plain_ms,
-                         device_ms(lambda: call(sum_groups=V), 5,
-                                   'seg_cascade'))
+
+
+def phase_kernels():
+    """Each kernel vs its plain version on the card; returns per kernel
+    ``{err, ms, plain_ms, device_ms, bound_ms, bound_by}`` at the shape of
+    chip_smoke's main-path render (the segment kernels at N_BLOCKS blocks,
+    sum of V)."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(0)
+    card = card_line()
+    seg_kernels = ('seg_cascade', 'sum_partials')
+    results = {}
+    for nb in (N_BLOCKS, n_blocks_60s()):
+        co, toff, lanef, gen, cases = segment_cases(rng, nb)
+        # identity cascade (d0 = 1): the kernel's saw must be bit-exact
+        co_id = torch.zeros_like(co)
+        co_id[..., 8] = 1.0
+        src = K.gen_source_rows(toff, lanef, n_segments=nb // M,
+                                seg_frames=M * F, context=C,
+                                osc_code=K.OSC_SAW,
+                                rate=RATE)[:, C:].reshape(nb, F, V)
+        got_id = K.sosfilt_segments_gen(co_id, toff, lanef, **gen)
+        err_id = float((got_id - src).abs().max())
+        print(f'[kernels] segments_gen identity-cascade saw vs source rows, '
+              f'{nb} blocks: max abs {err_id!r} (must be 0.0)')
+        assert err_id == 0.0, err_id
+        del co_id, src, got_id
+        for name, (call, plain, flops, nbytes) in cases.items():
+            got, want = call(), plain()
+            err = float((got - want).abs().max())
+            print(f'[kernels] {name} lanes vs plain, {nb} blocks: max abs '
+                  f'{err!r} (tol {TOL})')
+            assert torch.isfinite(got).all() and err <= TOL, err
+            del got, want
+            gsum, wsum = call(V), plain(V)
+            rel = float((gsum - wsum).abs().max() / wsum.abs().max())
+            print(f'[kernels] {name} sum_groups={V} vs plain, {nb} blocks: '
+                  f'max abs / max {rel!r} (tol {TOL})')
+            assert gsum.shape == (nb, F, 1) and rel <= TOL, rel
+            for g in (V, 0):
+                if g == 0 and name == 'segments':
+                    continue           # K2 serves per-lane windows too,
+                    # but its main-path call is the mix plan's sum
+                dms = device_ms(lambda: call(g), 5, seg_kernels)
+                b_ms, b_by = bound(flops(g), nbytes(g))
+                what = f'sum_groups={g}' if g else 'per lane'
+                share = 'not measured' if dms is None else f'{b_ms / dms:.3f}'
+                dtxt = 'not measured' if dms is None else f'{dms:.4f} ms'
+                print(f'[kernels] {name} {what}, {nb} blocks '
+                      f'({nb // M} carry segments x {V} lanes): device '
+                      f'{dtxt} (profiler), bound {b_ms:.4f} ms '
+                      f'({b_by}: {flops(g) / 1e9:.3f} GFLOP, '
+                      f'{nbytes(g) / 1e6:.1f} MB), share {share}  [{card}]')
+                if nb == N_BLOCKS and g == V:
+                    ms = cuda_ms(lambda: call(V), 20)
+                    plain_ms = cuda_ms(lambda: plain(V), 1)
+                    print(f'[kernels] {name} sum_groups={V}, {nb} blocks: '
+                          f'kernel {ms:.4f} ms per call (CUDA events, wrapper '
+                          f'included), plain {plain_ms:.1f} ms')
+                    results[name] = dict(err=max(err, rel), ms=ms,
+                                         plain_ms=plain_ms, device_ms=dms,
+                                         bound_ms=b_ms, bound_by=b_by)
+        del cases
+        torch.cuda.empty_cache()
 
     # the zero-state kernels at the shapes the per-block and render-ahead
     # paths give them, at 1 (low-pass) and 2 (band-pass) sections
@@ -274,8 +356,9 @@ def phase_kernels():
     x3 = torch.as_tensor(rng.standard_normal((L, AHEAD, STATIC_CH)).astype(
         np.float32), device=dev)
     rows, cos = {}, {}
+    lanes3 = AHEAD * STATIC_CH
     for nsec, btype in ((1, 'lp'), (2, 'bp')):
-        lo = torch.as_tensor(rng.uniform(300.0, 3000.0, (1, AHEAD * STATIC_CH))
+        lo = torch.as_tensor(rng.uniform(300.0, 3000.0, (1, lanes3))
                              .astype(np.float32), device=dev)
         crits = (lo,) if nsec == 1 else (lo, lo * 4.0)
         co3 = design_coupled(TorchXP(dev), btype, crits, np.float32(RATE / 2))
@@ -284,11 +367,15 @@ def phase_kernels():
         cos[nsec] = co3
         rows[f'batch/{nsec}'] = (
             lambda co3=co3: K.sosfilt_batch(co3, x3, tail=F),
-            lambda co3=co3: K.sosfilt_batch_plain(co3, x3, tail=F))
+            lambda co3=co3: K.sosfilt_batch_plain(co3, x3, tail=F),
+            L * lanes3 * CASCADE_FLOP * nsec,
+            (L + F) * lanes3 * 4 + co3.numel() * 4)
         rows[f'timeline/{nsec}'] = (
             lambda co3=co3: K.sosfilt_timeline(co3[0], x3[:, 0]),
-            lambda co3=co3: K.sosfilt_timeline_plain(co3[0], x3[:, 0]))
-    for key, (call, plain) in rows.items():
+            lambda co3=co3: K.sosfilt_timeline_plain(co3[0], x3[:, 0]),
+            L * STATIC_CH * CASCADE_FLOP * nsec,
+            2 * L * STATIC_CH * 4 + co3[0].numel() * 4)
+    for key, (call, plain, flops, nbytes) in rows.items():
         name, nsec = key.split('/')
         got, want = call(), plain()
         err = float((got - want).abs().max())
@@ -296,16 +383,20 @@ def phase_kernels():
               f'plain: max abs {err!r} (tol {TOL})')
         assert torch.isfinite(got).all() and err <= TOL, err
         ms = cuda_ms(call, 50)
-        dev_ms = device_ms(call, 20, f'{name}_cascade')
+        dev_ms = device_ms(call, 20, (f'{name}_cascade',))
         plain_ms = cuda_ms(plain, 1)
+        b_ms, b_by = bound(flops, nbytes)
         dev_txt = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
         print(f'[kernels] {name} {nsec} section(s): {ms:.4f} ms per call '
               f'(CUDA events, wrapper included), device {dev_txt} '
-              f'(profiler); plain {plain_ms:.1f} ms  [{card_line()}]')
+              f'(profiler), bound {b_ms:.6f} ms ({b_by}); plain '
+              f'{plain_ms:.1f} ms  [{card}]')
         if nsec == '1':
-            results[name] = (err, ms, plain_ms, dev_ms)
+            results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                                 device_ms=dev_ms, bound_ms=b_ms,
+                                 bound_by=b_by)
         else:
-            results[name] = (max(err, results[name][0]),) + results[name][1:]
+            results[name]['err'] = max(err, results[name]['err'])
 
     # the segment gate's two sides at one shape: the render-ahead batch's
     # windows through the timeline segment kernel instead (per-block
@@ -322,14 +413,19 @@ def phase_kernels():
     assert err <= TOL, err
     seg_ms = device_ms(lambda: K.sosfilt_segments(
         co_seg, xt, n_segments=AHEAD, seg_frames=F, context=STATIC_C), 20,
-        'seg_cascade')
+        seg_kernels)
     bat_ms = device_ms(lambda: K.sosfilt_batch(co_seg, xt[idx], tail=F), 20,
-                       'batch_cascade')
+                       ('batch_cascade',))
     print(f'[kernels] gate, render-ahead shape ({AHEAD} blocks x '
           f'{STATIC_CH} lanes, C={STATIC_C}): segments {seg_ms} ms vs batch '
           f'{bat_ms} ms device (profiler); outputs agree to {err!r}  '
-          f'[{card_line()}]')
+          f'[{card}]')
     return results
+
+
+def n_blocks_60s():
+    """Blocks of a 60 s render, rounded up to whole carry segments."""
+    return int(np.ceil(SECONDS * RATE / F / M)) * M
 
 
 def oracle_mix(n_blocks):
@@ -419,7 +515,7 @@ def phase_render():
                   f'max abs {diff!r}')
             assert diff <= budget, (name, diff)
 
-    n60 = int(np.ceil(SECONDS * RATE / F / M)) * M
+    n60 = n_blocks_60s()
     audio_s = n60 * F / RATE
     card = card_line()
     for name, poly in (('kernel path (default plan)', default),
@@ -492,7 +588,7 @@ def phase_paths():
     mono = compile_node(build_subtractive_voice(gain=1.0 / 64)[0],
                         block_frames=F, rate=RATE, channels=1, device='cuda')
     assert mono.carry_seg_align == M
-    n60 = int(np.ceil(SECONDS * RATE / F / M)) * M
+    n60 = n_blocks_60s()
     t0 = time.perf_counter()
     want = pull_oracle(build_subtractive_voice(gain=1.0 / 64)[0], 16, 1)
     print(f'[paths] mono oracle, 16 blocks: {time.perf_counter() - t0:.1f} s')
@@ -597,8 +693,13 @@ def main() -> int:
         {'name': f'sosfilt_{name}', 'route': 'cuda',
          'source': csrc + where[name][0], 'replaces': pk + where[name][1],
          'launches': launches[name][0], 'launched_by': launches[name][1],
-         'max_abs_err': kern[name][0], 'ms': kern[name][1],
-         'plain_ms': kern[name][2], 'device_ms': kern[name][3]}
+         'max_abs_err': kern[name]['err'], 'ms': kern[name]['ms'],
+         'plain_ms': kern[name]['plain_ms'],
+         'device_ms': kern[name]['device_ms'],
+         'bound_ms': kern[name]['bound_ms'],
+         'bound_by': kern[name]['bound_by'],
+         # no PyTorch call computes a recursive biquad cascade
+         'library_ms': None}
         for name in where]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

@@ -537,7 +537,7 @@ class CompiledPatch:
     """
 
     def __init__(self, root: Emitter, *, block_frames: int, rate: int,
-                 channels: int, device='cpu'):
+                 channels: int, device='cuda'):
         self.root = root
         self.block_frames = block_frames
         self.rate = rate
@@ -716,7 +716,7 @@ _COMPILE_CACHE_MAX = 32
 
 def compile_node(root: Emitter, *, block_frames: int, rate: int,
                  channels: typing.Optional[int] = None,
-                 device='cpu') -> CompiledPatch:
+                 device='cuda') -> CompiledPatch:
     """Compile (with caching keyed on the canonical graph hash, which
     includes the device) the patch rooted at ``root``."""
     if channels is None:

@@ -100,28 +100,32 @@ def build(*, verbose: bool = False) -> tuple[pathlib.Path, str]:
     return target, out
 
 
+def load(path: pathlib.Path) -> ctypes.CDLL:
+    """Load a built kernel library and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.sosfilt_segments_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
+                                            p]
+    lib.sosfilt_segments_launch.restype = i
+    lib.sosfilt_segments_gen_launch.argtypes = [p, p, p, f, i, p, p, p, i, i,
+                                                i, i, i, i, i, p]
+    lib.sosfilt_segments_gen_launch.restype = i
+    lib.sosfilt_timeline_launch.argtypes = [p, p, p, i, i, i, p]
+    lib.sosfilt_timeline_launch.restype = i
+    lib.sosfilt_batch_launch.argtypes = [p, p, p, i, i, i, i, i, p]
+    lib.sosfilt_batch_launch.restype = i
+    lib.signals_partial_width.argtypes = [i, i, i, i, i, i]
+    lib.signals_partial_width.restype = i
+    lib.signals_cuda_error_string.argtypes = [i]
+    lib.signals_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        path, _ = build()
-        lib = ctypes.CDLL(str(path))
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.sosfilt_segments_launch.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                                i, p]
-        lib.sosfilt_segments_launch.restype = i
-        lib.sosfilt_segments_gen_launch.argtypes = [p, p, p, f, i, p, p, p,
-                                                    i, i, i, i, i, i, i, p]
-        lib.sosfilt_segments_gen_launch.restype = i
-        lib.sosfilt_timeline_launch.argtypes = [p, p, p, i, i, i, p]
-        lib.sosfilt_timeline_launch.restype = i
-        lib.sosfilt_batch_launch.argtypes = [p, p, p, i, i, i, i, i, p]
-        lib.sosfilt_batch_launch.restype = i
-        lib.signals_partial_width.argtypes = [i, i]
-        lib.signals_partial_width.restype = i
-        lib.signals_cuda_error_string.argtypes = [i]
-        lib.signals_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        _lib = load(build()[0])
     return _lib
 
 

@@ -41,9 +41,11 @@ struct Cascade {
         }
     }
 
+    // One row through the first NS sections (the others keep their state).
+    template <int NS = NSEC>
     __device__ __forceinline__ float step(float v) {
 #pragma unroll
-        for (int s = 0; s < NSEC; ++s) {
+        for (int s = 0; s < NS; ++s) {
             const Taps& t = tp[s];
             const float y = t.d0 * v + t.d1 * s1[s] + t.d2 * s2[s];
             const float n1 = t.rc * s1[s] - t.rs * s2[s] + v;
@@ -53,6 +55,17 @@ struct Cascade {
             v = y;
         }
         return v;
+    }
+
+    // One row of the first section's zero-input response: step(0.f) of a
+    // one-section cascade without the input's terms.
+    __device__ __forceinline__ float free_step() {
+        const Taps& t = tp[0];
+        const float y = t.d1 * s1[0] + t.d2 * s2[0];
+        const float n1 = t.rc * s1[0] - t.rs * s2[0];
+        s2[0] = t.rs * s1[0] + t.rc * s2[0];
+        s1[0] = n1;
+        return y;
     }
 };
 

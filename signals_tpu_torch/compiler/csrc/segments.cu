@@ -1,50 +1,94 @@
-// Segment-cascade kernels for Hopper (sm_90a).
+// Segment-cascade kernels for Hopper (sm_90a): a time-sliced scan.
 //
 // Replace the Pallas TPU kernels of signals_tpu/compiler/pallas_kernels.py:
-//   * seg_cascade<.., GEN=true>  <- _seg_kernel_gen / sosfilt_segments_gen
-//     (the oscillator input is synthesized in registers from the frame index)
-//   * seg_cascade<.., GEN=false> <- _seg_kernel, _seg_kernel_reuse /
+//   * seg_cascade<GEN=true, OSC, NSEC>  <- _seg_kernel_gen /
+//     sosfilt_segments_gen (the oscillator input is synthesized in registers
+//     from the frame index)
+//   * seg_cascade<GEN=false, 0, NSEC>   <- _seg_kernel, _seg_kernel_reuse /
 //     sosfilt_segments (the input is read from a timeline in memory)
 // Both run the one coupled-form cascade (signals::Cascade in cascade.cuh, the
-// counterpart of _run_cascade) and the one lane-group sum (flush_group_sums,
-// the counterpart of _group_sum_chunk), so their numerics cannot drift apart.
+// counterpart of _run_cascade) and the one lane-group sum (sum_rows, the
+// counterpart of _group_sum_chunk), so their numerics cannot drift apart.
 //
 // What computes: for each carry segment u (m coefficient blocks of F frames)
 // and lane, C context rows warm the state up from zero under block u*m's
 // coefficients, then m*F rows run with per-block coefficients and the state
 // carried; only those m*F rows are written, block-major (n_blocks, F, lanes),
-// or, with sum_groups = g, the sum of each g-lane group (n_blocks, F, lanes/g).
+// or, with sum_groups = g, the sum of each g-lane group (n_blocks, F,
+// lanes / g).
 // One or two order-2 sections per lane (NSEC, as the Butterworth designs give:
-// low/high-pass 1, band-pass/band-stop 2), all in registers.  A block holds at
-// most kMaxTile lanes; a group wider than that is summed as
-// tile-wide partials, which a second small kernel (sum_partials) adds up.
+// low/high-pass 1, band-pass/band-stop 2), all in registers.
 //
-// What bounds it on this card: the recurrence is serial in time, so one
-// thread owns one (segment, lane) and walks C + m*F rows; with few warps per
-// SM the row loop is latency-bound, not bound by bytes or FLOPs.  Parallelism
-// comes from segments x lanes, which replaces the TPU's 1024-lane packing.
-// Rows go in chunks of kChunk: first every input of the chunk (kChunk
-// independent oscillator evaluations, which the scheduler overlaps, or the
-// chunk's rows, whose loads were issued one chunk ahead), then the serial
-// cascade over the chunk in registers, then one store or one lane-group
-// flush for the chunk.  The TPU's 8-row causal-combination form, DMA rings
-// and 128-lane tiling are not carried over.
+// What bounds it on this card.  The recurrence is serial in time.  The
+// row-loop kernel this one replaced gave one thread each (segment, lane) and
+// walked C + m*F rows (8,704 for the flagship), with no local memory in its
+// SASS: latency-bound, sum of 64 over 256 blocks x 64 lanes 1.193 ms, over
+// 2584 blocks 0.805 ms alone and 1.26 ms inside the 60 s flagship render.
+// This kernel runs ~10x more threads and is bound by instruction issue: the
+// saw's synthesis (10 ops a row at phase 0, 13 otherwise), two cascade
+// passes (7 + 6 ops) and the group sums (a shared-memory store and load per
+// lane-row and pass).  Measured on an H100 SXM (700 W), sum of 64: 256
+// blocks 0.061 ms, 2584 blocks 0.353 ms (0.345 ms in the render); its
+// roofline bound is 0.0061 / 0.0618 ms of f32 operations (chip_smoke.py
+// phase 2, scripts/torch_profile_flagship.py).
+//
+// The design: one section is a complex first-order recurrence.  With
+// s = s1 + i*s2 and p = rc + i*rs, cascade.cuh's step is s' = p*s + x, an
+// affine map that composes over any run of rows, across coefficient changes
+// too.  So each carry segment's rows are cut into slices of `slice` rows (a
+// multiple of kRows), one thread per (slice, lane):
+//   1. each thread runs its slice from zero state and keeps its end state e
+//      and its transfer a, the product of the rows' p (per kRows-row chunk
+//      p^kRows, computed when the coefficients change);
+//   2. a Hillis-Steele scan of the pairs (a, e) in shared memory over the
+//      segment's slices, (a2, e2) after (a1, e1) = (a2*a1, a2*e1 + e2), gives
+//      each slice its true start state;
+//   3. each thread replays its slice from that state and writes its rows.
+// With two sections, 1-2 run per section: section 2's scan pass replays
+// section 1 from its true start.  Group sums of one section take another
+// step 3: the cascade is linear in (state, input), so step 1 also writes the
+// sums of the zero-start outputs and step 3 adds the sums of the true start
+// state's zero-input response (free_step), which makes or reads no input.
+// A block holds lt lanes (a power of two up to 32, lanes fastest, so row
+// loads and stores coalesce) x all the slices of one segment; plan() picks
+// lt and the slice length from the geometry and the card's SMs so that a
+// launch has ~fill_threads() threads and slices of at least kMinSlice
+// rows.  Rows go in chunks of kRows: first the chunk's inputs (independent
+// of each other, straight-line code), then the serial cascade; the
+// coefficient switch is tested once per chunk, and only a chunk that holds a
+// block boundary checks per row.
+//
+// Group sums: each warp writes a chunk's rows to shared memory and sums each
+// row's h-lane subgroup (h = the largest power of two dividing g, at most lt)
+// with serial adds in lane order, split over at most two threads joined by a
+// fixed shuffle: no atomics, so a render is the same bits every time.  A group
+// wider than h is written as h-lane partials that sum_partials finishes.
 //
 // Rounding: the generator's phase chain uses the __f*_rn intrinsics, which
-// nvcc never contracts into an FMA, so it rounds exactly like
-// signals_tpu_torch/nodes/osc.py (a one-ulp phase error at a saw wrap is a
-// 2.0 spike).  The cascade itself is left to nvcc's default contraction
-// (--fmad=true): that changes results only at f32 round-off.
+// nvcc never contracts into an FMA (the saw's one explicit FMA and the
+// floor-free fractions round as the op sequence does, see synth), so it
+// rounds exactly like signals_tpu_torch/nodes/osc.py (a one-ulp phase error
+// at a saw wrap is a 2.0 spike).  The cascade and the scan are left to
+// nvcc's default contraction (--fmad=true): that changes results only at f32
+// round-off.
+
+#include <algorithm>
+#include <atomic>
+#include <climits>
 
 #include "cascade.cuh"
 
 namespace {
 
 using signals::Cascade;
-using signals::kChunk;
-using signals::kMaxTile;
 
-constexpr int kSinTerms = 7;   // Horner terms of sin(2*pi*y), mathx.sin2pi
+constexpr int kSinTerms = 7;         // Horner terms of sin(2*pi*y), mathx.sin2pi
+constexpr int kRows = 16;            // rows per register chunk
+constexpr int kRowsLog = 4;
+static_assert(kRows == 1 << kRowsLog, "kRows is 2^kRowsLog");
+constexpr int kMaxThreads = 512;     // threads per block, at most
+constexpr int kMinSlice = 64;        // rows per slice, at least
+constexpr int kPad = 33;             // padded shared row of the group sums
 
 enum { OSC_SINE = 0, OSC_SQUARE = 1, OSC_SAW = 2, OSC_TRIANGLE = 3 };
 
@@ -55,6 +99,13 @@ struct GenSpec {
 
 __device__ __forceinline__ float frac_rn(float v) {
     return __fsub_rn(v, floorf(v));
+}
+
+// frac_rn(v) for |v| <= 0.5 without floorf (a conversion instruction, at a
+// quarter of the FMA rate): v, or v + 1 where v < 0; adding 0 turns a -0
+// into the +0 that v - floor(v) gives.
+__device__ __forceinline__ float frac_small(float v) {
+    return __fadd_rn(v, v < 0.f ? 1.f : 0.f);
 }
 
 __device__ __forceinline__ float sign_f(float v) {
@@ -77,28 +128,67 @@ __device__ __forceinline__ float sin2pi_f64(float t, const GenSpec& g) {
 
 // One oscillator sample at absolute frame t: nodes/osc.py's op sequence,
 // (t * inv_rate) * hz reduced with x - floor(x), then the phase offset.
-template <int OSC>
+// Straight-line code (a select, not a branch, for t < 0), so that the
+// scheduler can interleave the independent rows of a chunk.  PH0: the lane
+// has ph == 0 and hz >= 0, where (for t >= 0) turns is exact in [0, 1), so
+// frac_rn(turns + ph) is turns itself.
+template <int OSC, bool PH0>
 __device__ __forceinline__ float synth(int t, float hz, float ph, float amp,
                                        const GenSpec& g) {
-    if (t < 0) return 0.f;
     const float tf = __int2float_rn(t);
     const float turns = frac_rn(__fmul_rn(__fmul_rn(tf, g.inv_rate), hz));
-    const float tt = frac_rn(__fadd_rn(turns, ph));
+    const float tt = PH0 ? turns : frac_rn(__fadd_rn(turns, ph));
     float x;
     if (OSC == OSC_SINE) {
         x = sin2pi_f64(tt, g);
     } else if (OSC == OSC_SQUARE) {
         x = sign_f(__fsub_rn(0.5f, frac_rn(tt)));
     } else if (OSC == OSC_SAW) {
-        x = __fsub_rn(__fmul_rn(2.f, frac_rn(__fsub_rn(tt, 0.5f))), 1.f);
+        // 2 * frac is exact, so the fused 2 * frac - 1 rounds as the two ops
+        x = __fmaf_rn(2.f, frac_small(__fsub_rn(tt, 0.5f)), -1.f);
     } else {  // OSC_TRIANGLE
         const float t3 = __fsub_rn(tt, 0.25f);
         const float half = __fmul_rn(0.5f, frac_rn(__fmul_rn(t3, 2.f)));
         x = __fmul_rn(__fsub_rn(__fmul_rn(4.f, half), 1.f),
                       sign_f(__fsub_rn(frac_rn(t3), 0.5f)));
     }
-    return __fmul_rn(amp, x);
+    return t < 0 ? 0.f : __fmul_rn(amp, x);
 }
+
+struct Cplx { float re, im; };
+
+__device__ __forceinline__ Cplx cmul(Cplx a, Cplx b) {
+    return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
+}
+
+// p^kRows by squaring (kRows is a power of two).
+__device__ __forceinline__ Cplx pow_rows(Cplx p) {
+#pragma unroll
+    for (int n = 1; n < kRows; n *= 2) p = cmul(p, p);
+    return p;
+}
+
+// The geometry of one launch (plan() on the host).
+struct Geo {
+    int lanes, F, C, m;
+    int n_rows;      // C + m*F rows per carry segment
+    int lt, lt_log;  // lanes per block (a power of two, at most 32), log2
+    int slice;       // rows per slice, a multiple of kRows
+    int n_slices;    // slices per carry segment
+    int h, h_log;    // lanes per summed subgroup (0: per-lane output), log2
+    int out_width;   // columns of out: lanes, or lanes / h
+};
+
+// What one thread owns: one lane of its carry segment's rows [row_a, row_b).
+struct Slice {
+    int64_t seg;
+    int lane, lane_c;          // inactive lanes read lane 0
+    bool active;
+    int row_a, row_b;
+    int t0;                    // the generator's frame of row 0
+    float hz, ph, amp;
+    bool ph0;                  // synth<.., PH0 = true> applies
+};
 
 // Coefficient block blk of one lane; coeffs is (n_blocks, NSEC, lanes, 11).
 template <int NSEC>
@@ -109,120 +199,293 @@ __device__ __forceinline__ void load_taps(Cascade<NSEC>& cas,
              (int64_t)lanes * 11);
 }
 
-// kChunk timeline rows of one lane from row r0 (zeros past n_rows).
-__device__ __forceinline__ void load_rows(float (&dst)[kChunk],
-                                          const float* __restrict__ x,
-                                          int64_t row0, int r0, int n_rows,
-                                          int lanes, int lane, bool active) {
+// The coefficient block (within the segment) of segment row r: the context
+// rows run under block 0.
+__device__ __forceinline__ int block_of(int r, const Geo& g) {
+    return r < g.C + g.F ? 0 : min((r - g.C) / g.F, g.m - 1);
+}
+
+// The first row of block b + 1, or INT_MAX after the last block.
+__device__ __forceinline__ int switch_after(int b, const Geo& g) {
+    return b + 1 < g.m ? g.C + (b + 1) * g.F : INT_MAX;
+}
+
+template <int NSEC, int S>
+__device__ __forceinline__ Cplx pole(const Cascade<NSEC>& cas) {
+    return {cas.tp[S].rc, cas.tp[S].rs};
+}
+
+// The chunk's synthesized rows (r0 .. r0 + kRows - 1), one branch-free run.
+template <int OSC, bool PH0>
+__device__ __forceinline__ void synth_rows(float (&v)[kRows], int r0,
+                                           const Slice& sl,
+                                           const GenSpec& gen) {
 #pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
+    for (int i = 0; i < kRows; ++i)
+        v[i] = synth<OSC, PH0>(sl.t0 + r0 + i, sl.hz, sl.ph, sl.amp, gen);
+}
+
+// The chunk's inputs (rows r0 .. r0 + kRows - 1), independent of each other.
+template <bool GEN, int OSC>
+__device__ __forceinline__ void inputs(float (&v)[kRows], int r0,
+                                       const Slice& sl, const Geo& g,
+                                       const float* __restrict__ x,
+                                       const GenSpec& gen) {
+    if (GEN) {
+        if (sl.ph0) synth_rows<OSC, true>(v, r0, sl, gen);
+        else synth_rows<OSC, false>(v, r0, sl, gen);
+        return;
+    }
+    const int64_t row0 = sl.seg * g.m * g.F;     // timeline row of row 0
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
         const int r = r0 + i;
-        dst[i] = (active && r < n_rows) ? x[(row0 + r) * lanes + lane] : 0.f;
+        v[i] = (sl.active && r < sl.row_b)
+                   ? x[(row0 + r) * g.lanes + sl.lane] : 0.f;
     }
 }
 
-// The mix epilogue: reduce each g-lane group of the chunk's output rows
-// [i_lo, i_hi) (buffered in sbuf, one padded row per chunk row) to its sum,
-// serial f32 adds in lane order, and write them to out (rows, n_groups).
-__device__ __forceinline__ void flush_group_sums(
-        const float* sbuf, int i_lo, int i_hi, int stride, int g,
-        int64_t out_row0, int n_groups, float* __restrict__ out) {
-    __syncthreads();
-    const int per_tile = blockDim.x / g;
-    const int group0 = (blockIdx.y * blockDim.x) / g;
-    for (int k = threadIdx.x; k < (i_hi - i_lo) * per_tile;
-         k += blockDim.x) {
-        const int i = i_lo + k / per_tile;
-        const int grp = k % per_tile;
-        if (group0 + grp >= n_groups) continue;
-        const float* src = sbuf + i * stride + grp * g;
+// Per-lane output: the chunk's rows past the context.
+__device__ __forceinline__ void store_rows(const float (&v)[kRows], int r0,
+                                           const Slice& sl, const Geo& g,
+                                           float* __restrict__ out) {
+    const int64_t out0 = sl.seg * g.m * g.F - g.C;   // out row of row 0
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+        const int r = r0 + i;
+        if (sl.active && r >= g.C && r < sl.row_b)
+            out[(out0 + r) * g.lanes + sl.lane] = v[i];
+    }
+}
+
+// Group sums of one chunk (chunk offset c0 within every slice of the warp):
+// the warp's rows go through its shared tile red (kRows x kPad), then each
+// (row, slice, h-lane subgroup) unit is summed in lane order by `tpu`
+// threads of h / tpu lanes each, joined by a fixed shuffle tree, and
+// written (ADD: added to what out holds; the same thread wrote it).  Every
+// thread of the warp calls this with the same c0.
+template <bool ADD>
+__device__ __forceinline__ void sum_rows(const float (&v)[kRows], int c0,
+                                         const Slice& sl, const Geo& g,
+                                         float* red,
+                                         float* __restrict__ out) {
+    const int w = threadIdx.x & 31;
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) red[i * kPad + w] = v[i];
+    __syncwarp();
+    // every count here is a power of two: (row, slice, subgroup) units of
+    // the warp, threads per unit (tpu), units per thread (upt)
+    const int spw_log = 5 - g.lt_log, subs_log = g.lt_log - g.h_log;
+    const int units_log = kRowsLog + spw_log + subs_log;
+    const int tpu_log = max(5 - units_log, 0);
+    const int upt = 1 << max(units_log - 5, 0);
+    const int per = 1 << (g.h_log - tpu_log);      // lanes a thread adds
+    const int part = w & ((1 << tpu_log) - 1);
+    const int k0 = (threadIdx.x >> 5) << spw_log;  // the warp's first slice
+    const int64_t out0 = sl.seg * g.m * g.F - g.C;
+    for (int u = 0; u < upt; ++u) {
+        const int q = (u << (5 - tpu_log)) + (w >> tpu_log);
+        const int j = q & ((1 << subs_log) - 1);
+        const int s = (q >> subs_log) & ((1 << spw_log) - 1);
+        const int i = q >> (subs_log + spw_log);
+        const float* src = red + i * kPad + (s << g.lt_log) + (j << g.h_log)
+                           + part * per;
         float acc = 0.f;
-        for (int j = 0; j < g; ++j) acc = __fadd_rn(acc, src[j]);
-        out[(out_row0 + i) * n_groups + group0 + grp] = acc;
+        for (int l = 0; l < per; ++l) acc = __fadd_rn(acc, src[l]);
+        for (int o = (1 << tpu_log) / 2; o > 0; o /= 2)
+            acc = __fadd_rn(acc, __shfl_down_sync(0xffffffffu, acc, o));
+        const int k = k0 + s;
+        const int r = k * g.slice + c0 + i;
+        const int col = (blockIdx.y << subs_log) + j;   // lane0 / h
+        if (part == 0 && r >= g.C && r < min(k * g.slice + g.slice, g.n_rows)
+                && (col << g.h_log) < g.lanes) {
+            float* o = out + (out0 + r) * g.out_width + col;
+            *o = ADD ? __fadd_rn(*o, acc) : acc;
+        }
     }
-    __syncthreads();
 }
 
-// grid: (n_segments, lane tiles); block: one thread per lane of the tile.
-// With sum_groups = g, each g-lane group of the tile is summed per row into
-// out (rows, lanes / g) (g never exceeds the tile here: launch() turns a
-// wider group into tile-wide partial groups that sum_partials finishes).
+enum { EMIT_NONE, EMIT_SET, EMIT_ADD };
+
+// One pass over the thread's slice through the first NS sections from the
+// states already in cas.  TRACK: return the transfer of section NS-1 over
+// the slice (its end state is then cas.s*[NS-1]).  EMIT: write the rows (or
+// their group sums), or add the group sums to out.  FREE: the zero-input
+// response of one section instead (no inputs are made or read).
+template <bool GEN, int OSC, int NSEC, int NS, bool TRACK, int EMIT,
+          bool FREE = false>
+__device__ __forceinline__ Cplx walk(Cascade<NSEC>& cas, const Slice& sl,
+                                     const Geo& g,
+                                     const float* __restrict__ coeffs,
+                                     const float* __restrict__ x,
+                                     const GenSpec& gen, float* red,
+                                     float* __restrict__ out) {
+    Cplx a{1.f, 0.f}, pk{1.f, 0.f};
+    // slice 0 starts from zero state: its zero-input response is zero
+    if (FREE && __all_sync(0xffffffffu, sl.row_a == 0)) return a;
+    int b = block_of(sl.row_a, g);
+    load_taps(cas, coeffs, sl.seg * g.m + b, g.lanes, sl.lane_c);
+    int next_switch = switch_after(b, g);
+    if (TRACK) pk = pow_rows(pole<NSEC, NS - 1>(cas));
+    const int n_chunks = g.slice / kRows;
+    for (int c = 0; c < n_chunks; ++c) {
+        const int r0 = sl.row_a + c * kRows;
+        float v[kRows];
+        if (r0 < sl.row_b) {
+            if (!FREE) inputs<GEN, OSC>(v, r0, sl, g, x, gen);
+            if (r0 + kRows <= min(next_switch, sl.row_b)) {
+#pragma unroll
+                for (int i = 0; i < kRows; ++i)
+                    v[i] = FREE ? cas.free_step()
+                                : cas.template step<NS>(v[i]);
+                if (TRACK) a = cmul(pk, a);
+            } else {   // a block boundary or the segment's end
+#pragma unroll
+                for (int i = 0; i < kRows; ++i) {
+                    const int r = r0 + i;
+                    if (r >= sl.row_b) continue;
+                    if (r == next_switch) {
+                        load_taps(cas, coeffs, sl.seg * g.m + ++b, g.lanes,
+                                  sl.lane_c);
+                        next_switch = switch_after(b, g);
+                        if (TRACK) pk = pow_rows(pole<NSEC, NS - 1>(cas));
+                    }
+                    v[i] = FREE ? cas.free_step()
+                                : cas.template step<NS>(v[i]);
+                    if (TRACK) a = cmul(pole<NSEC, NS - 1>(cas), a);
+                }
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) v[i] = 0.f;
+        }
+        if (EMIT == EMIT_NONE) continue;
+        if (!g.h) {
+            store_rows(v, r0, sl, g, out);
+            continue;
+        }
+        // the warp's group sums, unless no slice of it has output rows here
+        if (!__any_sync(0xffffffffu, r0 + kRows > g.C && r0 < sl.row_b))
+            continue;
+        sum_rows<EMIT == EMIT_ADD>(v, c * kRows, sl, g, red, out);
+    }
+    return a;
+}
+
+// The true state at the slice's first row: an exclusive scan of the slices'
+// maps s -> a*s + e over the carry segment (Hillis-Steele, double-buffered
+// in shared memory; slice k's lane l is thread k*lt + l).  Slice 0 starts
+// from zero.
+__device__ __forceinline__ Cplx slice_start(Cplx a, Cplx e, float4* buf,
+                                            int k, const Geo& g) {
+    const int t = threadIdx.x, n = blockDim.x;
+    float4 mine = make_float4(a.re, a.im, e.re, e.im);
+    int cur = 0;
+    __syncthreads();                  // earlier users of buf are done
+    buf[t] = mine;
+    __syncthreads();
+    for (int d = 1; d < g.n_slices; d *= 2) {
+        if (k >= d) {
+            const float4 prev = buf[cur * n + t - d * g.lt];
+            const Cplx ma{mine.x, mine.y};
+            const Cplx na = cmul(ma, Cplx{prev.x, prev.y});
+            const Cplx ne = cmul(ma, Cplx{prev.z, prev.w});
+            mine = make_float4(na.re, na.im, ne.re + mine.z, ne.im + mine.w);
+        }
+        cur ^= 1;
+        buf[cur * n + t] = mine;
+        __syncthreads();
+    }
+    Cplx s{0.f, 0.f};
+    if (k > 0) {
+        const float4 p = buf[cur * n + t - g.lt];
+        s = Cplx{p.z, p.w};
+    }
+    __syncthreads();                  // buf is free for the next user
+    return s;
+}
+
+template <int NSEC>
+__device__ __forceinline__ void set_state(Cascade<NSEC>& cas, int s, Cplx v) {
+    cas.s1[s] = v.re;
+    cas.s2[s] = v.im;
+}
+
+// grid: (carry segments, lane tiles of lt); block: lt lanes x n_slices
+// slices, lanes fastest.  With g.h, each h-lane subgroup is summed per row
+// into out (rows, lanes / h): the final sums when h is the group, else the
+// partials sum_partials finishes.
 template <bool GEN, int OSC, int NSEC>
-__global__ void __launch_bounds__(kMaxTile)
+__global__ void __launch_bounds__(kMaxThreads, 2)
 seg_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
             const int* __restrict__ toff, const float* __restrict__ lanef,
-            const GenSpec gen, float* __restrict__ out, int lanes, int F,
-            int C, int m, int sum_groups) {
-    extern __shared__ float sbuf[];
-    const int64_t seg = blockIdx.x;
-    const int lane = blockIdx.y * blockDim.x + threadIdx.x;
-    const bool active = lane < lanes;
-    const int lane_c = active ? lane : 0;   // inactive lanes read lane 0
-    const int seg_total = m * F;
-    const int n_rows = C + seg_total;
-    const int64_t row0 = seg * seg_total;   // first timeline/output row
-    const int stride = blockDim.x + 1;      // padded sbuf row
+            const GenSpec gen, float* __restrict__ out, const Geo g) {
+    extern __shared__ float4 smem[];
+    const int k = threadIdx.x >> g.lt_log;
+    Slice sl;
+    sl.seg = blockIdx.x;
+    sl.lane = (blockIdx.y << g.lt_log) + (threadIdx.x & (g.lt - 1));
+    sl.active = sl.lane < g.lanes;
+    sl.lane_c = sl.active ? sl.lane : 0;
+    sl.row_a = min(k * g.slice, g.n_rows);
+    sl.row_b = min(sl.row_a + g.slice, g.n_rows);
+    sl.t0 = 0;
+    sl.hz = sl.ph = sl.amp = 0.f;
+    sl.ph0 = false;
+    if (GEN) {
+        // int32 frame index exactly as the TPU kernel: toff + seg*seg_total
+        sl.t0 = toff[sl.lane_c] + (int)(sl.seg * g.m * g.F);
+        sl.hz = lanef[sl.lane_c];
+        sl.ph = lanef[g.lanes + sl.lane_c];
+        sl.amp = sl.active ? lanef[2 * g.lanes + sl.lane_c] : 0.f;
+        sl.ph0 = sl.ph == 0.f && sl.hz >= 0.f;
+    }
+    float* red = reinterpret_cast<float*>(smem)
+                 + (threadIdx.x >> 5) * kRows * kPad;
 
     Cascade<NSEC> cas;
     cas.reset();
-    int64_t blk = seg * m;
-    load_taps(cas, coeffs, blk, lanes, lane_c);
-    int next_switch = C + F;
-
-    int t0 = 0;
-    float hz = 0.f, ph = 0.f, amp = 0.f;
-    if (GEN) {
-        // int32 frame index exactly as the TPU kernel: toff + seg*seg_total
-        t0 = toff[lane_c] + (int)(seg * seg_total);
-        hz = lanef[lane_c];
-        ph = lanef[lanes + lane_c];
-        amp = active ? lanef[2 * lanes + lane_c] : 0.f;
-    }
-
-    // timeline rows are double-buffered in registers: the next chunk's
-    // loads are issued before this chunk's serial cascade and land during it
-    float v[kChunk], next[kChunk];
-    if (!GEN) load_rows(next, x, row0, 0, n_rows, lanes, lane, active);
-    for (int r0 = 0; r0 < n_rows; r0 += kChunk) {
-        // 1. the chunk's inputs: independent of each other and of the state
-#pragma unroll
-        for (int i = 0; i < kChunk; ++i)
-            v[i] = GEN ? synth<OSC>(t0 + r0 + i, hz, ph, amp, gen) : next[i];
-        if (!GEN)
-            load_rows(next, x, row0, r0 + kChunk, n_rows, lanes, lane,
-                      active);
-        // 2. the serial cascade over the chunk (rows past n_rows only
-        //    advance a state nothing reads)
-#pragma unroll
-        for (int i = 0; i < kChunk; ++i) {
-            if (r0 + i == next_switch && next_switch < n_rows) {
-                load_taps(cas, coeffs, ++blk, lanes, lane_c);
-                next_switch += F;
-            }
-            v[i] = cas.step(v[i]);
-        }
-        // 3. the chunk's output rows [i_lo, i_hi): stores or group sums
-        const int i_lo = max(C - r0, 0);
-        const int i_hi = min(n_rows - r0, kChunk);
-        if (i_lo >= i_hi) continue;                  // context only
-        const int64_t out_row0 = row0 + r0 - C;
-        if (sum_groups == 0) {
-#pragma unroll
-            for (int i = 0; i < kChunk; ++i)
-                if (active && i >= i_lo && i < i_hi)
-                    out[(out_row0 + i) * lanes + lane] = v[i];
-        } else {
-#pragma unroll
-            for (int i = 0; i < kChunk; ++i)
-                sbuf[i * stride + threadIdx.x] = active ? v[i] : 0.f;
-            flush_group_sums(sbuf, i_lo, i_hi, stride, sum_groups, out_row0,
-                             lanes / sum_groups, out);
+    if constexpr (NSEC == 1) {
+        if (g.h) {
+            // group sums of one section: the sums of the zero-start outputs,
+            // then those of the true start state's zero-input response added
+            // -- pass 2 makes and reads no input.  It trades the replay's
+            // pass of inputs for a second pass of group sums: a win for K2
+            // at every geometry measured and for K1 from h = 16 on; at
+            // h = 8 K1's replay is faster, but a test of h here slowed K1
+            // at h = 32 (scripts/torch_seg_variants.py, PERF.md).
+            const Cplx a = walk<GEN, OSC, 1, 1, true, EMIT_SET>(
+                cas, sl, g, coeffs, x, gen, red, out);
+            set_state(cas, 0, slice_start(a, Cplx{cas.s1[0], cas.s2[0]},
+                                          smem, k, g));
+            walk<GEN, OSC, 1, 1, false, EMIT_ADD, true>(cas, sl, g, coeffs, x,
+                                                       gen, red, out);
+            return;
         }
     }
+    Cplx start[NSEC];
+    // scan pass of section 0: from zero state
+    Cplx a = walk<GEN, OSC, NSEC, 1, true, EMIT_NONE>(cas, sl, g, coeffs, x,
+                                                     gen, red, out);
+    start[0] = slice_start(a, Cplx{cas.s1[0], cas.s2[0]}, smem, k, g);
+    if constexpr (NSEC == 2) {
+        // scan pass of section 1: section 0 replayed from its true start
+        set_state(cas, 0, start[0]);
+        set_state(cas, 1, Cplx{0.f, 0.f});
+        a = walk<GEN, OSC, NSEC, 2, true, EMIT_NONE>(cas, sl, g, coeffs, x,
+                                                    gen, red, out);
+        start[1] = slice_start(a, Cplx{cas.s1[1], cas.s2[1]}, smem, k, g);
+    }
+    // the replay from the true starts, writing the rows
+#pragma unroll
+    for (int s = 0; s < NSEC; ++s) set_state(cas, s, start[s]);
+    walk<GEN, OSC, NSEC, NSEC, false, EMIT_SET>(cas, sl, g, coeffs, x, gen,
+                                               red, out);
 }
 
-// Finishes the sums of groups wider than a tile: out[i] is the sum of the k
-// tile partials partial[i*k .. i*k + k), serial f32 adds in lane order.
+// Finishes the sums of groups wider than h lanes: out[i] is the sum of the k
+// partials partial[i*k .. i*k + k), serial f32 adds in lane order.
 __global__ void __launch_bounds__(256)
 sum_partials(const float* __restrict__ partial, float* __restrict__ out,
              int64_t n_out, int k) {
@@ -234,17 +497,66 @@ sum_partials(const float* __restrict__ partial, float* __restrict__ out,
     out[i] = acc;
 }
 
-// Threads per block: at most kMaxTile, never more lanes than the call has
-// (rounded up to a warp).  With a sum group of g <= kMaxTile lanes, a whole
-// number of groups (no group straddles two blocks); with a wider group, the
-// widest divisor of g that fits, whose partial sums sum_partials finishes.
-int tile_lanes(int lanes, int sum_groups) {
-    const int cap = lanes < kMaxTile ? lanes : kMaxTile;
-    if (sum_groups == 0) return (cap + 31) / 32 * 32;
-    if (sum_groups <= kMaxTile) return (cap / sum_groups) * sum_groups;
-    int t = kMaxTile;
-    while (sum_groups % t) --t;
-    return t;
+// The threads a launch aims for: a quarter of what the current device's SMs
+// hold at once (132 x 2048 / 4 on an H100 SXM), read once per device.
+int64_t fill_threads() {
+    constexpr int kDevices = 64;     // devices cached; any others are read
+    static std::atomic<int64_t> cached[kDevices];
+    int dev = 0;
+    cudaGetDevice(&dev);
+    int64_t n = dev < kDevices ? cached[dev].load(std::memory_order_relaxed)
+                               : 0;
+    if (n == 0) {
+        int sms = 0, per_sm = 0;
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+        cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
+                               dev);
+        n = (int64_t)sms * per_sm / 4;
+        if (dev < kDevices) cached[dev].store(n, std::memory_order_relaxed);
+    }
+    return n;
+}
+
+// Lanes per block and slice length: start from lt = the lanes (a power of
+// two, at most 32) and halve it, which doubles the slices per segment, while
+// the launch has fewer than fill_threads() threads and halving still adds
+// slices (at most kMaxThreads threads a block, at least kMinSlice rows a
+// slice).  h: the largest power of two dividing the sum group, at most lt.
+Geo plan(int n_units, int lanes, int F, int C, int m, int sum_groups) {
+    const int64_t fill = fill_threads();
+    Geo g{};
+    g.lanes = lanes;
+    g.F = F;
+    g.C = C;
+    g.m = m;
+    g.n_rows = C + m * F;
+    const auto slices = [&](int lt) {
+        return std::max(1, std::min(kMaxThreads / lt, g.n_rows / kMinSlice));
+    };
+    int lt = 1;
+    while (lt < lanes && lt < 32) lt *= 2;
+    while (lt > 1) {
+        const int64_t threads = (int64_t)n_units * ((lanes + lt - 1) / lt)
+                                * lt * slices(lt);
+        if (threads >= fill || slices(lt / 2) <= slices(lt)) break;
+        lt /= 2;
+    }
+    const int w = slices(lt);
+    g.lt = lt;
+    while ((1 << g.lt_log) < lt) ++g.lt_log;
+    g.slice = ((g.n_rows + w - 1) / w + kRows - 1) / kRows * kRows;
+    g.n_slices = (g.n_rows + g.slice - 1) / g.slice;
+    g.h = 0;
+    g.out_width = lanes;
+    if (sum_groups) {
+        g.h = 1;
+        while (g.h < lt && sum_groups % (2 * g.h) == 0) {
+            g.h *= 2;
+            ++g.h_log;
+        }
+        g.out_width = lanes / g.h;
+    }
+    return g;
 }
 
 template <bool GEN, int OSC, int NSEC>
@@ -252,20 +564,21 @@ int launch_n(const float* coeffs, const float* x, const int* toff,
              const float* lanef, const GenSpec& gen, float* out,
              float* partial, int n_blocks, int lanes, int F, int C, int m,
              int sum_groups, cudaStream_t stream) {
-    const int tile = tile_lanes(lanes, sum_groups);
-    const bool wide = sum_groups > tile;
+    const Geo g = plan(n_blocks / m, lanes, F, C, m, sum_groups);
+    const bool wide = sum_groups > g.h;
     if (wide && partial == nullptr) return (int)cudaErrorInvalidValue;
-    const dim3 grid(n_blocks / m, (lanes + tile - 1) / tile);
-    const size_t smem =
-        sum_groups ? (size_t)kChunk * (tile + 1) * sizeof(float) : 0;
-    seg_cascade<GEN, OSC, NSEC><<<grid, tile, smem, stream>>>(
-        coeffs, x, toff, lanef, gen, wide ? partial : out, lanes, F, C, m,
-        wide ? tile : sum_groups);
+    const int threads = (g.n_slices * g.lt + 31) / 32 * 32;
+    const size_t smem = std::max(
+        2 * threads * sizeof(float4),
+        (size_t)(threads / 32) * kRows * kPad * sizeof(float));
+    const dim3 grid(n_blocks / m, (lanes + g.lt - 1) / g.lt);
+    seg_cascade<GEN, OSC, NSEC><<<grid, threads, smem, stream>>>(
+        coeffs, x, toff, lanef, gen, wide ? partial : out, g);
     cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess || !wide) return (int)e;
     const int64_t n_out = (int64_t)n_blocks * F * (lanes / sum_groups);
     sum_partials<<<(unsigned)((n_out + 255) / 256), 256, 0, stream>>>(
-        partial, out, n_out, sum_groups / tile);
+        partial, out, n_out, sum_groups / g.h);
     return (int)cudaGetLastError();
 }
 
@@ -293,10 +606,12 @@ int launch(const float* coeffs, const float* x, const int* toff,
 extern "C" {
 
 // Width of the partial-sum buffer (n_blocks, F, width) a launch with this
-// lane count and sum group needs, or 0 when the group fits one tile.
-int signals_partial_width(int lanes, int sum_groups) {
-    const int tile = tile_lanes(lanes, sum_groups);
-    return sum_groups > tile ? lanes / tile : 0;
+// geometry and sum group needs, or 0 when the kernel writes the sums itself.
+int signals_partial_width(int n_blocks, int lanes, int F, int C, int m,
+                          int sum_groups) {
+    if (sum_groups == 0) return 0;
+    const Geo g = plan(n_blocks / m, lanes, F, C, m, sum_groups);
+    return sum_groups > g.h ? g.out_width : 0;
 }
 
 // The launchers return the cudaError_t of the launch (0 on success).

@@ -89,14 +89,17 @@ def _device_kind(*tensors) -> str:
     return kind
 
 
-def _outputs(lib, coeffs, seg_frames, lanes, sum_groups):
-    """The output tensor and, for a lane group wider than one thread block,
-    the kernel's partial-sum buffer (else a null pointer)."""
+def _outputs(lib, coeffs, seg_frames, context, blocks_per_seg, lanes,
+             sum_groups):
+    """The output tensor and, for a lane group wider than the kernel sums
+    in one pass (its geometry decides), the partial-sum buffer (else a null
+    pointer)."""
     n = coeffs.shape[0]
     width = lanes // sum_groups if sum_groups else lanes
     out = torch.empty((n, seg_frames, width), dtype=torch.float32,
                       device=coeffs.device)
-    pw = lib.signals_partial_width(lanes, sum_groups) if sum_groups else 0
+    pw = lib.signals_partial_width(n, lanes, seg_frames, context,
+                                   blocks_per_seg, sum_groups)
     partial = (torch.empty((n, seg_frames, pw), dtype=torch.float32,
                            device=coeffs.device) if pw else None)
     return out, partial, (partial.data_ptr() if pw else None)
@@ -226,8 +229,8 @@ def sosfilt_segments_gen(coeffs, toff, lanef, *, n_segments: int,
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
     coeffs, toff, lanef = (t.contiguous() for t in (coeffs, toff, lanef))
-    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, lanes,
-                                          sum_groups)
+    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, context,
+                                          m, lanes, sum_groups)
     code = lib.sosfilt_segments_gen_launch(
         coeffs.data_ptr(), toff.data_ptr(), lanef.data_ptr(),
         float(np.float32(1.0 / rate)), osc_code, _SIN_C, out.data_ptr(),
@@ -293,8 +296,8 @@ def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
     coeffs, x = coeffs.contiguous(), x.contiguous()
-    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, lanes,
-                                          sum_groups)
+    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, context,
+                                          m, lanes, sum_groups)
     code = lib.sosfilt_segments_launch(
         coeffs.data_ptr(), x.data_ptr(), out.data_ptr(), partial_ptr,
         n_segments, coeffs.shape[1], lanes, seg_frames, context, m,

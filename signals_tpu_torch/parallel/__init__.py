@@ -51,7 +51,7 @@ class PolyPatch:
                  channels: typing.Optional[int] = None,
                  layout: str = 'channels',
                  mix_epilogue: typing.Optional[bool] = None,
-                 device='cpu'):
+                 device='cuda'):
         if layout != 'channels':
             raise NotImplementedError(f'layout {layout!r} is not ported yet')
         self.device = check_device(device)

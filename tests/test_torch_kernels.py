@@ -9,10 +9,12 @@ round-off), group sums 1e-5 of their max, and the identity-cascade saw
 source bit-exact (a one-ulp phase error at a wrap is a 2.0 spike).
 
 The ``cuda`` cases compare each CUDA kernel with its plain version on a
-GPU (same tolerances), including lane groups wider than one thread block,
-and render a 1024-voice flagship through the mix plan; they skip without a
-GPU.  JAX is imported inside the JAX comparisons, so the card cases run on
-a machine without JAX, from the repository root:
+GPU (same tolerances) — the segment kernels at the edges of their
+time-sliced scan (:data:`SEGMENT_EDGES`), lane groups wider than the
+kernel's summed subgroups, the same call twice bit for bit — and render a 1024-voice flagship
+through the mix plan; they skip without a GPU.  JAX is imported inside
+the JAX comparisons, so the card cases run on a machine without JAX, from
+the repository root:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
 
@@ -304,13 +306,23 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('phased', [False, True], ids=['ph0', 'phased'])
 @pytest.mark.parametrize('osc_code', [K.OSC_SINE, K.OSC_SQUARE, K.OSC_SAW,
                                       K.OSC_TRIANGLE])
-def test_cuda_segments_gen_matches_plain(cuda_device, osc_code):
+def test_cuda_segments_gen_matches_plain(cuda_device, osc_code, phased):
+    """The generator kernel's source rows bit-exact (identity cascade) and
+    its lanes and 64-lane sums within 1e-5 of the plain version, for lanes
+    of phase 0 and hz >= 0 (the flagship's; the kernel skips a phase
+    reduction there) and for lanes with phases and negative hz."""
     rng = np.random.default_rng(osc_code)
     lanes, nb, F, C, m = 64, 16, 1024, 512, 8
     co = t(lowpass_coeffs(rng, nb, lanes)).to(cuda_device)
-    toff, lanef = (t(a).to(cuda_device) for a in saw_lanes(rng, lanes, C))
+    toff, lanef = saw_lanes(rng, lanes, C)
+    if phased:
+        lanef[0] *= np.where(np.arange(lanes) % 3 == 0, -1, 1).astype(
+            np.float32)
+        lanef[1] = rng.uniform(-1.5, 1.5, lanes).astype(np.float32)
+    toff, lanef = t(toff).to(cuda_device), t(lanef).to(cuda_device)
     kw = dict(n_segments=nb, seg_frames=F, context=C, osc_code=osc_code,
               rate=RATE, blocks_per_seg=m)
     co_id = torch.zeros_like(co)
@@ -327,31 +339,96 @@ def test_cuda_segments_gen_matches_plain(cuda_device, osc_code):
         assert float((got - want).abs().max()) <= TOL * float(scale)
 
 
+#: segment-kernel geometries for the card: (lanes, n_blocks, F, C, m,
+#: sum_groups, sections, cutoff range in Hz).  The kernel cuts each carry
+#: segment's C + m*F rows into slices of whole 16-row chunks and sums lane
+#: groups in power-of-two subgroups, so the edges are a context that is no
+#: multiple of either, one carry segment, lane counts that are no multiple
+#: of 32 or of a power of two, two sections, and poles near the unit circle.
+SEGMENT_EDGES = {
+    'm1': (64, 16, 1024, 512, 1, 0, 1, (500.0, 5000.0)),
+    'm8': (64, 16, 1024, 512, 8, 0, 1, (500.0, 5000.0)),
+    'm8_sum64': (64, 16, 1024, 512, 8, 64, 1, (500.0, 5000.0)),
+    'm1_sum16': (64, 16, 1024, 512, 1, 16, 1, (500.0, 5000.0)),
+    'C300_lanes48_sum48': (48, 16, 1024, 300, 8, 48, 1, (500.0, 5000.0)),
+    'C128_lanes5': (5, 8, 1024, 128, 1, 0, 1, (500.0, 5000.0)),
+    'C128_lanes5_sum5': (5, 8, 1024, 128, 1, 5, 1, (500.0, 5000.0)),
+    'one_segment_sum64': (64, 8, 1024, 512, 8, 64, 1, (500.0, 5000.0)),
+    'two_sections_C300_lanes48': (48, 16, 512, 300, 4, 0, 2, None),
+    'two_sections_sum48': (48, 16, 512, 300, 4, 48, 2, None),
+    'lowpass30': (64, 16, 1024, 512, 8, 0, 1, (30.0, 30.0)),
+    'lowpass30_sum64': (64, 16, 1024, 512, 8, 64, 1, (30.0, 30.0)),
+}
+
+
+def segment_pair(rng, device, gen, lanes, nb, F, C, m, sum_groups, nsec,
+                 cuts):
+    """``(kernel call, plain call)`` of one segment kernel at a geometry of
+    :data:`SEGMENT_EDGES`: swept per-block LowPass (or band-pass, at two
+    sections) coefficients, a saw through the generator or a noise
+    timeline."""
+    co = (lowpass_coeffs(rng, nb, lanes, *cuts) if nsec == 1
+          else band_coeffs(rng, nb, lanes))
+    co = t(co).to(device)
+    geo = dict(n_segments=nb, seg_frames=F, context=C, blocks_per_seg=m,
+               sum_groups=sum_groups)
+    if gen:
+        toff, lanef = (t(a).to(device) for a in saw_lanes(rng, lanes, C))
+        kw = dict(geo, osc_code=K.OSC_SAW, rate=RATE)
+        return (lambda: K.sosfilt_segments_gen(co, toff, lanef, **kw),
+                lambda: K.sosfilt_segments_gen_plain(co, toff, lanef, **kw))
+    x = t(rng.standard_normal((C + nb * F, lanes)).astype(np.float32)).to(
+        device)
+    return (lambda: K.sosfilt_segments(co, x, **geo),
+            lambda: K.sosfilt_segments_plain(co, x, **geo))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('m,sum_groups', [(1, 0), (8, 0), (8, 64), (1, 16)])
-def test_cuda_segments_matches_plain(cuda_device, m, sum_groups):
-    rng = np.random.default_rng(m + sum_groups)
-    ch, nb, F, C = 64, 16, 1024, 512
-    co = t(lowpass_coeffs(rng, nb, ch)).to(cuda_device)
-    x = t(rng.standard_normal((C + nb * F, ch)).astype(np.float32)).to(
-        cuda_device)
-    kw = dict(n_segments=nb, seg_frames=F, context=C, sum_groups=sum_groups,
-              blocks_per_seg=m)
-    got = K.sosfilt_segments(co, x, **kw)
-    want = K.sosfilt_segments_plain(co, x, **kw)
+@pytest.mark.parametrize('gen', [True, False],
+                         ids=['segments_gen', 'segments'])
+@pytest.mark.parametrize('case', list(SEGMENT_EDGES))
+def test_cuda_segments_matches_plain(cuda_device, case, gen):
+    """Each segment kernel at each edge geometry within 1e-5 of its plain
+    version (group sums: 1e-5 of their max), one launch each."""
+    lanes, nb, F, C, m, sum_groups, nsec, cuts = SEGMENT_EDGES[case]
+    rng = np.random.default_rng(sorted(SEGMENT_EDGES).index(case) + gen)
+    call, plain = segment_pair(rng, cuda_device, gen, lanes, nb, F, C, m,
+                               sum_groups, nsec, cuts)
+    K.reset_launch_counts()
+    got = call()
+    assert K.LAUNCHES['segments_gen' if gen else 'segments'] == 1
+    want = plain()
+    assert got.shape == want.shape == (nb, F, lanes // (sum_groups or 1))
+    assert bool(torch.isfinite(got).all())
     scale = want.abs().max() if sum_groups else 1.0
     assert float((got - want).abs().max()) <= TOL * float(scale)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('sum_groups', [0, 64])
+@pytest.mark.parametrize('gen', [True, False],
+                         ids=['segments_gen', 'segments'])
+def test_cuda_segments_deterministic(cuda_device, gen, sum_groups):
+    """The same call twice gives the same bits: the group sums take a fixed
+    order (no atomics), at the flagship's geometry and at the 60 s render's
+    carry-segment count."""
+    rng = np.random.default_rng(9)
+    for nb in (16, 2584):
+        call, _ = segment_pair(rng, cuda_device, gen, 64, nb, 1024, 512, 8,
+                               sum_groups, 1, (500.0, 5000.0))
+        assert torch.equal(call(), call())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize('lanes,sum_groups', [(1024, 1024), (1024, 256),
-                                              (384, 192)])
+                                              (384, 192), (256, 256)])
 @pytest.mark.parametrize('gen', [True, False],
                          ids=['segments_gen', 'segments'])
 def test_cuda_wide_sum_groups_match_plain(cuda_device, gen, lanes,
                                           sum_groups):
-    """Groups wider than a thread block: tile partial sums plus the
-    finishing pass, against the plain group sums (1e-5 of their max)."""
+    """Groups wider than the kernel's summed subgroup (at most 32 lanes):
+    subgroup partial sums plus the finishing pass, against the plain group
+    sums (1e-5 of their max)."""
     rng = np.random.default_rng(lanes + sum_groups)
     nb, F, C, m = 16, 1024, 512, 8
     co = t(lowpass_coeffs(rng, nb, lanes)).to(cuda_device)

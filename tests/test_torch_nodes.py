@@ -66,7 +66,7 @@ def test_oscillators_bit_exact_vs_jax_pull(name):
     got_pull = pull(build('signals_tpu_torch'), 'signals_tpu_torch', pos,
                     nb, F, 5)
     compiled = CompiledPatch(build('signals_tpu_torch'), block_frames=F,
-                             rate=RATE, channels=5)
+                             rate=RATE, channels=5, device='cpu')
     got = compiled.render(position=pos, n_blocks=nb).numpy()
     assert np.array_equal(got_pull, want)
     assert np.array_equal(got, want)
@@ -157,7 +157,8 @@ def test_butterworth_family_pull_matches_jax_pull(name, swept):
         position=start * F, n_blocks=nb)
     compiled = CompiledPatch(build_filtered_saw('signals_tpu_torch', name,
                                                 swept),
-                             block_frames=F, rate=RATE, channels=3)
+                             block_frames=F, rate=RATE, channels=3,
+                             device='cpu')
     rendered = compiled.render(position=start * F, n_blocks=nb).numpy()
     assert np.abs(rendered - np.asarray(jax_out)).max() <= 1e-5
 
@@ -185,7 +186,7 @@ def test_adsr_grid_lowering_matches_jax(gate_hz, channels):
                      channels=channels)
     want, _ = jc.render(position=8 * F, n_blocks=nb)
     got = CompiledPatch(build('signals_tpu_torch'), block_frames=F,
-                        rate=RATE, channels=channels).render(
+                        rate=RATE, channels=channels, device='cpu').render(
         position=8 * F, n_blocks=nb).numpy()
     want = np.asarray(want)
     assert got.shape == want.shape

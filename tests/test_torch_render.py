@@ -151,7 +151,7 @@ def mono_ref():
 @pytest.mark.parametrize('path', ['render', 'step', 'unaligned'])
 def test_mono_voice_matches_jax_and_oracle(mono_ref, path):
     compiled = compile_node(mono_voice('signals_tpu_torch'), block_frames=F,
-                            rate=RATE, channels=1)
+                            rate=RATE, channels=1, device='cpu')
     assert compiled.carry_seg_align == 8
     if path == 'render':
         got = compiled.render(position=0, n_blocks=24)
@@ -190,7 +190,7 @@ def collect(transport, n_blocks):
 
 def test_transport_realigns_after_unaligned_seek():
     compiled = compile_node(mono_voice('signals_tpu_torch'), block_frames=F,
-                            rate=RATE, channels=1)
+                            rate=RATE, channels=1, device='cpu')
     tr = Transport(compiled, consumer=None)
     tr.seek(3 * F)
     audio, positions, starts = collect(tr, 24)
@@ -204,7 +204,7 @@ def test_transport_realigns_after_unaligned_seek():
 
 def test_transport_thread_streams_in_order():
     compiled = compile_node(mono_voice('signals_tpu_torch'), block_frames=F,
-                            rate=RATE, channels=1)
+                            rate=RATE, channels=1, device='cpu')
     positions = []
     done = __import__('threading').Event()
 
@@ -247,7 +247,8 @@ def test_static_voice_render_ahead_matches_jax_pallas(monkeypatch):
 
     monkeypatch.setattr(K, 'sosfilt_batch', spy)
     compiled = compile_node(static_voice('signals_tpu_torch', hz),
-                            block_frames=F, rate=RATE, channels=16)
+                            block_frames=F, rate=RATE, channels=16,
+                            device='cpu')
     assert compiled.carry_seg_align == 1
     tr = Transport(compiled, consumer=None)
     tr.seek(3 * F)
@@ -264,7 +265,7 @@ def test_nested_pair_step_matches_jax():
     want = jax_steps(jax_compile(nested_pair('signals_tpu'), block_frames=F,
                                  rate=RATE, channels=2), positions)
     compiled = compile_node(nested_pair('signals_tpu_torch'), block_frames=F,
-                            rate=RATE, channels=2)
+                            rate=RATE, channels=2, device='cpu')
     params = compiled.params()
     got = torch.cat([compiled.step(params, p) for p in positions]).numpy()
     assert got.shape == want.shape == (3 * F, 2)

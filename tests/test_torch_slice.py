@@ -173,7 +173,7 @@ def test_filter_outside_block_windows_raises():
     want, _ = jax_compile(patch('signals_tpu'), block_frames=F, rate=RATE,
                           channels=1).render(position=8 * F, n_blocks=8)
     compiled = CompiledPatch(patch('signals_tpu_torch'), block_frames=F,
-                             rate=RATE, channels=1)
+                             rate=RATE, channels=1, device='cpu')
     got = compiled.render(position=8 * F, n_blocks=8).numpy()
     params = compiled.params()
     steps = torch.cat([compiled.step(params, (8 + i) * F)
@@ -192,3 +192,20 @@ def test_cuda_device_without_gpu_raises():
     with pytest.raises(RuntimeError, match='CUDA'):
         PolyPatch(root, n_voices=V, overrides={(hz, 'value'): freqs()},
                   device='cuda')
+
+
+def test_entry_points_default_to_the_card():
+    """Without ``device``, ``compile_node``, ``CompiledPatch`` and
+    ``PolyPatch`` ask for the GPU: where torch sees none they raise instead
+    of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a GPU is present: the no-GPU refusal cannot be shown')
+    from signals_tpu_torch.compiler import CompiledPatch, compile_node
+    from signals_tpu_torch.parallel import PolyPatch
+    root, hz = build_voice('signals_tpu_torch')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        compile_node(root, block_frames=F, rate=RATE)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        CompiledPatch(root, block_frames=F, rate=RATE, channels=1)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        PolyPatch(root, n_voices=V, overrides={(hz, 'value'): freqs()})
