@@ -17,10 +17,12 @@ Four phases; any failure raises and exits non-zero:
    within 1e-5 of their max, and each kernel's device time beside its
    roofline bound (f32 operations at 67 TFLOP/s or bytes at 3.35 TB/s,
    the H100 SXM's peaks) and the share of it reached; the batched replay at
-   the render-ahead shape (L = C + F = 1152, 8 windows, 16 lanes, tail F)
-   and the timeline kernel at the step shape (1152, 16), each at 1 and 2
-   sections, within 1e-5 max-abs; and the segment gate's two sides (K2 and
-   K3) at the render-ahead shape.
+   the render-ahead shape (L = C + F = 1152, 8 windows, 16 lanes, tail F,
+   the windows read in place from one timeline) and the timeline kernel at
+   the step shape (1152, 16), each at 1 and 2 sections, the timeline kernel
+   at the mono step (1152, 1) and the batched replay at the sampled
+   filter's windows (C + 1 rows, tail 1), within 1e-5 max-abs; and the
+   segment gate's two sides (K2 and K3) at the render-ahead shape.
 3. **The flagship render**: the 64-voice swept-subtractive PolyPatch built
    from the port's nodes, rendered on the card for 256 blocks through the
    product default (generator + mix epilogue), the per-voice plan and the
@@ -76,6 +78,7 @@ PEAK_BYTES = 3.35e12
 CASCADE_FLOP = 12   # per section and row: y (5), s1' (4), s2' (3)
 SAW_FLOP = 13       # nodes/osc.py's saw: 3 frac (2 each) and 7 mul/add
 SAW_PH0_FLOP = 10   # the same without frac(turns + ph): phase 0, hz >= 0
+SEG_KERNELS = ('seg_cascade', 'sum_partials')   # K1/K2's kernel names
 
 
 def run(cmd) -> str:
@@ -295,7 +298,6 @@ def phase_kernels():
     dev = torch.device('cuda')
     rng = np.random.default_rng(0)
     card = card_line()
-    seg_kernels = ('seg_cascade', 'sum_partials')
     results = {}
     for nb in (N_BLOCKS, n_blocks_60s()):
         co, toff, lanef, gen, cases = segment_cases(rng, nb)
@@ -328,7 +330,7 @@ def phase_kernels():
                 if g == 0 and name == 'segments':
                     continue           # K2 serves per-lane windows too,
                     # but its main-path call is the mix plan's sum
-                dms = device_ms(lambda: call(g), 5, seg_kernels)
+                dms = device_ms(lambda: call(g), 5, SEG_KERNELS)
                 b_ms, b_by = bound(flops(g), nbytes(g))
                 what = f'sum_groups={g}' if g else 'per lane'
                 share = 'not measured' if dms is None else f'{b_ms / dms:.3f}'
@@ -350,13 +352,34 @@ def phase_kernels():
         del cases
         torch.cuda.empty_cache()
 
+    zero_state_kernels(rng, dev, card, results)
+    return results
+
+
+def zero_state_kernels(rng, dev, card, results):
+    """K3/K4 vs their plain versions on ``dev`` at the main paths' shapes,
+    each device time beside its bound; fills ``results['batch']`` and
+    ``results['timeline']`` as :func:`phase_kernels` does the others."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
     # the zero-state kernels at the shapes the per-block and render-ahead
-    # paths give them, at 1 (low-pass) and 2 (band-pass) sections
+    # paths give them: the render-ahead batch's windows read in place from
+    # the (C + 8F, 16) timeline (overlapping views, as _batch_compute passes
+    # them) and the step's (1152, 16) timeline, at 1 (low-pass) and 2
+    # (band-pass) sections; the mono step (1152, 1); the sampled filter's
+    # windows (C + 1 rows every F frames, tail 1, as _sampled_kernel).
+    # Bytes: the distinct rows read, the rows written, the coefficients;
+    # operations: every row of every window through every section.
     L = STATIC_C + F
-    x3 = torch.as_tensor(rng.standard_normal((L, AHEAD, STATIC_CH)).astype(
-        np.float32), device=dev)
-    rows, cos = {}, {}
     lanes3 = AHEAD * STATIC_CH
+    xt = torch.as_tensor(rng.standard_normal((L + (AHEAD - 1) * F, STATIC_CH))
+                         .astype(np.float32), device=dev)
+    x3 = xt.unfold(0, L, F).permute(2, 0, 1)             # (L, 8, 16) view
+    xs = xt.unfold(0, STATIC_C + 1, F).permute(2, 0, 1)  # (C + 1, 8, 16)
+    xt_bytes = xt.numel() * 4
+    rows, cos = {}, {}
     for nsec, btype in ((1, 'lp'), (2, 'bp')):
         lo = torch.as_tensor(rng.uniform(300.0, 3000.0, (1, lanes3))
                              .astype(np.float32), device=dev)
@@ -365,33 +388,52 @@ def phase_kernels():
         co3 = co3.reshape(nsec, AHEAD, STATIC_CH, 11).permute(
             1, 0, 2, 3).contiguous()
         cos[nsec] = co3
+        x4 = xt[:L].contiguous()
         rows[f'batch/{nsec}'] = (
+            f'render-ahead, in place (L {L}, {AHEAD} x {STATIC_CH}, tail '
+            f'{F}), {nsec} section(s)',
             lambda co3=co3: K.sosfilt_batch(co3, x3, tail=F),
             lambda co3=co3: K.sosfilt_batch_plain(co3, x3, tail=F),
             L * lanes3 * CASCADE_FLOP * nsec,
-            (L + F) * lanes3 * 4 + co3.numel() * 4)
+            xt_bytes + F * lanes3 * 4 + co3.numel() * 4)
         rows[f'timeline/{nsec}'] = (
-            lambda co3=co3: K.sosfilt_timeline(co3[0], x3[:, 0]),
-            lambda co3=co3: K.sosfilt_timeline_plain(co3[0], x3[:, 0]),
+            f'step ({L}, {STATIC_CH}), {nsec} section(s)',
+            lambda co3=co3, x4=x4: K.sosfilt_timeline(co3[0], x4),
+            lambda co3=co3, x4=x4: K.sosfilt_timeline_plain(co3[0], x4),
             L * STATIC_CH * CASCADE_FLOP * nsec,
             2 * L * STATIC_CH * 4 + co3[0].numel() * 4)
-    for key, (call, plain, flops, nbytes) in rows.items():
-        name, nsec = key.split('/')
+    co1, x1 = cos[1][0, :, :1].contiguous(), xt[:L, :1].contiguous()
+    rows['timeline/mono'] = (
+        f'mono step ({L}, 1), 1 section',
+        lambda: K.sosfilt_timeline(co1, x1),
+        lambda: K.sosfilt_timeline_plain(co1, x1),
+        L * CASCADE_FLOP, 2 * L * 4 + co1.numel() * 4)
+    rows['batch/sampled'] = (
+        f'sampled, in place (C + 1 = {STATIC_C + 1} rows, {AHEAD} x '
+        f'{STATIC_CH}, tail 1), 1 section',
+        lambda: K.sosfilt_batch(cos[1], xs, tail=1),
+        lambda: K.sosfilt_batch_plain(cos[1], xs, tail=1),
+        (STATIC_C + 1) * lanes3 * CASCADE_FLOP,
+        (STATIC_C + 1) * lanes3 * 4 + lanes3 * 4 + cos[1].numel() * 4)
+    for key, (what, call, plain, flops, nbytes) in rows.items():
+        name = key.split('/')[0]
         got, want = call(), plain()
         err = float((got - want).abs().max())
-        print(f'[kernels] {name} {nsec} section(s) {tuple(got.shape)} vs '
-              f'plain: max abs {err!r} (tol {TOL})')
+        print(f'[kernels] {name} {what} {tuple(got.shape)} vs plain: max '
+              f'abs {err!r} (tol {TOL})')
         assert torch.isfinite(got).all() and err <= TOL, err
         ms = cuda_ms(call, 50)
-        dev_ms = device_ms(call, 20, (f'{name}_cascade',))
+        dev_ms = device_ms(call, 20, ('rows_cascade',))
         plain_ms = cuda_ms(plain, 1)
         b_ms, b_by = bound(flops, nbytes)
         dev_txt = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
-        print(f'[kernels] {name} {nsec} section(s): {ms:.4f} ms per call '
-              f'(CUDA events, wrapper included), device {dev_txt} '
-              f'(profiler), bound {b_ms:.6f} ms ({b_by}); plain '
+        share = 'not measured' if dev_ms is None else f'{b_ms / dev_ms:.4f}'
+        print(f'[kernels] {name} {what}: {ms:.4f} ms '
+              f'per call (CUDA events, wrapper included), device {dev_txt} '
+              f'(profiler), bound {b_ms:.6f} ms ({b_by}: {flops / 1e6:.3f} '
+              f'MFLOP, {nbytes / 1e6:.3f} MB), share {share}; plain '
               f'{plain_ms:.1f} ms  [{card}]')
-        if nsec == '1':
+        if key in ('batch/1', 'timeline/1'):
             results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
                                  device_ms=dev_ms, bound_ms=b_ms,
                                  bound_by=b_by)
@@ -401,26 +443,21 @@ def phase_kernels():
     # the segment gate's two sides at one shape: the render-ahead batch's
     # windows through the timeline segment kernel instead (per-block
     # segments over the (C + 8F, 16) timeline), 1 section
-    xt = torch.as_tensor(rng.standard_normal((L + (AHEAD - 1) * F, STATIC_CH))
-                         .astype(np.float32), device=dev)
     co_seg = cos[1]
-    idx = (torch.arange(L, device=dev)[:, None]
-           + F * torch.arange(AHEAD, device=dev)[None, :])
     seg = K.sosfilt_segments(co_seg, xt, n_segments=AHEAD, seg_frames=F,
                              context=STATIC_C)
-    bat = K.sosfilt_batch(co_seg, xt[idx], tail=F).permute(1, 0, 2)
+    bat = K.sosfilt_batch(co_seg, x3, tail=F).permute(1, 0, 2)
     err = float((seg - bat).abs().max())
     assert err <= TOL, err
     seg_ms = device_ms(lambda: K.sosfilt_segments(
         co_seg, xt, n_segments=AHEAD, seg_frames=F, context=STATIC_C), 20,
-        seg_kernels)
-    bat_ms = device_ms(lambda: K.sosfilt_batch(co_seg, xt[idx], tail=F), 20,
-                       ('batch_cascade',))
+        SEG_KERNELS)
+    bat_ms = device_ms(lambda: K.sosfilt_batch(co_seg, x3, tail=F), 20,
+                       ('rows_cascade',))
     print(f'[kernels] gate, render-ahead shape ({AHEAD} blocks x '
           f'{STATIC_CH} lanes, C={STATIC_C}): segments {seg_ms} ms vs batch '
-          f'{bat_ms} ms device (profiler); outputs agree to {err!r}  '
-          f'[{card}]')
-    return results
+          f'{bat_ms} ms device (profiler), both reading the timeline in '
+          f'place; outputs agree to {err!r}  [{card}]')
 
 
 def n_blocks_60s():
@@ -665,6 +702,16 @@ def phase_paths():
                          'voices, 3 blocks each')}
 
 
+def kernel_ms(k):
+    """``(ms, how)``: a kernel's own time, beside its bound — the
+    profiler's device time (a call's CUDA-events time, host dispatch
+    included, is longer than the zero-state kernels), or that CUDA-events
+    time where the traces lost events."""
+    if k['device_ms'] is not None:
+        return k['device_ms'], 'profiler, device'
+    return k['ms'], 'CUDA events, wrapper included'
+
+
 def main() -> int:
     try:
         import torch
@@ -693,9 +740,10 @@ def main() -> int:
         {'name': f'sosfilt_{name}', 'route': 'cuda',
          'source': csrc + where[name][0], 'replaces': pk + where[name][1],
          'launches': launches[name][0], 'launched_by': launches[name][1],
-         'max_abs_err': kern[name]['err'], 'ms': kern[name]['ms'],
+         'max_abs_err': kern[name]['err'],
+         'ms': kernel_ms(kern[name])[0], 'ms_by': kernel_ms(kern[name])[1],
+         'call_ms': kern[name]['ms'],
          'plain_ms': kern[name]['plain_ms'],
-         'device_ms': kern[name]['device_ms'],
          'bound_ms': kern[name]['bound_ms'],
          'bound_by': kern[name]['bound_by'],
          # no PyTorch call computes a recursive biquad cascade

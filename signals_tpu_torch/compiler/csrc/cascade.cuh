@@ -15,9 +15,6 @@
 
 namespace signals {
 
-constexpr int kChunk = 32;     // rows per register chunk (and per flush)
-constexpr int kMaxTile = 128;  // threads (lanes) per block, at most
-
 struct Taps { float rc, rs, d0, d1, d2; };
 
 template <int NSEC>
@@ -68,12 +65,5 @@ struct Cascade {
         return y;
     }
 };
-
-// Threads per block for a launch over `lanes` independent lanes: at most
-// kMaxTile, never more than the lanes rounded up to a warp.
-inline int lane_tile(int lanes) {
-    const int cap = lanes < kMaxTile ? lanes : kMaxTile;
-    return (cap + 31) / 32 * 32;
-}
 
 }  // namespace signals

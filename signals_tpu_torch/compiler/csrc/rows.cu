@@ -1,125 +1,207 @@
-// Zero-state cascade kernels for Hopper (sm_90a).
+// Zero-state cascade kernels for Hopper (sm_90a): a time-sliced scan.
 //
-// Replace the Pallas TPU kernels of signals_tpu/compiler/pallas_kernels.py:
-//   * batch_cascade<NSEC>    <- _batch_kernel / sosfilt_batch (K3): B
-//     independent windows of L rows, (L, B, ch); only the last `tail` rows
-//     of each window are written, the first L - tail only warm the state up
-//   * timeline_cascade<NSEC> <- _section_kernel / sosfilt_pallas (K4): one
-//     whole (N, ch) timeline, every row written
-// Both run the shared row loop (run_rows) over the coupled-form cascade of
-// cascade.cuh, all NSEC sections per row in registers, from zero state.  The
-// TPU ran one section per sosfilt_pallas call and an 8-row causal-combination
-// form per chunk; the result is the same up to rounding.
+// Replace the Pallas TPU kernels of signals_tpu/compiler/pallas_kernels.py
+// with one template, rows_cascade<NSEC>, behind two launchers:
+//   * sosfilt_batch_launch    <- _batch_kernel / sosfilt_batch (K3): B
+//     independent windows of L rows, x_t (L, B, ch) read through its element
+//     strides (overlapping windows of one timeline, a broadcast channel);
+//     only the last `tail` rows of each window are written, (tail, B, ch);
+//     the first L - tail only warm the state up
+//   * sosfilt_timeline_launch <- _section_kernel / sosfilt_pallas (K4): one
+//     window, tail = L: a whole (N, ch) timeline, every row written
+// Both run the coupled-form cascade of cascade.cuh, 1-4 sections per lane in
+// registers, from zero state.  The TPU ran one section per sosfilt_pallas
+// call and an 8-row causal-combination form per chunk; the result is the
+// same up to rounding.
 //
-// What bounds them on this card: the recurrence is serial in time, so one
-// thread owns one lane (one channel of one window) and walks its rows; the
-// launch is latency-bound (a mono per-block step is ONE thread running
-// C + F rows), not bound by bytes or FLOPs.  Rows go in chunks of kChunk
-// whose loads are issued one chunk ahead, so they land during the previous
-// chunk's serial cascade.  Neighbouring threads hold neighbouring channels,
-// so each row's loads and stores coalesce.  The TPU's (8, 128) tiling,
-// 1024-lane groups, row padding and ROW_CHUNK grid are not carried over.
+// What bounds them on this card.  The work is small: the render-ahead batch
+// (8 windows x 16 lanes x 1152 rows) is 147k lane-rows and 1.1 MB, whose
+// roofline bound (0.3 us of bytes) is below a launch's own cost.  What
+// costs is the serial chain: the row loop this kernel replaced gave one
+// thread per lane and walked all L rows (16 threads for a 16-channel step,
+// one for a mono step), ~80 cycles a row (scripts/torch_rows_variants.py,
+// PERF.md).  So the rows are cut into slices, as segments.cu does (the
+// scan's pieces are scan.cuh's): one section is s' = p*s + x over complex
+// numbers, so a slice of rows is an affine map.  One thread per (slice,
+// lane), lanes fastest so that row loads and stores coalesce:
+//   1. the scan pass of section 0: each thread runs its slice from zero
+//      state and keeps the map (transfer, end state); slice_start's
+//      Hillis-Steele scan in shared memory gives each slice its true start;
+//   2. the scan pass of section k replays sections 0..k-1 from their true
+//      starts and runs section k from zero state, then scans again;
+//   3. the final replay runs all sections from the true starts and writes
+//      the rows -- only in slices that hold rows past L - tail: a slice
+//      wholly in the warmup takes part in the scans only.
+// Slices are one chunk of kRows rows or more: plan_slices() with a minimum
+// slice of kRows picks lanes per block and the slice length, and at these
+// shapes the slices of a window carry the parallelism (a mono step runs 72
+// threads of 16 rows, not one of 1152).  Per row a thread issues a load, the
+// cascade and a store, so its rows per pass set the time at every shape
+// measured: 64-row slices (segments.cu's minimum) ran 2.4x slower.  A
+// window of fewer than 2 * kRows rows is one slice: the plain row loop from
+// zero state, without a scan.  Rows go in chunks of kRows: first the chunk's
+// loads (independent of each other), then the serial cascade; the passes
+// after the first read their rows again from L1.
+//
+// Rounding: the cascade and the scan are left to nvcc's default contraction
+// (--fmad=true), which changes results only at f32 round-off.
 
-#include "cascade.cuh"
+#include "scan.cuh"
 
 namespace {
 
 using signals::Cascade;
-using signals::kChunk;
-using signals::kMaxTile;
-using signals::lane_tile;
+using signals::Cplx;
+using signals::cmul;
+using signals::kMaxThreads;
+using signals::kRows;
+using signals::pow_rows;
+using signals::set_state;
+using signals::slice_start;
 
-// kChunk rows of one lane from row r0 (zeros past n_rows or when inactive).
-__device__ __forceinline__ void load_chunk(float (&dst)[kChunk],
-                                           const float* __restrict__ x,
-                                           int64_t row_stride, int r0,
-                                           int n_rows, bool active) {
-#pragma unroll
-    for (int i = 0; i < kChunk; ++i) {
-        const int r = r0 + i;
-        dst[i] = (active && r < n_rows) ? x[(int64_t)r * row_stride] : 0.f;
-    }
-}
+// One launch: the windows, their element strides, and the slicing.
+struct RowsGeo {
+    int ch, lanes;                  // lanes = windows * ch, lane = b*ch + c
+    int n_rows;                     // rows per window
+    int skip;                       // rows before the output (L - tail)
+    int64_t x_row, x_win, x_ch;     // strides of x_t (L, B, ch)
+    int64_t co_win, co_sec, co_ch;  // strides of coeffs (B, nsec, ch, 11)
+    int lt, lt_log, slice, n_slices;
+};
 
-// One lane: x[r * row_stride] for r < n_rows through the cascade from zero
-// state; rows r >= skip are written to out[(r - skip) * row_stride].
-template <int NSEC>
-__device__ __forceinline__ void run_rows(Cascade<NSEC>& cas,
-                                         const float* __restrict__ x,
-                                         float* __restrict__ out,
-                                         int64_t row_stride, int n_rows,
-                                         int skip, bool active) {
-    cas.reset();
-    float v[kChunk], next[kChunk];
-    load_chunk(next, x, row_stride, 0, n_rows, active);
-    for (int r0 = 0; r0 < n_rows; r0 += kChunk) {
+// One pass over rows [row_a, row_b) of one lane (its input column xl)
+// through the first NS sections from the states in cas.  TRACK: return the
+// transfer of section NS-1 over the rows (its end state is then in cas).
+// EMIT: write the rows from g.skip on to out, the lane's output column.
+// Rows are addressed by pointers that step by their strides, and an
+// inactive lane reads lane 0's rows (valid memory) and writes nothing.
+template <int NSEC, int NS, bool TRACK, bool EMIT>
+__device__ __forceinline__ Cplx walk(Cascade<NSEC>& cas,
+                                     const float* __restrict__ xl,
+                                     float* __restrict__ out, int row_a,
+                                     int row_b, bool active,
+                                     const RowsGeo& g) {
+    Cplx a{1.f, 0.f};
+    const Cplx p{cas.tp[NS - 1].rc, cas.tp[NS - 1].rs};
+    const Cplx pk = TRACK ? pow_rows(p) : a;
+    const float* xr = xl + (int64_t)row_a * g.x_row;
+    for (int r0 = row_a; r0 < row_b; r0 += kRows) {
+        const int n = min(kRows, row_b - r0);        // rows of the chunk
+        float v[kRows];
 #pragma unroll
-        for (int i = 0; i < kChunk; ++i) v[i] = next[i];
-        load_chunk(next, x, row_stride, r0 + kChunk, n_rows, active);
+        for (int i = 0; i < kRows; ++i) {
+            v[i] = i < n ? *xr : 0.f;
+            xr += g.x_row;
+        }
+        if (n == kRows) {
 #pragma unroll
-        for (int i = 0; i < kChunk; ++i) v[i] = cas.step(v[i]);
-        if (!active || r0 + kChunk <= skip) continue;    // warmup rows only
+            for (int i = 0; i < kRows; ++i) v[i] = cas.template step<NS>(v[i]);
+            if (TRACK) a = cmul(pk, a);
+        } else {   // the slice's last rows
 #pragma unroll
-        for (int i = 0; i < kChunk; ++i) {
-            const int r = r0 + i;
-            if (r >= skip && r < n_rows)
-                out[(int64_t)(r - skip) * row_stride] = v[i];
+            for (int i = 0; i < kRows; ++i) {
+                if (i >= n) continue;
+                v[i] = cas.template step<NS>(v[i]);
+                if (TRACK) a = cmul(p, a);
+            }
+        }
+        if (!EMIT || !active) continue;
+        const int lo = max(g.skip - r0, 0);          // the first output row
+        float* o = out + (int64_t)(r0 + lo - g.skip) * g.lanes;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+            if (i < lo || i >= n) continue;
+            *o = v[i];
+            o += g.lanes;
         }
     }
+    return a;
 }
 
-// grid: lane tiles; block: one thread per channel.  coeffs (nsec, ch, 11),
-// x and out (n_rows, ch).
+// The scan passes of sections S.. NSEC-1: section S's replays sections
+// 0..S-1 from their true starts and runs section S from zero state; the scan
+// gives each slice section S's true start.
+template <int NSEC, int S = 0>
+__device__ __forceinline__ void scan_sections(Cascade<NSEC>& cas,
+                                              Cplx (&start)[NSEC],
+                                              const float* __restrict__ xl,
+                                              int row_a, int row_b,
+                                              bool active, int k,
+                                              float4* buf, const RowsGeo& g) {
+    if constexpr (S < NSEC) {
+#pragma unroll
+        for (int s = 0; s < S; ++s) set_state(cas, s, start[s]);
+        set_state(cas, S, Cplx{0.f, 0.f});
+        const Cplx a = walk<NSEC, S + 1, true, false>(cas, xl, nullptr, row_a,
+                                                      row_b, active, g);
+        start[S] = slice_start(a, Cplx{cas.s1[S], cas.s2[S]}, buf, k,
+                               g.n_slices, g.lt);
+        scan_sections<NSEC, S + 1>(cas, start, xl, row_a, row_b, active, k,
+                                   buf, g);
+    }
+}
+
+// grid: lane tiles of lt over the windows' lanes; block: lt lanes x
+// n_slices slices, lanes fastest.  out (tail, lanes), contiguous.  The
+// explicit minimum of one block per SM lets ptxas use up to 128 registers:
+// without it, it held 1-2 sections to 64 and spilled at 2 (a few blocks on
+// the whole card run here, so occupancy buys nothing).
 template <int NSEC>
-__global__ void __launch_bounds__(kMaxTile)
-timeline_cascade(const float* __restrict__ coeffs,
-                 const float* __restrict__ x, float* __restrict__ out,
-                 int ch, int n_rows) {
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool active = lane < ch;
-    const int lane_c = active ? lane : 0;
+__global__ void __launch_bounds__(kMaxThreads, 1)
+rows_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
+             float* __restrict__ out, const RowsGeo g) {
+    extern __shared__ float4 smem[];
+    const int k = threadIdx.x >> g.lt_log;
+    const int lane = (blockIdx.x << g.lt_log) + (threadIdx.x & (g.lt - 1));
+    const bool active = lane < g.lanes;
+    const int lane_c = active ? lane : 0;          // inactive lanes read 0
+    const int b = lane_c / g.ch, c = lane_c - b * g.ch;
+    const float* xl = x + b * g.x_win + c * g.x_ch;
+    const int row_a = min(k * g.slice, g.n_rows);
+    const int row_b = min(row_a + g.slice, g.n_rows);
     Cascade<NSEC> cas;
-    cas.load(coeffs + (int64_t)lane_c * 11, (int64_t)ch * 11);
-    run_rows(cas, x + lane_c, out + lane_c, ch, n_rows, 0, active);
-}
-
-// grid: lane tiles over the B * ch lanes of a row; block: one thread per
-// (window b, channel c), lane = b * ch + c.  coeffs (B, nsec, ch, 11),
-// x (n_rows, B, ch), out (tail, B, ch).
-template <int NSEC>
-__global__ void __launch_bounds__(kMaxTile)
-batch_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
-              float* __restrict__ out, int n_windows, int ch, int n_rows,
-              int tail) {
-    const int lanes = n_windows * ch;
-    const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    const bool active = lane < lanes;
-    const int lane_c = active ? lane : 0;
-    const int b = lane_c / ch, c = lane_c % ch;
-    Cascade<NSEC> cas;
-    cas.load(coeffs + ((int64_t)b * NSEC * ch + c) * 11, (int64_t)ch * 11);
-    run_rows(cas, x + lane_c, out + lane_c, lanes, n_rows, n_rows - tail,
-             active);
+    cas.load(coeffs + b * g.co_win + c * g.co_ch, g.co_sec);
+    cas.reset();
+    if (g.n_slices > 1) {
+        Cplx start[NSEC];
+        scan_sections<NSEC>(cas, start, xl, row_a, row_b, active, k, smem, g);
+#pragma unroll
+        for (int s = 0; s < NSEC; ++s) set_state(cas, s, start[s]);
+    }
+    // the final replay, in the slices that hold output rows
+    if (row_b > g.skip)
+        walk<NSEC, NSEC, false, true>(cas, xl, out + lane, row_a, row_b,
+                                      active, g);
 }
 
 template <int NSEC>
-int launch_timeline(const float* coeffs, const float* x, float* out, int ch,
-                    int n_rows, cudaStream_t stream) {
-    const int tile = lane_tile(ch);
-    timeline_cascade<NSEC><<<(ch + tile - 1) / tile, tile, 0, stream>>>(
-        coeffs, x, out, ch, n_rows);
+int launch_n(const float* coeffs, const float* x, float* out, RowsGeo g,
+             cudaStream_t stream) {
+    // slices of one chunk at least: a shorter slice's thread walks fewer
+    // rows, which set the time at every shape measured (PERF.md)
+    const signals::Slicing s = signals::plan_slices(1, g.lanes, g.n_rows,
+                                                    kRows);
+    g.lt = s.lt;
+    g.lt_log = s.lt_log;
+    g.slice = s.slice;
+    g.n_slices = s.n_slices;
+    const int threads = (g.n_slices * g.lt + 31) / 32 * 32;
+    const size_t smem = g.n_slices > 1 ? 2 * threads * sizeof(float4) : 0;
+    rows_cascade<NSEC><<<(g.lanes + g.lt - 1) / g.lt, threads, smem,
+                         stream>>>(coeffs, x, out, g);
     return (int)cudaGetLastError();
 }
 
-template <int NSEC>
-int launch_batch(const float* coeffs, const float* x, float* out,
-                 int n_windows, int ch, int n_rows, int tail,
-                 cudaStream_t stream) {
-    const int lanes = n_windows * ch;
-    const int tile = lane_tile(lanes);
-    batch_cascade<NSEC><<<(lanes + tile - 1) / tile, tile, 0, stream>>>(
-        coeffs, x, out, n_windows, ch, n_rows, tail);
-    return (int)cudaGetLastError();
+int launch(const float* coeffs, const float* x, float* out, const RowsGeo& g,
+           int nsec, void* stream) {
+    const cudaStream_t st = (cudaStream_t)stream;
+    switch (nsec) {
+    case 1: return launch_n<1>(coeffs, x, out, g, st);
+    case 2: return launch_n<2>(coeffs, x, out, g, st);
+    case 3: return launch_n<3>(coeffs, x, out, g, st);
+    case 4: return launch_n<4>(coeffs, x, out, g, st);
+    default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace
@@ -127,39 +209,45 @@ int launch_batch(const float* coeffs, const float* x, float* out,
 extern "C" {
 
 // The launchers return the cudaError_t of the launch (0 on success);
-// nsec outside 1..4 is refused with cudaErrorInvalidValue.
-int sosfilt_timeline_launch(const float* coeffs, const float* x, float* out,
-                            int nsec, int ch, int n_rows, void* stream) {
-    const cudaStream_t st = (cudaStream_t)stream;
-    switch (nsec) {
-    case 1: return launch_timeline<1>(coeffs, x, out, ch, n_rows, st);
-    case 2: return launch_timeline<2>(coeffs, x, out, ch, n_rows, st);
-    case 3: return launch_timeline<3>(coeffs, x, out, ch, n_rows, st);
-    case 4: return launch_timeline<4>(coeffs, x, out, ch, n_rows, st);
-    default: return (int)cudaErrorInvalidValue;
-    }
+// nsec outside 1..4 is refused with cudaErrorInvalidValue.  Strides are in
+// elements; the 11 coefficient columns are contiguous.
+
+// coeffs (nsec, ch, 11), x (n_rows, ch) -> out (n_rows, ch), contiguous.
+int sosfilt_timeline_launch(const float* coeffs, int64_t co_sec,
+                            int64_t co_ch, const float* x, int64_t x_row,
+                            int64_t x_ch, float* out, int nsec, int ch,
+                            int n_rows, void* stream) {
+    RowsGeo g{};
+    g.ch = ch;
+    g.lanes = ch;
+    g.n_rows = n_rows;
+    g.skip = 0;
+    g.x_row = x_row;
+    g.x_ch = x_ch;
+    g.co_sec = co_sec;
+    g.co_ch = co_ch;
+    return launch(coeffs, x, out, g, nsec, stream);
 }
 
-int sosfilt_batch_launch(const float* coeffs, const float* x, float* out,
-                         int nsec, int n_windows, int ch, int n_rows,
-                         int tail, void* stream) {
-    const cudaStream_t st = (cudaStream_t)stream;
-    switch (nsec) {
-    case 1:
-        return launch_batch<1>(coeffs, x, out, n_windows, ch, n_rows, tail,
-                               st);
-    case 2:
-        return launch_batch<2>(coeffs, x, out, n_windows, ch, n_rows, tail,
-                               st);
-    case 3:
-        return launch_batch<3>(coeffs, x, out, n_windows, ch, n_rows, tail,
-                               st);
-    case 4:
-        return launch_batch<4>(coeffs, x, out, n_windows, ch, n_rows, tail,
-                               st);
-    default:
-        return (int)cudaErrorInvalidValue;
-    }
+// coeffs (n_windows, nsec, ch, 11), x (n_rows, n_windows, ch) -> out (tail,
+// n_windows, ch), contiguous.
+int sosfilt_batch_launch(const float* coeffs, int64_t co_win, int64_t co_sec,
+                         int64_t co_ch, const float* x, int64_t x_row,
+                         int64_t x_win, int64_t x_ch, float* out, int nsec,
+                         int n_windows, int ch, int n_rows, int tail,
+                         void* stream) {
+    RowsGeo g{};
+    g.ch = ch;
+    g.lanes = n_windows * ch;
+    g.n_rows = n_rows;
+    g.skip = n_rows - tail;
+    g.x_row = x_row;
+    g.x_win = x_win;
+    g.x_ch = x_ch;
+    g.co_win = co_win;
+    g.co_sec = co_sec;
+    g.co_ch = co_ch;
+    return launch(coeffs, x, out, g, nsec, stream);
 }
 
 }  // extern "C"

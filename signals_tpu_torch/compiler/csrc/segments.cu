@@ -53,7 +53,8 @@
 // loads and stores coalesce) x all the slices of one segment; plan() picks
 // lt and the slice length from the geometry and the card's SMs so that a
 // launch has ~fill_threads() threads and slices of at least kMinSlice
-// rows.  Rows go in chunks of kRows: first the chunk's inputs (independent
+// rows.  The maps, the scan and the slicing are scan.cuh's, shared with
+// rows.cu.  Rows go in chunks of kRows: first the chunk's inputs (independent
 // of each other, straight-line code), then the serial cascade; the
 // coefficient switch is tested once per chunk, and only a chunk that holds a
 // block boundary checks per row.
@@ -73,21 +74,23 @@
 // round-off.
 
 #include <algorithm>
-#include <atomic>
 #include <climits>
 
-#include "cascade.cuh"
+#include "scan.cuh"
 
 namespace {
 
 using signals::Cascade;
+using signals::Cplx;
+using signals::cmul;
+using signals::kMaxThreads;
+using signals::kRows;
+using signals::kRowsLog;
+using signals::pow_rows;
+using signals::set_state;
+using signals::slice_start;
 
 constexpr int kSinTerms = 7;         // Horner terms of sin(2*pi*y), mathx.sin2pi
-constexpr int kRows = 16;            // rows per register chunk
-constexpr int kRowsLog = 4;
-static_assert(kRows == 1 << kRowsLog, "kRows is 2^kRowsLog");
-constexpr int kMaxThreads = 512;     // threads per block, at most
-constexpr int kMinSlice = 64;        // rows per slice, at least
 constexpr int kPad = 33;             // padded shared row of the group sums
 
 enum { OSC_SINE = 0, OSC_SQUARE = 1, OSC_SAW = 2, OSC_TRIANGLE = 3 };
@@ -153,19 +156,6 @@ __device__ __forceinline__ float synth(int t, float hz, float ph, float amp,
                       sign_f(__fsub_rn(frac_rn(t3), 0.5f)));
     }
     return t < 0 ? 0.f : __fmul_rn(amp, x);
-}
-
-struct Cplx { float re, im; };
-
-__device__ __forceinline__ Cplx cmul(Cplx a, Cplx b) {
-    return {a.re * b.re - a.im * b.im, a.re * b.im + a.im * b.re};
-}
-
-// p^kRows by squaring (kRows is a power of two).
-__device__ __forceinline__ Cplx pow_rows(Cplx p) {
-#pragma unroll
-    for (int n = 1; n < kRows; n *= 2) p = cmul(p, p);
-    return p;
 }
 
 // The geometry of one launch (plan() on the host).
@@ -373,45 +363,6 @@ __device__ __forceinline__ Cplx walk(Cascade<NSEC>& cas, const Slice& sl,
     return a;
 }
 
-// The true state at the slice's first row: an exclusive scan of the slices'
-// maps s -> a*s + e over the carry segment (Hillis-Steele, double-buffered
-// in shared memory; slice k's lane l is thread k*lt + l).  Slice 0 starts
-// from zero.
-__device__ __forceinline__ Cplx slice_start(Cplx a, Cplx e, float4* buf,
-                                            int k, const Geo& g) {
-    const int t = threadIdx.x, n = blockDim.x;
-    float4 mine = make_float4(a.re, a.im, e.re, e.im);
-    int cur = 0;
-    __syncthreads();                  // earlier users of buf are done
-    buf[t] = mine;
-    __syncthreads();
-    for (int d = 1; d < g.n_slices; d *= 2) {
-        if (k >= d) {
-            const float4 prev = buf[cur * n + t - d * g.lt];
-            const Cplx ma{mine.x, mine.y};
-            const Cplx na = cmul(ma, Cplx{prev.x, prev.y});
-            const Cplx ne = cmul(ma, Cplx{prev.z, prev.w});
-            mine = make_float4(na.re, na.im, ne.re + mine.z, ne.im + mine.w);
-        }
-        cur ^= 1;
-        buf[cur * n + t] = mine;
-        __syncthreads();
-    }
-    Cplx s{0.f, 0.f};
-    if (k > 0) {
-        const float4 p = buf[cur * n + t - g.lt];
-        s = Cplx{p.z, p.w};
-    }
-    __syncthreads();                  // buf is free for the next user
-    return s;
-}
-
-template <int NSEC>
-__device__ __forceinline__ void set_state(Cascade<NSEC>& cas, int s, Cplx v) {
-    cas.s1[s] = v.re;
-    cas.s2[s] = v.im;
-}
-
 // grid: (carry segments, lane tiles of lt); block: lt lanes x n_slices
 // slices, lanes fastest.  With g.h, each h-lane subgroup is summed per row
 // into out (rows, lanes / h): the final sums when h is the group, else the
@@ -458,7 +409,7 @@ seg_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
             const Cplx a = walk<GEN, OSC, 1, 1, true, EMIT_SET>(
                 cas, sl, g, coeffs, x, gen, red, out);
             set_state(cas, 0, slice_start(a, Cplx{cas.s1[0], cas.s2[0]},
-                                          smem, k, g));
+                                          smem, k, g.n_slices, g.lt));
             walk<GEN, OSC, 1, 1, false, EMIT_ADD, true>(cas, sl, g, coeffs, x,
                                                        gen, red, out);
             return;
@@ -468,14 +419,16 @@ seg_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
     // scan pass of section 0: from zero state
     Cplx a = walk<GEN, OSC, NSEC, 1, true, EMIT_NONE>(cas, sl, g, coeffs, x,
                                                      gen, red, out);
-    start[0] = slice_start(a, Cplx{cas.s1[0], cas.s2[0]}, smem, k, g);
+    start[0] = slice_start(a, Cplx{cas.s1[0], cas.s2[0]}, smem, k,
+                           g.n_slices, g.lt);
     if constexpr (NSEC == 2) {
         // scan pass of section 1: section 0 replayed from its true start
         set_state(cas, 0, start[0]);
         set_state(cas, 1, Cplx{0.f, 0.f});
         a = walk<GEN, OSC, NSEC, 2, true, EMIT_NONE>(cas, sl, g, coeffs, x,
                                                     gen, red, out);
-        start[1] = slice_start(a, Cplx{cas.s1[1], cas.s2[1]}, smem, k, g);
+        start[1] = slice_start(a, Cplx{cas.s1[1], cas.s2[1]}, smem, k,
+                               g.n_slices, g.lt);
     }
     // the replay from the true starts, writing the rows
 #pragma unroll
@@ -497,60 +450,25 @@ sum_partials(const float* __restrict__ partial, float* __restrict__ out,
     out[i] = acc;
 }
 
-// The threads a launch aims for: a quarter of what the current device's SMs
-// hold at once (132 x 2048 / 4 on an H100 SXM), read once per device.
-int64_t fill_threads() {
-    constexpr int kDevices = 64;     // devices cached; any others are read
-    static std::atomic<int64_t> cached[kDevices];
-    int dev = 0;
-    cudaGetDevice(&dev);
-    int64_t n = dev < kDevices ? cached[dev].load(std::memory_order_relaxed)
-                               : 0;
-    if (n == 0) {
-        int sms = 0, per_sm = 0;
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-        cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxThreadsPerMultiProcessor,
-                               dev);
-        n = (int64_t)sms * per_sm / 4;
-        if (dev < kDevices) cached[dev].store(n, std::memory_order_relaxed);
-    }
-    return n;
-}
-
-// Lanes per block and slice length: start from lt = the lanes (a power of
-// two, at most 32) and halve it, which doubles the slices per segment, while
-// the launch has fewer than fill_threads() threads and halving still adds
-// slices (at most kMaxThreads threads a block, at least kMinSlice rows a
-// slice).  h: the largest power of two dividing the sum group, at most lt.
+// The slicing of plan_slices(), one carry segment per unit; h: the largest
+// power of two dividing the sum group, at most lt.
 Geo plan(int n_units, int lanes, int F, int C, int m, int sum_groups) {
-    const int64_t fill = fill_threads();
     Geo g{};
     g.lanes = lanes;
     g.F = F;
     g.C = C;
     g.m = m;
     g.n_rows = C + m * F;
-    const auto slices = [&](int lt) {
-        return std::max(1, std::min(kMaxThreads / lt, g.n_rows / kMinSlice));
-    };
-    int lt = 1;
-    while (lt < lanes && lt < 32) lt *= 2;
-    while (lt > 1) {
-        const int64_t threads = (int64_t)n_units * ((lanes + lt - 1) / lt)
-                                * lt * slices(lt);
-        if (threads >= fill || slices(lt / 2) <= slices(lt)) break;
-        lt /= 2;
-    }
-    const int w = slices(lt);
-    g.lt = lt;
-    while ((1 << g.lt_log) < lt) ++g.lt_log;
-    g.slice = ((g.n_rows + w - 1) / w + kRows - 1) / kRows * kRows;
-    g.n_slices = (g.n_rows + g.slice - 1) / g.slice;
+    const signals::Slicing s = signals::plan_slices(n_units, lanes, g.n_rows);
+    g.lt = s.lt;
+    g.lt_log = s.lt_log;
+    g.slice = s.slice;
+    g.n_slices = s.n_slices;
     g.h = 0;
     g.out_width = lanes;
     if (sum_groups) {
         g.h = 1;
-        while (g.h < lt && sum_groups % (2 * g.h) == 0) {
+        while (g.h < g.lt && sum_groups % (2 * g.h) == 0) {
             g.h *= 2;
             ++g.h_log;
         }

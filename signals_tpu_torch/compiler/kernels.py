@@ -322,6 +322,12 @@ def _check_rows_coeffs(coeffs, dims: int, layout: str):
     return nsec
 
 
+def _columns_contiguous(coeffs):
+    """``coeffs`` as the kernels read it: any strides (a broadcast window or
+    channel is stride 0) but the 11 columns contiguous."""
+    return coeffs if coeffs.stride(-1) == 1 else coeffs.contiguous()
+
+
 def sosfilt_timeline_plain(coeffs, x):
     """Plain PyTorch version of :func:`sosfilt_timeline`."""
     return sosfilt_scan(coeffs, x)
@@ -332,7 +338,9 @@ def sosfilt_timeline(coeffs, x):
     coefficients ``(nsec, ch, 11)`` from ``design_coupled``; the channel
     axes broadcast to the wider count.  Returns ``(N, ch)``.  Computes what
     ``sosfilt_pallas`` computes (the TPU runs one section per call, the
-    kernel all sections per row; the result is the same up to rounding)."""
+    kernel all sections per row; the result is the same up to rounding).
+    The kernel reads ``x`` and ``coeffs`` through their strides: a strided
+    or broadcast view is not copied."""
     nsec = _check_rows_coeffs(coeffs, 3, '(nsec, ch, 11)')
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f'x must be float32 (N, ch), got '
@@ -347,10 +355,10 @@ def sosfilt_timeline(coeffs, x):
         return out
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
-    coeffs, x = coeffs.contiguous(), x.contiguous()
-    code = lib.sosfilt_timeline_launch(coeffs.data_ptr(), x.data_ptr(),
-                                       out.data_ptr(), nsec, ch, n,
-                                       _stream(x.device))
+    coeffs = _columns_contiguous(coeffs)
+    code = lib.sosfilt_timeline_launch(
+        coeffs.data_ptr(), *coeffs.stride()[:2], x.data_ptr(), *x.stride(),
+        out.data_ptr(), nsec, ch, n, _stream(x.device))
     _build.check(code, 'sosfilt_timeline')
     LAUNCHES['timeline'] += 1
     return out
@@ -376,7 +384,12 @@ def sosfilt_batch(coeffs, x_t, *, tail=None):
     ``coeffs``: ``(B, nsec, ch, 11)`` per-window ``design_coupled`` output.
     The channel axes broadcast to the wider count.  Returns the last
     ``tail`` rows ``(tail, B, ch)`` (all ``L`` rows by default): the first
-    ``L - tail`` rows only warm the state up and are never written."""
+    ``L - tail`` rows only warm the state up and are never written.
+
+    The kernel reads ``x_t`` and ``coeffs`` through their strides, so the
+    windows may be a view of one timeline — overlapping, e.g.
+    ``x.unfold(0, L, step).permute(2, 0, 1)`` — or a broadcast: nothing is
+    gathered or copied."""
     nsec = _check_rows_coeffs(coeffs, 4, '(B, nsec, ch, 11)')
     if x_t.dim() != 3 or x_t.dtype != torch.float32:
         raise ValueError(f'x_t must be float32 (L, B, ch), got '
@@ -397,10 +410,11 @@ def sosfilt_batch(coeffs, x_t, *, tail=None):
         return out
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
-    coeffs, x_t = coeffs.contiguous(), x_t.contiguous()
-    code = lib.sosfilt_batch_launch(coeffs.data_ptr(), x_t.data_ptr(),
-                                    out.data_ptr(), nsec, B, ch, L, tail,
-                                    _stream(x_t.device))
+    coeffs = _columns_contiguous(coeffs)
+    code = lib.sosfilt_batch_launch(
+        coeffs.data_ptr(), *coeffs.stride()[:3], x_t.data_ptr(),
+        *x_t.stride(), out.data_ptr(), nsec, B, ch, L, tail,
+        _stream(x_t.device))
     _build.check(code, 'sosfilt_batch')
     LAUNCHES['batch'] += 1
     return out

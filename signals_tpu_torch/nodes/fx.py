@@ -398,18 +398,17 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
     def _batch_compute(self, ctx, grid, nyquist):
         """Batched per-block replay (the JAX package's ``sosfilt_batch``
         branch, ``signals_tpu/nodes/fx.py:939-958``): each block's context
-        window of ``C + F`` frames, gathered from the lowered timeline,
-        filtered from zero state with that block's coefficients, the last
-        ``F`` rows kept — ``(nb, F, ch)``."""
+        window of ``C + F`` frames, read in place from the lowered timeline
+        (overlapping views, no gathered copy), filtered from zero state
+        with that block's coefficients, the last ``F`` rows kept —
+        ``(nb, F, ch)``."""
         from signals_tpu_torch.compiler.kernels import sosfilt_batch
         F_, nb = grid
         C = self.context_frames()
         co = self._block_coeffs(ctx, nb, nyquist)
         x = ctx.in_context('input', C)                     # (C + nb*F, ch)
-        dev = x.device
-        idx = (torch.arange(C + F_, device=dev)[:, None]
-               + F_ * torch.arange(nb, device=dev)[None, :])
-        yt = sosfilt_batch(co, x[idx], tail=F_)            # (F, nb, ch)
+        xw = x.unfold(0, C + F_, F_)[:nb].permute(2, 0, 1)  # (C + F, nb, ch)
+        yt = sosfilt_batch(co, xw, tail=F_)                # (F, nb, ch)
         return yt.permute(1, 0, 2)
 
     def _sampled_kernel(self, ctx, nyquist):
@@ -417,7 +416,8 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
         block-rate side of a node under a multi-block window).  Each sample
         is the last frame of its own ``context + 1``-frame window filtered
         from zero state — what the per-block step computes at that frame —
-        so the windows run through one batched call with ``tail = 1``."""
+        so the windows, read in place from the timeline, run through one
+        batched call with ``tail = 1``."""
         from signals_tpu_torch.compiler.kernels import sosfilt_batch
         w = ctx.window
         n, C = w.frames, self.context_frames()
@@ -430,10 +430,8 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
         co = coeffs.reshape(coeffs.shape[0], n, chs, 11).permute(1, 0, 2, 3)
         span = (n - 1) * w.stride + 1
         x = ctx.at_window(w.offset, span).in_context('input', C)
-        dev = x.device
-        idx = (torch.arange(C + 1, device=dev)[:, None]
-               + w.stride * torch.arange(n, device=dev)[None, :])
-        return sosfilt_batch(co, x[idx], tail=1)[0]        # (n, ch)
+        xw = x.unfold(0, C + 1, w.stride)[:n].permute(2, 0, 1)
+        return sosfilt_batch(co, xw, tail=1)[0]            # (n, ch)
 
     def _gen_input_spec(self, chx):
         """``(osc_code, osc, hz_node, phase_node)`` when this filter's

@@ -8,13 +8,18 @@ per-voice parity budget; the kernels' f32 cascade orders differ at
 round-off), group sums 1e-5 of their max, and the identity-cascade saw
 source bit-exact (a one-ulp phase error at a wrap is a 2.0 spike).
 
+The zero-state kernels' time-sliced scan is modelled here in numpy f32
+(:func:`slice_scan_model`) and held to the row-by-row scan, and their
+wrappers take strided, overlapping and broadcast views.
+
 The ``cuda`` cases compare each CUDA kernel with its plain version on a
-GPU (same tolerances) — the segment kernels at the edges of their
-time-sliced scan (:data:`SEGMENT_EDGES`), lane groups wider than the
-kernel's summed subgroups, the same call twice bit for bit — and render a 1024-voice flagship
-through the mix plan; they skip without a GPU.  JAX is imported inside
-the JAX comparisons, so the card cases run on a machine without JAX, from
-the repository root:
+GPU (same tolerances) — every kernel at the edges of its time-sliced scan
+(:data:`SEGMENT_EDGES`, :data:`BATCH_EDGES`, :data:`TIMELINE_EDGES`, poles
+near the unit circle), lane groups wider than the kernel's summed
+subgroups, views read in place and the same call twice bit for bit — and
+render a 1024-voice flagship through the mix plan; they skip without a
+GPU.  JAX is imported inside the JAX comparisons, so the card cases run on
+a machine without JAX, from the repository root:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
 
@@ -298,6 +303,182 @@ def test_plain_sum_of_one_wide_group_matches_lane_sum():
     assert float((gsum - want).abs().max()) <= TOL * float(want.abs().max())
 
 
+def slice_rows(n_rows, lanes=1, fill=132 * 2048 // 4):
+    """Rows per slice as ``csrc/rows.cu`` cuts a window of ``n_rows`` rows
+    of ``lanes`` lanes (``scan.cuh``'s ``plan_slices`` with slices of one
+    16-row chunk at least, an H100's 132 SMs)."""
+    def slices(lt):
+        return max(1, min(512 // lt, n_rows // 16))
+    lt = 1
+    while lt < lanes and lt < 32:
+        lt *= 2
+    while lt > 1:
+        threads = -(-lanes // lt) * lt * slices(lt)
+        if threads >= fill or slices(lt // 2) <= slices(lt):
+            break
+        lt //= 2
+    w = slices(lt)
+    return -(-(-(-n_rows // w)) // 16) * 16
+
+
+def _cmul(a, b):
+    """Complex product of (re, im) pairs of f32 arrays, as ``scan.cuh``."""
+    return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+
+def slice_scan_model(coeffs, x, tail):
+    """A numpy float32 model of ``csrc/rows.cu``'s time-sliced scan over one
+    window (``coeffs`` ``(nsec, ch, 11)``, ``x`` ``(L, ch)``): each slice's
+    map (transfer per full 16-row chunk p^16, per row in a partial one; end
+    state) from zero state, an exclusive Hillis-Steele scan of the maps per
+    section in turn (section k's pass replays sections 0..k-1 from their
+    true starts), then the replay of only the slices that hold one of the
+    last ``tail`` rows.  Returns those rows, ``(tail, ch)``."""
+    f32 = np.float32
+    L, ch = x.shape
+    nsec = coeffs.shape[0]
+    S = slice_rows(L, ch)
+    n = -(-L // S)
+    rows = np.arange(n)[:, None] * S + np.arange(S)[None, :]
+    valid = rows < L                                       # (n, S)
+    xs = np.where(valid[..., None], x[np.minimum(rows, L - 1)], f32(0))
+    rc, rs, d0, d1, d2 = (coeffs[:, :, k] for k in range(6, 11))
+    p = [(rc[k], rs[k]) for k in range(nsec)]
+    pk = list(p)
+    for _ in range(4):
+        pk = [_cmul(q, q) for q in pk]
+    zero = np.zeros((n, ch), f32)
+
+    def walk(state, ns, track, first=0):
+        s = [tuple(c[first:] for c in st) for st in state[:ns]]
+        a = (np.ones_like(zero[first:]), zero[first:].copy())
+        ys = np.zeros((n - first, S, ch), f32)
+        for i in range(S):
+            ok = valid[first:, i][:, None]
+            v = xs[first:, i]
+            for k in range(ns):
+                s1, s2 = s[k]
+                y = d0[k] * v + d1[k] * s1 + d2[k] * s2
+                s[k] = (np.where(ok, rc[k] * s1 - rs[k] * s2 + v, s1),
+                        np.where(ok, rs[k] * s1 + rc[k] * s2, s2))
+                v = y
+            ys[:, i] = v
+            if not track:
+                continue
+            full = valid[first:, i - i % 16 + 15 if i - i % 16 + 15 < S
+                         else S - 1][:, None] & (i - i % 16 + 15 < S)
+            per_row = _cmul(p[ns - 1], a)
+            a = tuple(np.where(ok & ~full, r, c) for r, c in zip(per_row, a))
+            if i % 16 == 15:
+                chunk = _cmul(pk[ns - 1], a)
+                a = tuple(np.where(full, r, c) for r, c in zip(chunk, a))
+        return ys, s, a
+
+    def exclusive_scan(a, e):
+        d = 1
+        while d < n:
+            pa = tuple(np.concatenate([zero[:d], c[:-d]]) for c in a)
+            pe = tuple(np.concatenate([zero[:d], c[:-d]]) for c in e)
+            na, ne = _cmul(a, pa), _cmul(a, pe)
+            keep = (np.arange(n) >= d)[:, None]
+            a = tuple(np.where(keep, u, c) for u, c in zip(na, a))
+            e = tuple(np.where(keep, u + c, c) for u, c in zip(ne, e))
+            d *= 2
+        return tuple(np.concatenate([zero[:1], c[:-1]]) for c in e)
+
+    starts = [(zero, zero)] * nsec
+    if n > 1:
+        for sec in range(nsec):
+            _, end, a = walk(starts[:sec] + [(zero, zero)], sec + 1, True)
+            starts[sec] = exclusive_scan(a, end[sec])
+    first = (L - tail) // S                 # slices wholly in the warmup
+    ys, _, _ = walk(starts, nsec, False, first)
+    return ys.reshape(-1, ch)[L - tail - first * S:L - first * S]
+
+
+def unit_circle_coeffs(btype, nsec, ch):
+    """``(nsec, ch, 11)``: ``nsec`` copies of a 30 Hz LowPass or a 20 Hz
+    HighPass section (poles within ~0.3% of the unit circle at 44.1 kHz)."""
+    hz = {'lp': 30.0, 'hp': 20.0}[btype]
+    co = design_coupled(NP, btype, (np.full((1, ch), hz, np.float32),), NYQ)
+    return np.ascontiguousarray(np.concatenate([co] * nsec))
+
+
+#: the slice model's cases: (coefficients: a section count of
+#: :func:`cascade_windows` or a near-unit-circle design, rows, tail, DC
+#: offset of the noise input)
+SCAN_MODEL_CASES = {
+    'sections1_L1152_tail1024': (1, 1152, 1024, 0.0),
+    'sections2_L300_tail77': (2, 300, 77, 0.0),
+    'sections3_L1001': (3, 1001, 1001, 0.0),
+    'sections4_L1152': (4, 1152, 1152, 0.0),
+    'sections4_L129_tail1': (4, 129, 1, 0.0),
+    'lowpass30_1': (('lp', 1), 1152, 1152, 1.0),
+    'lowpass30_4_tail1': (('lp', 4), 1152, 1, 1.0),
+    'highpass20_1': (('hp', 1), 1152, 1152, 1.0),
+    'highpass20_4': (('hp', 4), 1152, 1024, 1.0),
+}
+
+
+@pytest.mark.parametrize('case', list(SCAN_MODEL_CASES))
+def test_slice_scan_model_matches_scan(case):
+    """The f32 algebra of the zero-state kernels' time-sliced scan (slice
+    maps, exclusive scans section by section, the tail-only replay) meets
+    the 1e-5 budget against the row-by-row ``sosfilt_scan`` — at 1-4
+    sections, lengths that are no multiple of the slice, a tail of one row,
+    and poles near the unit circle — before the kernel runs on a card."""
+    kind, L, tail, dc = SCAN_MODEL_CASES[case]
+    rng = np.random.default_rng(70 + list(SCAN_MODEL_CASES).index(case))
+    ch = 4
+    co = (cascade_windows(rng, 1, ch, kind)[0] if isinstance(kind, int)
+          else unit_circle_coeffs(*kind, ch))
+    x = (rng.standard_normal((L, ch)) + dc).astype(np.float32)
+    got = slice_scan_model(co, x, tail)
+    want = K.sosfilt_timeline(t(co), t(x)).numpy()[L - tail:]
+    assert got.shape == want.shape == (tail, ch)
+    assert np.abs(got - want).max() <= TOL
+    n_slices = -(-L // slice_rows(L, ch))
+    assert n_slices == {129: 5, 300: 10, 1001: 32, 1152: 72}[L]
+    assert slice_rows(31) >= 31 and slice_rows(32) == 16
+
+
+@pytest.mark.parametrize('case', ['batch_unfold', 'batch_sampled_unfold',
+                                  'batch_broadcast', 'batch_strided',
+                                  'timeline_strided', 'timeline_broadcast'])
+def test_zero_state_wrappers_take_views(case):
+    """``sosfilt_batch`` and ``sosfilt_timeline`` on strided, overlapping
+    (``unfold``, as the filter lowerings pass their windows) and broadcast
+    views give the bits of the same call on contiguous copies."""
+    rng = np.random.default_rng(80)
+    C, F, nb, ch = 128, 256, 4, 3
+    xt = t(rng.standard_normal((C + nb * F, 2 * ch)).astype(np.float32))
+    co = t(cascade_windows(rng, nb, ch, 2))
+    if case.startswith('batch_'):
+        if case == 'batch_unfold':
+            view = xt[:, :ch].unfold(0, C + F, F)[:nb].permute(2, 0, 1)
+            tail = F
+        elif case == 'batch_sampled_unfold':
+            view = xt[:, :ch].unfold(0, C + 1, F)[:nb].permute(2, 0, 1)
+            tail = 1
+        elif case == 'batch_broadcast':
+            view, tail = xt[:C + F, None, :1].expand(C + F, nb, ch), F
+        else:
+            view, tail = xt[:C + F, None, ::2].expand(C + F, nb, ch), 7
+        assert not view.is_contiguous()
+        got = K.sosfilt_batch(co, view, tail=tail)
+        want = K.sosfilt_batch(co, view.contiguous(), tail=tail)
+        cob = co[:1, :, :1].expand(nb, 2, ch, 11)
+        assert torch.equal(K.sosfilt_batch(cob, view, tail=tail),
+                           K.sosfilt_batch(cob.contiguous(),
+                                           view.contiguous(), tail=tail))
+    else:
+        view = (xt[:C + F:3, 1::2] if case == 'timeline_strided'
+                else xt[:C + F, :1].expand(C + F, ch))
+        got = K.sosfilt_timeline(co[0], view)
+        want = K.sosfilt_timeline(co[0], view.contiguous())
+    assert torch.equal(got, want)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -508,37 +689,132 @@ def test_cuda_segments_two_sections_match_plain(cuda_device, gen):
         assert float((got - want).abs().max()) <= TOL * float(scale)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('nsec', [1, 2, 3, 4])
-def test_cuda_batch_matches_plain(cuda_device, nsec):
-    """K3 at the render-ahead shape (L = C + F = 1152, 8 windows, 16
-    channels, tail F) and at a ragged one (300 rows, 5 x 3, tail 77), at
-    every section count it takes."""
-    rng = np.random.default_rng(30 + nsec)
-    for L, B, ch, tail in ((1152, 8, 16, 1024), (300, 5, 3, 77)):
-        co = cascade_windows(rng, B, ch, nsec)
-        co, x = (t(a).to(cuda_device) for a in (
-            co, rng.standard_normal((L, B, ch)).astype(np.float32)))
-        K.reset_launch_counts()
-        got = K.sosfilt_batch(co, x, tail=tail)
-        assert K.LAUNCHES['batch'] == 1
-        want = K.sosfilt_batch_plain(co, x, tail=tail)
-        assert got.shape == (tail, B, ch)
-        assert float((got - want).abs().max()) <= TOL
+#: K3 shapes for the card: (L, windows, channels, tail).  The kernel cuts
+#: each window into slices of whole 16-row chunks (a window of fewer than
+#: 32 rows is one slice, run without a scan) and replays only the slices
+#: that hold output rows, so the edges are a window that is no multiple of
+#: the slice, one slice, a tail of one row, of all rows and a ragged one,
+#: and the main path's shapes: the render-ahead batch (C + F = 1152 rows,
+#: 8 windows x 16 channels, tail F) and the sampled filter's windows
+#: (C + 1 = 129 rows, tail 1).
+BATCH_EDGES = {
+    'render_ahead': (1152, 8, 16, 1024),
+    'ragged_tail77': (300, 5, 3, 77),
+    'L1000_tail_all': (1000, 3, 5, 1000),
+    'L31_one_slice': (31, 4, 3, 31),
+    'L17_one_slice_tail1': (17, 2, 2, 1),
+    'L64': (64, 4, 3, 64),
+    'tail1': (1152, 4, 16, 1),
+    'sampled': (129, 8, 16, 1),
+}
+
+#: K4 shapes for the card: (rows, channels) — the static voice's step, the
+#: mono step, a length that is no multiple of the slice, one slice, and a
+#: timeline long enough for slices of several chunks (512 slices at most).
+TIMELINE_EDGES = {
+    'step': (1152, 16),
+    'mono_step': (1152, 1),
+    'N1001': (1001, 3),
+    'N31_one_slice': (31, 2),
+    'N20000': (20000, 2),
+}
+
+
+def plain_on_cpu(fn, *tensors, **kw):
+    """A plain version run on the CPU (the same f32 ops as on the card, at
+    a fraction of the launches), its result moved back to the card."""
+    dev = tensors[0].device
+    return fn(*(a.cpu() for a in tensors), **kw).to(dev)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('case', list(BATCH_EDGES))
 @pytest.mark.parametrize('nsec', [1, 2, 3, 4])
-def test_cuda_timeline_matches_plain(cuda_device, nsec):
-    """K4 at the step shape (1152, 16) and a mono one (1152, 1), at every
-    section count it takes."""
-    rng = np.random.default_rng(40 + nsec)
-    for ch in (16, 1):
-        co = cascade_windows(rng, 1, ch, nsec)[0]
-        co, x = (t(a).to(cuda_device) for a in (
-            co, rng.standard_normal((1152, ch)).astype(np.float32)))
-        K.reset_launch_counts()
-        got = K.sosfilt_timeline(co, x)
-        assert K.LAUNCHES['timeline'] == 1
-        want = K.sosfilt_timeline_plain(co, x)
-        assert float((got - want).abs().max()) <= TOL
+def test_cuda_batch_matches_plain(cuda_device, nsec, case):
+    """K3 at each edge of its time-sliced scan, at every section count it
+    takes, within 1e-5 of the plain version; one launch."""
+    L, B, ch, tail = BATCH_EDGES[case]
+    rng = np.random.default_rng(30 + nsec + 10 * list(BATCH_EDGES).index(case))
+    co = cascade_windows(rng, B, ch, nsec)
+    co, x = (t(a).to(cuda_device) for a in (
+        co, rng.standard_normal((L, B, ch)).astype(np.float32)))
+    K.reset_launch_counts()
+    got = K.sosfilt_batch(co, x, tail=tail)
+    assert K.LAUNCHES['batch'] == 1
+    want = plain_on_cpu(K.sosfilt_batch_plain, co, x, tail=tail)
+    assert got.shape == (tail, B, ch)
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(TIMELINE_EDGES))
+@pytest.mark.parametrize('nsec', [1, 2, 3, 4])
+def test_cuda_timeline_matches_plain(cuda_device, nsec, case):
+    """K4 at each edge of its time-sliced scan, at every section count it
+    takes, within 1e-5 of the plain version; one launch."""
+    n, ch = TIMELINE_EDGES[case]
+    rng = np.random.default_rng(40 + nsec
+                                + 10 * list(TIMELINE_EDGES).index(case))
+    co = cascade_windows(rng, 1, ch, nsec)[0]
+    co, x = (t(a).to(cuda_device) for a in (
+        co, rng.standard_normal((n, ch)).astype(np.float32)))
+    K.reset_launch_counts()
+    got = K.sosfilt_timeline(co, x)
+    assert K.LAUNCHES['timeline'] == 1
+    want = plain_on_cpu(K.sosfilt_timeline_plain, co, x)
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nsec', [1, 4])
+@pytest.mark.parametrize('btype', ['lp', 'hp'])
+def test_cuda_zero_state_poles_near_unit_circle(cuda_device, btype, nsec):
+    """The slices' composed maps near the unit circle (a 30 Hz LowPass, a
+    20 Hz HighPass, 1 and 4 sections, an input with a DC offset that drives
+    the state to ~1/(1 - |p|) of it): K4 at the step shape and K3 at the
+    render-ahead shape within 1e-5 of the plain versions."""
+    rng = np.random.default_rng(50 + nsec)
+    co = t(unit_circle_coeffs(btype, nsec, 16)).to(cuda_device)
+    x = t(rng.standard_normal((1152, 8, 16)).astype(np.float32) + 1.0).to(
+        cuda_device)
+    got = K.sosfilt_timeline(co, x[:, 0])
+    want = plain_on_cpu(K.sosfilt_timeline_plain, co, x[:, 0])
+    assert float((got - want).abs().max()) <= TOL
+    cob = co[None].expand(8, nsec, 16, 11)
+    got = K.sosfilt_batch(cob, x, tail=1024)
+    want = plain_on_cpu(K.sosfilt_batch_plain, cob, x, tail=1024)
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+def test_cuda_zero_state_views_in_place(cuda_device):
+    """The kernels read their inputs through strides: overlapping windows
+    of one timeline (an ``unfold`` view, as ``_batch_compute`` and
+    ``_sampled_kernel`` pass them) give the bits of their gathered copy, a
+    broadcast channel and broadcast coefficients the bits of contiguous
+    copies, and the same call twice the same bits."""
+    rng = np.random.default_rng(60)
+    C, F, nb, ch = 128, 1024, 8, 16
+    xt = t(rng.standard_normal((C + nb * F, ch)).astype(np.float32)).to(
+        cuda_device)
+    co = t(cascade_windows(rng, nb, ch, 2)).to(cuda_device)
+    for L, step, tail in ((C + F, F, F), (C + 1, F, 1)):
+        view = xt.unfold(0, L, step)[:nb].permute(2, 0, 1)
+        assert not view.is_contiguous()
+        idx = (torch.arange(L, device=cuda_device)[:, None]
+               + step * torch.arange(nb, device=cuda_device)[None, :])
+        got = K.sosfilt_batch(co, view, tail=tail)
+        assert torch.equal(got, K.sosfilt_batch(co, xt[idx], tail=tail))
+        assert torch.equal(got, K.sosfilt_batch(co, view, tail=tail))
+    mono = xt[:C + F, :1]
+    co1 = co[:, :, :1]
+    got = K.sosfilt_batch(co1, mono[:, None, :].expand(C + F, nb, ch),
+                          tail=F)
+    want = K.sosfilt_batch(co1.expand(nb, 2, ch, 11).contiguous(),
+                           mono[:, None, :].expand(C + F, nb, ch).contiguous(),
+                           tail=F)
+    assert torch.equal(got, want)
+    got = K.sosfilt_timeline(co[0], xt[:C + F:3])
+    assert torch.equal(got, K.sosfilt_timeline(co[0],
+                                                xt[:C + F:3].contiguous()))
+    assert torch.equal(got, K.sosfilt_timeline(co[0], xt[:C + F:3]))
