@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Four phases; any failure raises and exits non-zero:
+Five phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain and the card.
@@ -21,8 +21,13 @@ Four phases; any failure raises and exits non-zero:
    the windows read in place from one timeline) and the timeline kernel at
    the step shape (1152, 16), each at 1 and 2 sections, the timeline kernel
    at the mono step (1152, 1) and the batched replay at the sampled
-   filter's windows (C + 1 rows, tail 1), within 1e-5 max-abs; and the
-   segment gate's two sides (K2 and K3) at the render-ahead shape.
+   filter's windows (C + 1 rows, tail 1), within 1e-5 max-abs; the
+   segment gate's two sides (K2 and K3) at the render-ahead shape; and the
+   carried-state entry of the zero-state kernels against the frame loop:
+   one window of (1024, 1) and (1024, 16) at 1 and 2 sections from a
+   non-zero start state, 16 windows of 1024 rows with their end states, a
+   1152-row window cut into two calls against one call (1e-6) — ``y``
+   within 1e-5 max-abs, the end state within 1e-5 of its scale.
 3. **The flagship render**: the 64-voice swept-subtractive PolyPatch built
    from the port's nodes, rendered on the card for 256 blocks through the
    product default (generator + mix epilogue), the per-voice plan and the
@@ -43,6 +48,24 @@ Four phases; any failure raises and exits non-zero:
    timeline-kernel launch each.  Then the p50 of 50 steps, the p50 per
    block of 20 render-ahead batches and the 60 s mono render's realtime
    factor.
+
+5. **Carried state**, each path with its launch counts reset just before
+   it and checked just after, held to the port's numpy pull oracle within
+   1e-5, its wall and device time printed: (a) the saturated echo (bench
+   c6, ``bench.py:226-253``: a streaming LowPass and a tanh Drive on the
+   return of a 16-block + 5-frame delay), mono, 2592 blocks (60.2 s: 162
+   whole 16-block segments of the segmented feedback scan, one
+   carried-state launch each); (b) the FM voice with a feedback delay (bench c5,
+   ``bench.py:191-223``, at the ``Mix`` under its ``Spec``), 60 s through
+   the loop-free delay solver (no filter: no kernel launch); (c) the
+   static voice with ``streaming=True`` at 16 channels: 50 ``step`` calls
+   (one carried-state launch each), three 8-block ``Transport`` batches
+   with the carry threaded (one carried-state launch each over the whole
+   window: the cutoff is fixed), and a render split 13 + 19 against one of
+   32 (1e-6); (d) a streaming LowPass swept by an LFO (per-block
+   coefficients: one batched launch with the blocks' end states, a scan of
+   their state maps) read by a context LowPass at 8 channels, two 8-block
+   windows (the second reads the first's output history).
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -144,10 +167,11 @@ def build_subtractive_voice(gain=1.0 / V):
     return envelope(lp, gain), hz
 
 
-def build_static_voice(band=False):
+def build_static_voice(band=False, streaming=False):
     """The static-cutoff voice (``bench.py:131-162``) at STATIC_CH
     pitches: saw -> LowPass 2000 Hz (context 128), or with ``band`` a
-    BandPass 300-3000 Hz -> the envelope -> Gain 1/64."""
+    BandPass 300-3000 Hz -> the envelope -> Gain 1/64.  ``streaming``
+    makes the filter an exact IIR with carried state."""
     from signals_tpu_torch.nodes.fx import BandPass, LowPass
     from signals_tpu_torch.nodes.osc import Sawtooth
     saw = Sawtooth()
@@ -161,7 +185,102 @@ def build_static_voice(band=False):
         filt.cutoff = fixed(2000.0)
     filt.input = saw
     filt.get_state().context = STATIC_C
+    filt.get_state().streaming = streaming
     return envelope(filt, 1.0 / 64)
+
+
+ECHO_BLOCKS = 16    # the saturated echo's delay, in blocks (+ 5 frames)
+
+
+def build_saturated_echo():
+    """bench c6 (``bench.py:226-253``): saw 110 Hz -> Mix 0.6 with the
+    return of a 16-block + 5-frame Delay of the mix through a streaming
+    LowPass 2500 Hz, Gain 0.55 and Drive 3 (tanh)."""
+    from signals_tpu_torch.nodes.delay import Delay
+    from signals_tpu_torch.nodes.fx import Drive, Gain, LowPass, Mix
+    from signals_tpu_torch.nodes.osc import Sawtooth
+    saw = Sawtooth()
+    saw.hertz = fixed(110.0)
+    mix = Mix()
+    d = Delay()
+    d.get_state().frames = ECHO_BLOCKS * F + 5
+    lp = LowPass()
+    lp.input = d
+    lp.cutoff = fixed(2500.0)
+    lp.get_state().streaming = True
+    fb = Gain()
+    fb.left = lp
+    fb.right = fixed(0.55)
+    shaper = Drive()
+    shaper.input = fb
+    shaper.drive = fixed(3.0)
+    mix.left = saw
+    mix.right = shaper
+    mix.mix = fixed(0.6)
+    d.input = mix
+    return mix
+
+
+def build_fm_delay():
+    """bench c5 (``bench.py:191-223``) at the ``Mix`` under its ``Spec``
+    tap: a 3-operator FM stack -> Mix 0.6 with the return of a 4-block
+    Delay of the mix through Gain 0.45."""
+    from signals_tpu_torch.nodes.delay import Delay
+    from signals_tpu_torch.nodes.fx import Gain, Mix
+    from signals_tpu_torch.nodes.osc import Sine
+
+    def op(hz, index=None, by=None):
+        o = Sine()
+        o.hertz = fixed(hz)
+        if by is not None:
+            o.phase = by
+        if index is None:
+            return o
+        g = Gain()
+        g.left = o
+        g.right = fixed(index)
+        return g
+
+    op1 = op(110.0, by=op(220.0, 2.0, by=op(660.0, 1.5)))
+    mix = Mix()
+    d = Delay()
+    d.get_state().frames = 4 * F
+    fb = Gain()
+    fb.left = d
+    fb.right = fixed(0.45)
+    mix.left = op1
+    mix.right = fb
+    mix.mix = fixed(0.6)
+    d.input = mix
+    return mix
+
+
+def build_streaming_into_context():
+    """Eight saws -> streaming LowPass swept 1800 +- 450 Hz by a 3 Hz LFO
+    -> context LowPass 900 Hz (context 128): the context filter reads the
+    streaming filter's output before the current window."""
+    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix
+    from signals_tpu_torch.nodes.osc import Sawtooth, Sine
+    saw = Sawtooth()
+    saw.hertz = fixed(poly_freqs(8).reshape(1, 8))
+    lfo = Sine()
+    lfo.hertz = fixed(3.0)
+    depth = Gain()
+    depth.left = lfo
+    depth.right = fixed(900.0)
+    cutoff = Mix()
+    cutoff.left = depth
+    cutoff.right = fixed(3600.0)
+    cutoff.mix = fixed(0.5)
+    exact = LowPass()
+    exact.input = saw
+    exact.cutoff = cutoff
+    exact.get_state().streaming = True
+    lp = LowPass()
+    lp.input = exact
+    lp.cutoff = fixed(900.0)
+    lp.get_state().context = STATIC_C
+    return lp
 
 
 def cuda_ms(fn, reps):
@@ -202,6 +321,27 @@ def device_ms(fn, reps, kernels):
         if us and len(us) % reps == 0:
             return sum(us) / reps / 1e3
     return None
+
+
+def profiled(fn):
+    """One call of ``fn`` under ``torch.profiler`` (after one warmup call):
+    ``(wall ms, device ms, device events)``, the device time the sum of
+    every kernel's and copy's duration on the card."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA]
+    return wall, sum(us) / 1e3, len(us)
 
 
 def phase_build():
@@ -353,6 +493,7 @@ def phase_kernels():
         torch.cuda.empty_cache()
 
     zero_state_kernels(rng, dev, card, results)
+    carried_state_kernels(rng, dev, card, results)
     return results
 
 
@@ -460,6 +601,129 @@ def zero_state_kernels(rng, dev, card, results):
           f'place; outputs agree to {err!r}  [{card}]')
 
 
+def carried_state_kernels(rng, dev, card, results):
+    """The carried-state entry (``sosfilt_stream``; ``sosfilt_batch`` with
+    the end states) vs the frame loop on ``dev`` at the shapes the stateful
+    paths give it: a streaming filter's step (1024, 1) and (1024, 16) at 1
+    and 2 sections from a non-zero state, ``mega_step``'s 16 windows of
+    1024 rows with their end states, and a 1152-row window cut into two
+    calls.  Inputs are saws (the paths' scale), the state of the same
+    scale.  Fills ``results['stream']``; the batched rows join
+    ``results['batch']``'s error."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
+
+    def saws(n, lanes):
+        t = torch.arange(n, device=dev, dtype=torch.float32)[:, None]
+        hz = torch.as_tensor(rng.uniform(60.0, 900.0, (1, lanes))
+                             .astype(np.float32), device=dev)
+        return 2.0 * torch.remainder(t * hz / RATE, 1.0) - 1.0
+
+    def coeffs(nsec, lanes):
+        lo = torch.as_tensor(rng.uniform(300.0, 3000.0, (1, lanes))
+                             .astype(np.float32), device=dev)
+        crits = (lo,) if nsec == 1 else (lo, lo * 4.0)
+        return design_coupled(TorchXP(dev), 'lp' if nsec == 1 else 'bp',
+                              crits, np.float32(RATE / 2))
+
+    def state(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    def errs(got, want):
+        (y, zf), (wy, wzf) = got, want
+        assert torch.isfinite(y).all() and torch.isfinite(zf).all()
+        return (float((y - wy).abs().max()),
+                float((zf - wzf).abs().max())
+                / max(1.0, float(wzf.abs().max())))
+
+    # the JSON line's shape first; after the steps, the whole windows a
+    # fixed-cutoff mega_step gives it: the echo's 16-block segment, mono,
+    # and the streaming voice's 8-block Transport batch
+    shapes = [(F, STATIC_CH, 1, 'step'), (F, STATIC_CH, 2, 'step'),
+              (F, 1, 1, 'step'), (F, 1, 2, 'step'),
+              (ECHO_BLOCKS * F, 1, 1, 'echo segment'),
+              (AHEAD * F, STATIC_CH, 1, 'Transport batch')]
+    for n, ch, nsec, kind in shapes:
+        co, x, zi = coeffs(nsec, ch), saws(n, ch), state(nsec, 2, ch)
+        what = f'{kind} ({n}, {ch}), {nsec} section(s), zi and zf'
+
+        def call():
+            return K.sosfilt_stream(co, x, zi)
+
+        def plain():
+            return K.sosfilt_stream_plain(co, x, zi)
+
+        ey, ez = errs(call(), plain())
+        print(f'[kernels] stream {what} vs plain: y max abs {ey!r}, zf '
+              f'max abs / scale {ez!r} (tol {TOL})')
+        assert ey <= TOL and ez <= TOL, (what, ey, ez)
+        ms = cuda_ms(call, 50)
+        dev_ms = device_ms(call, 20, ('rows_cascade',))
+        plain_ms = cuda_ms(plain, 1)
+        flops = n * ch * CASCADE_FLOP * nsec
+        nbytes = (2 * n * ch + co.numel() + 2 * zi.numel()) * 4
+        b_ms, b_by = bound(flops, nbytes)
+        dev_txt = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
+        share = ('not measured' if dev_ms is None
+                 else f'{b_ms / dev_ms:.4f}')
+        print(f'[kernels] stream {what}: {ms:.4f} ms per call (CUDA '
+              f'events, wrapper included), device {dev_txt} (profiler), '
+              f'bound {b_ms:.6f} ms ({b_by}: {flops / 1e6:.3f} MFLOP, '
+              f'{nbytes / 1e6:.3f} MB), share {share}; plain '
+              f'{plain_ms:.1f} ms  [{card}]')
+        if 'stream' not in results:
+            results['stream'] = dict(err=max(ey, ez), ms=ms,
+                                     plain_ms=plain_ms, device_ms=dev_ms,
+                                     bound_ms=b_ms, bound_by=b_by)
+        else:
+            results['stream']['err'] = max(ey, ez,
+                                           results['stream']['err'])
+
+    # mega_step's launch: nb windows of F rows, read in place as a permuted
+    # view of the (nb, F, ch) blocks, with every window's end state
+    nb = ECHO_BLOCKS
+    for ch in (1, 8):
+        xb = saws(nb * F, ch).reshape(nb, F, ch)
+        co = coeffs(1, nb * ch).reshape(1, nb, ch, 11).permute(1, 0, 2, 3)
+        what = f'{nb} windows of {F} rows x {ch}, tail {F}, zf'
+
+        def call():
+            return K.sosfilt_batch(co, xb.permute(1, 0, 2), tail=F,
+                                   return_state=True)
+
+        def plain():
+            return K.sosfilt_batch_plain(
+                torch.broadcast_to(co, (nb, 1, ch, 11)),
+                xb.permute(1, 0, 2), tail=F, return_state=True)
+
+        ey, ez = errs(call(), plain())
+        dev_ms = device_ms(call, 20, ('rows_cascade',))
+        flops = nb * F * ch * CASCADE_FLOP
+        nbytes = (2 * nb * F * ch + co.numel() + 2 * nb * ch) * 4
+        b_ms, b_by = bound(flops, nbytes)
+        print(f'[kernels] batch {what} vs plain: y max abs {ey!r}, zf max '
+              f'abs / scale {ez!r} (tol {TOL}); device {dev_ms} ms '
+              f'(profiler), bound {b_ms:.6f} ms ({b_by})  [{card}]')
+        assert ey <= TOL and ez <= TOL, (what, ey, ez)
+        results['batch']['err'] = max(ey, ez, results['batch']['err'])
+
+    # a window cut into two calls continues as one call
+    L = STATIC_C + F
+    co, x, zi = coeffs(2, STATIC_CH), saws(L, STATIC_CH), state(2, 2,
+                                                                 STATIC_CH)
+    y, zf = K.sosfilt_stream(co, x, zi)
+    ya, za = K.sosfilt_stream(co, x[:STATIC_C], zi)
+    yb, zb = K.sosfilt_stream(co, x[STATIC_C:], za)
+    ey, ez = errs((torch.cat([ya, yb]), zb), (y, zf))
+    print(f'[kernels] stream ({L}, {STATIC_CH}), 2 sections, cut at row '
+          f'{STATIC_C} into two calls vs one call: y max abs {ey!r}, zf max '
+          f'abs / scale {ez!r} (tol 1e-6)')
+    assert ey <= 1e-6 and ez <= 1e-6, (ey, ez)
+
+
 def n_blocks_60s():
     """Blocks of a 60 s render, rounded up to whole carry segments."""
     return int(np.ceil(SECONDS * RATE / F / M)) * M
@@ -494,7 +758,7 @@ def plain_kernels():
     plain path on the card, for timing it beside the kernels."""
     from signals_tpu_torch.compiler import kernels as K
     names = ('sosfilt_segments_gen', 'sosfilt_segments', 'sosfilt_batch',
-             'sosfilt_timeline')
+             'sosfilt_timeline', 'sosfilt_stream')
     saved = {n: getattr(K, n) for n in names}
     for n in names:
         setattr(K, n, getattr(K, f'{n}_plain'))
@@ -526,8 +790,8 @@ def phase_render():
     )
     mixes, counts = {}, {}
     for name, poly, expect in variants:
-        mixes[name] = launched(name, lambda: poly.render(n_blocks=N_BLOCKS),
-                               expect)
+        mixes[name] = launched(
+            name, lambda: poly.render(n_blocks=N_BLOCKS)[0], expect)
         counts[name] = dict(K.LAUNCHES)
 
     t0 = time.perf_counter()
@@ -582,10 +846,11 @@ def pull_oracle(root, n_blocks, channels):
     return np.concatenate(out)
 
 
-def launched(name, fn, expect, total=None):
+def launched(name, fn, expect, total=None, quiet=False):
     """Run ``fn`` with the launch counts reset just before it; assert the
     counts just after (every other kernel 0) and add them to ``total``.
-    Returns ``fn``'s result."""
+    Returns ``fn``'s result.  ``quiet`` prints nothing (one of many equal
+    calls)."""
     import torch
     from signals_tpu_torch.compiler import kernels as K
     K.reset_launch_counts()
@@ -593,7 +858,8 @@ def launched(name, fn, expect, total=None):
     torch.cuda.synchronize()
     counts = dict(K.LAUNCHES)
     want = {k: expect.get(k, 0) for k in counts}
-    print(f'[launches] {name}: {counts}')
+    if not quiet:
+        print(f'[launches] {name}: {counts}')
     assert counts == want, (name, counts, want)
     if total is not None:
         total.update(counts)
@@ -629,11 +895,12 @@ def phase_paths():
     t0 = time.perf_counter()
     want = pull_oracle(build_subtractive_voice(gain=1.0 / 64)[0], 16, 1)
     print(f'[paths] mono oracle, 16 blocks: {time.perf_counter() - t0:.1f} s')
-    full = launched('mono 60 s from 0', lambda: mono.render(n_blocks=n60),
+    full = launched('mono 60 s from 0',
+                    lambda: mono.render(n_blocks=n60)[0],
                     {'segments_gen': 1}).cpu().numpy()
     held('mono 60 s from 0, blocks 0-15', full[:16 * F], want)
     part = launched('mono 13 blocks from block 3',
-                    lambda: mono.render(position=3 * F, n_blocks=13),
+                    lambda: mono.render(position=3 * F, n_blocks=13)[0],
                     {'segments_gen': 1}).cpu().numpy()
     held('mono 13 blocks from block 3', part, want[3 * F:])
     diff = float(np.abs(part - full[3 * F:16 * F]).max())
@@ -663,7 +930,7 @@ def phase_paths():
         params = patch.params()
         for b in (0, 3, 27):
             got = launched(f'{name} step at block {b}',
-                           lambda: patch.step(params, b * F),
+                           lambda: patch.step(params, {}, b * F)[0],
                            {'timeline': 1}, total)
             held(f'{name} step at block {b}', got.cpu().numpy(),
                  ref[b * F:(b + 1) * F])
@@ -674,7 +941,7 @@ def phase_paths():
         stats = LatencyStats()
         for i in range(51):
             t0 = time.perf_counter()
-            patch.step(params, i * F).cpu()
+            patch.step(params, {}, i * F)[0].cpu()
             if i:
                 stats.record(time.perf_counter() - t0)
         print(f'[paths] {name} step, p50 of 50: {stats.p50 * 1e3:.4f} ms '
@@ -700,6 +967,124 @@ def phase_paths():
                       'voice, 16 channels, 3 batches of 8 blocks'),
             'timeline': (total['timeline'], 'step(): static and band '
                          'voices, 3 blocks each')}
+
+
+def phase_state():
+    """Carried state through the port's entry points: feedback renders,
+    streaming steps, ``Transport`` batches with the carry threaded, history
+    reads.  Returns, per kernel, ``(launches, what launched it)``."""
+    import torch
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.runtime import Transport
+    card = card_line()
+    total = collections.Counter()
+
+    def timed(name, fn, audio_s):
+        wall, dev_ms, events = profiled(fn)
+        print(f'[state] {name}: wall {wall:.3f} ms = '
+              f'{audio_s / (wall / 1e3):.1f}x realtime, device {dev_ms:.3f} '
+              f'ms in {events} kernels and copies, busy share '
+              f'{dev_ms / wall:.3f}  [{card}]')
+
+    # (a) the saturated echo: whole 16-block segments of the segmented scan
+    echo = compile_node(build_saturated_echo(), block_frames=F, rate=RATE,
+                        channels=1, device='cuda')
+    n_echo = -(-n_blocks_60s() // ECHO_BLOCKS) * ECHO_BLOCKS
+    n_seg = n_echo // ECHO_BLOCKS
+    assert echo.plan(n_echo) == 'segment_scan', echo.plan(n_echo)
+    t0 = time.perf_counter()
+    want = pull_oracle(build_saturated_echo(), n_echo, 1)
+    print(f'[state] saturated echo oracle, {n_echo} blocks: '
+          f'{time.perf_counter() - t0:.1f} s')
+    got, carry = launched(
+        f'saturated echo, {n_echo} blocks in {n_seg} segments',
+        lambda: echo.render(n_blocks=n_echo), {'stream': n_seg}, total)
+    held(f'saturated echo, {n_echo} blocks ({n_echo * F / RATE:.1f} s)',
+         got.cpu().numpy(), want)
+    assert sorted(k for c in carry.values() for k in c) == ['buf', 'zi']
+    timed(f'saturated echo, {n_echo} blocks, segment_scan_core S = '
+          f'{ECHO_BLOCKS}', lambda: echo.render(n_blocks=n_echo),
+          n_echo * F / RATE)
+
+    # (b) the FM voice with a feedback delay: the loop-free delay solver
+    n60 = n_blocks_60s()
+    fm = compile_node(build_fm_delay(), block_frames=F, rate=RATE,
+                      channels=1, device='cuda')
+    assert fm.plan(n60) == 'delay_mega', fm.plan(n60)
+    want = pull_oracle(build_fm_delay(), n60, 1)
+    got, _ = launched(f'FM + feedback delay, {n60} blocks',
+                      lambda: fm.render(n_blocks=n60), {}, total)
+    held(f'FM + feedback delay, {n60} blocks', got.cpu().numpy(), want)
+    timed(f'FM + feedback delay, {n60} blocks, delay_mega_core',
+          lambda: fm.render(n_blocks=n60), n60 * F / RATE)
+
+    # (c) the static voice as an exact IIR: steps, Transport batches, splits
+    voice = compile_node(build_static_voice(streaming=True), block_frames=F,
+                         rate=RATE, channels=STATIC_CH, device='cuda')
+    assert voice.plan(AHEAD) == 'mega' and voice.carry0
+    want = pull_oracle(build_static_voice(streaming=True), 50, STATIC_CH)
+    params, carry, blocks = voice.params(), voice.carry0, []
+    steps = collections.Counter()
+    for b in range(50):
+        block, carry = launched(f'streaming step at block {b}',
+                                lambda: voice.step(params, carry, b * F),
+                                {'stream': 1}, steps, quiet=b > 0)
+        blocks.append(block)
+    print(f"[launches] streaming steps at blocks 0-49, each checked alone: "
+          f"'stream': {steps['stream']} in all")
+    total.update(steps)
+    held('streaming voice, 50 steps', torch.cat(blocks).cpu().numpy(), want)
+    tr = Transport(voice, consumer=None, blocks_per_call=AHEAD)
+    batches = [launched(f'streaming Transport batch at block {i * AHEAD}',
+                        lambda: tr.render(AHEAD), {'stream': 1}, total)
+               for i in range(3)]
+    held('streaming voice, 3 Transport batches', np.concatenate(batches),
+         want[:3 * AHEAD * F])
+    whole, _ = voice.render(n_blocks=32)
+    a, carry = voice.render(n_blocks=13)
+    b, _ = voice.render(position=13 * F, n_blocks=19, carry=carry)
+    diff = float((torch.cat([a, b]) - whole).abs().max())
+    print(f'[state] streaming voice, 13 + 19 blocks vs 32: max abs {diff!r} '
+          f'(tol 1e-6)')
+    assert diff <= 1e-6, diff
+    held('streaming voice, 32 blocks', whole.cpu().numpy(), want[:32 * F])
+    state = {'carry': voice.carry0, 'block': 0}
+
+    def one_step():
+        block, state['carry'] = voice.step(params, state['carry'],
+                                           state['block'] * F)
+        state['block'] += 1
+        return block.cpu()
+
+    timed('streaming voice, one step with the copy off the card', one_step,
+          F / RATE)
+    timed(f'streaming voice, one {AHEAD}-block Transport batch',
+          lambda: tr.render(AHEAD), AHEAD * F / RATE)
+
+    # (d) a context filter reading a streaming filter's output history
+    chain = compile_node(build_streaming_into_context(), block_frames=F,
+                         rate=RATE, channels=8, device='cuda')
+    assert chain.plan(AHEAD) == 'mega'
+    assert any('hist' in c for c in chain.carry0.values())
+    want = pull_oracle(build_streaming_into_context(), 2 * AHEAD, 8)
+    carry, parts = chain.carry0, []
+    for i in range(2):
+        # the streaming filter's window and the context filter's replay
+        part, carry = launched(
+            f'streaming -> context, window {i}',
+            lambda: chain.render(position=i * AHEAD * F, n_blocks=AHEAD,
+                                 carry=carry), {'batch': 2}, total)
+        parts.append(part)
+    held('streaming -> context filter, 2 windows',
+         torch.cat(parts).cpu().numpy(), want)
+    timed(f'streaming -> context filter, one {AHEAD}-block window',
+          lambda: chain.render(n_blocks=AHEAD), AHEAD * F / RATE)
+    torch.cuda.synchronize()
+    return {'stream': (total['stream'], f'saturated echo ({n_seg} '
+                       f'segments), step() of the streaming static voice '
+                       f'(50), its Transport batches (3)'),
+            'batch': (total['batch'], 'swept mega_step and its context '
+                      'reader: streaming -> context windows (2 x 2)')}
 
 
 def kernel_ms(k):
@@ -729,13 +1114,21 @@ def main() -> int:
     launches = {name: (n, f'flagship render, {how}')
                 for name, (n, how) in phase_render().items()}
     launches.update(phase_paths())
+    for name, (n, how) in phase_state().items():
+        if name in launches:     # K3 runs on the render-ahead path too
+            n, how = n + launches[name][0], f'{launches[name][1]}; {how}'
+        launches[name] = (n, how)
     assert 'jax' not in sys.modules and 'signals_tpu' not in sys.modules
     csrc = 'signals_tpu_torch/compiler/csrc/'
     pk = 'signals_tpu/compiler/pallas_kernels.py:'
     where = {'segments_gen': ('segments.cu', '1228'),
              'segments': ('segments.cu', '519'),
              'batch': ('rows.cu', '288'),
-             'timeline': ('rows.cu', '34')}
+             'timeline': ('rows.cu', '34'),
+             # the carried-state entry of the timeline kernel's template;
+             # the JAX package runs signals_tpu/compiler/filters.py:200
+             # (an associative scan inside its XLA program)
+             'stream': ('rows.cu', '34')}
     print(json.dumps({'kernels': [
         {'name': f'sosfilt_{name}', 'route': 'cuda',
          'source': csrc + where[name][0], 'replaces': pk + where[name][1],

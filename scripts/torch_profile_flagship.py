@@ -8,7 +8,13 @@ Renders ``chip_smoke.py``'s patches through the port's entry points:
 * the mono subtractive voice, a 60 s batch;
 * the static-cutoff voice at 16 channels: one ``step`` and one 8-block
   render-ahead batch, as the ``Transport`` renders them (each copied off
-  the card).
+  the card);
+* carried state: the saturated echo (segmented feedback scan, 162
+  segments of 16 blocks; and again with its streaming filter's
+  ``mega_step`` taking the per-block-coefficient form), the FM voice with
+  a feedback delay (the
+  loop-free delay solver, 60 s), and the static voice as a streaming
+  filter, one ``step`` and one 8-block batch.
 
 For each it prints the time by CUDA events, and from one ``torch.profiler``
 run the device-side events only (kernels and memory copies/sets, each
@@ -62,19 +68,51 @@ def cells():
     for name, kw in (('flagship, mix-epilogue plan', {}),
                      ('flagship, per-voice plan', {'mix_epilogue': False})):
         poly = cs.make_poly(**kw)
-        yield name, lambda poly=poly: poly.render(n_blocks=n), audio_s
+        yield name, lambda poly=poly: poly.render(n_blocks=n)[0], audio_s
     mono = compile_node(cs.build_subtractive_voice(gain=1.0 / 64)[0],
                         block_frames=cs.F, rate=cs.RATE, channels=1,
                         device='cuda')
-    yield 'mono voice, 60 s', lambda: mono.render(n_blocks=n), audio_s
+    yield 'mono voice, 60 s', lambda: mono.render(n_blocks=n)[0], audio_s
     static = compile_node(cs.build_static_voice(), block_frames=cs.F,
                           rate=cs.RATE, channels=cs.STATIC_CH, device='cuda')
     params = static.params()
     yield ('static voice, one step',
-           lambda: static.step(params, 5 * cs.F).cpu(), cs.F / cs.RATE)
+           lambda: static.step(params, {}, 5 * cs.F)[0].cpu(),
+           cs.F / cs.RATE)
     yield ('static voice, one 8-block render-ahead batch',
            lambda: static.render(position=8 * cs.F,
-                                 n_blocks=cs.AHEAD).cpu(),
+                                 n_blocks=cs.AHEAD)[0].cpu(),
+           cs.AHEAD * cs.F / cs.RATE)
+    echo = compile_node(cs.build_saturated_echo(), block_frames=cs.F,
+                        rate=cs.RATE, channels=1, device='cuda')
+    n_echo = -(-n // cs.ECHO_BLOCKS) * cs.ECHO_BLOCKS
+    yield (f'saturated echo, {n_echo} blocks ({echo.plan(n_echo)})',
+           lambda: echo.render(n_blocks=n_echo)[0], n_echo * cs.F / cs.RATE)
+    # the same with mega_step's fixed-cutoff shortcut off: per-block
+    # coefficients, the batched launch, the scan and the f64 correction
+    general = compile_node(cs.build_saturated_echo(), block_frames=cs.F,
+                           rate=cs.RATE, channels=1, device='cuda')
+    for node in general.index.order:
+        if getattr(node, 'supports_mega_step', False):
+            node.crits_static = lambda: False
+    yield (f'saturated echo, {n_echo} blocks, mega_step without the '
+           f'fixed-cutoff shortcut',
+           lambda: general.render(n_blocks=n_echo)[0],
+           n_echo * cs.F / cs.RATE)
+    fm = compile_node(cs.build_fm_delay(), block_frames=cs.F, rate=cs.RATE,
+                      channels=1, device='cuda')
+    yield (f'FM + feedback delay, 60 s ({fm.plan(n)})',
+           lambda: fm.render(n_blocks=n)[0], audio_s)
+    voice = compile_node(cs.build_static_voice(streaming=True),
+                         block_frames=cs.F, rate=cs.RATE,
+                         channels=cs.STATIC_CH, device='cuda')
+    vparams = voice.params()
+    yield ('streaming static voice, one step',
+           lambda: voice.step(vparams, voice.carry0, 5 * cs.F)[0].cpu(),
+           cs.F / cs.RATE)
+    yield ('streaming static voice, one 8-block batch',
+           lambda: voice.render(position=8 * cs.F,
+                                n_blocks=cs.AHEAD)[0].cpu(),
            cs.AHEAD * cs.F / cs.RATE)
 
 

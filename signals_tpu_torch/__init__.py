@@ -42,8 +42,7 @@ SigStateValue = typing.Union[float, int, bool, str, np.ndarray]
 class SignalFlags(enum.Flag):
     """Node classification flags (reference ``src/signals/__init__.py:27-58``)."""
 
-    #: may participate in cycles (implemented for Delay nodes, which this
-    #: port does not have yet)
+    #: may participate in cycles (implemented for Delay nodes)
     CYCLIC = enum.auto()
 
     SINK_DEVICE = enum.auto()

@@ -4,9 +4,9 @@ The JAX package traces a patch once into a fused XLA program.  This port
 keeps its lowering design — node kernels evaluated against a lowering
 context, memoized per ``(node, window)`` so fan-out is shared — but runs it
 eagerly: a render lowers the whole batch as ONE multi-block window on the
-target device, with the filter cascade in the hand-written segment kernels
-(:mod:`signals_tpu_torch.compiler.kernels`).  A per-block step
-(:meth:`CompiledPatch.step`) lowers one block the same way.
+target device where the patch allows it, with the filter cascade in the
+hand-written kernels (:mod:`signals_tpu_torch.compiler.kernels`).  A
+per-block step (:meth:`CompiledPatch.step`) lowers one block the same way.
 
 * **Windows.**  A request is a static ``Window(offset, frames, stride)``
   relative to the render position: the main window spans the batch,
@@ -24,11 +24,21 @@ target device, with the filter cascade in the hand-written segment kernels
   the filter itself (:meth:`~signals_tpu_torch.nodes.fx.CritFilter.
   _family_compute`), so a render may start at any block.
 
-Ported so far: carry-free patches (no delays, host sources, taps or
-stateful nodes other than the grid-lowered ADSR), rendered through three
-plans — the per-block step (:meth:`CompiledPatch.step`), the plain
-whole-window plan (:meth:`CompiledPatch.mega_core`) and the mix-epilogue
-plan (:meth:`CompiledPatch.mega_mix`).
+* **Carried state.**  Stateful nodes (delay lines, streaming filters)
+  thread a carry — a plain dict ``uid -> name -> tensor`` on the patch's
+  device — through :meth:`CompiledPatch.step` and :meth:`CompiledPatch.
+  render`; each also keeps an output-history ring in it so that windows
+  reaching *before* the current one are served from history.  A delay's
+  output is a read of its input-history buffer, which cuts feedback cycles:
+  the delay's input is lowered after everything that reads its output.
+
+Plans, chosen by :meth:`CompiledPatch.render_core` in the JAX package's
+order: the whole-window plan (:meth:`CompiledPatch.mega_core`; stateful
+nodes ``mega_step``), the loop-free delay solver (:meth:`CompiledPatch.
+delay_mega_core`), the segmented feedback scan (:meth:`CompiledPatch.
+segment_scan_core`), the per-block loop; and, for carry-free polyphony, the
+mix-epilogue plan (:meth:`CompiledPatch.mega_mix`).  Not ported yet: host
+sources, taps, lane packing.
 """
 
 from __future__ import annotations
@@ -78,6 +88,17 @@ class _NodeInfo:
     def __init__(self, node: Emitter, uid: str):
         self.node = node
         self.uid = uid
+        #: every window the collect pass saw requested of this node
+        self.windows: set[Window] = set()
+
+    @property
+    def min_offset(self) -> int:
+        return min((w.offset for w in self.windows), default=0)
+
+
+def _is_delay(node) -> bool:
+    from signals_tpu_torch.nodes.delay import Delay
+    return isinstance(node, Delay)
 
 
 def _is_grid_stateless(node) -> bool:
@@ -87,6 +108,30 @@ def _is_grid_stateless(node) -> bool:
 
 def _is_stateful(node) -> bool:
     return isinstance(node, StatefulEmitter) and node.is_stateful()
+
+
+def _is_tap(node) -> bool:
+    return bool(node.flags() & (SignalFlags.VIS | SignalFlags.RECORDER))
+
+
+def _is_host_source(node) -> bool:
+    return getattr(node, 'is_host_source', False)
+
+
+def _reads_carried_state(node) -> bool:
+    """Whether ``node``'s upstream closure (itself included) holds a delay
+    or a stateful node that is lowered with a carry."""
+    seen: set = set()
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if n is None or id(n) in seen:
+            continue
+        seen.add(id(n))
+        if _is_delay(n) or (_is_stateful(n) and not _is_grid_stateless(n)):
+            return True
+        stack.extend(p.sig for p in getattr(n, '_ports', {}).values())
+    return False
 
 
 def check_device(device) -> torch.device:
@@ -224,8 +269,9 @@ class _GraphIndex:
 
 class _CollectCtx(KernelCtx):
     """Runs kernels on zero-filled numpy blocks to walk the windows each
-    node requests of its inputs — rejecting, at compile time, windows past
-    the block end and nodes this port cannot lower."""
+    node requests of its inputs (and so how much history stateful nodes
+    must retain) — rejecting, at compile time, windows past the block end
+    and nodes this port cannot lower."""
 
     xp = NP
 
@@ -260,8 +306,14 @@ class _CollectCtx(KernelCtx):
     def in_block_rate(self, name: PortName):
         inp = self._input(name)
         if inp is not None:
-            self.compiler.collect(inp, Window(self.window.offset, 1))
-        return self._dummy(inp, 1)
+            if self.window.stride > 1:
+                # mirrors LowerCtx.in_block_rate: a grid-sampled node
+                # samples its block-rate inputs at the same grid
+                self.compiler.collect(inp, self.window)
+            else:
+                self.compiler.collect(inp, Window(self.window.offset, 1))
+        return self._dummy(inp, 1 if self.window.stride == 1
+                           else self.window.frames)
 
     def in_context(self, name: PortName, context_frames: int):
         inp = self._input(name)
@@ -271,6 +323,16 @@ class _CollectCtx(KernelCtx):
                             context_frames))
             self.compiler.collect(inp, self.window)
         return self._dummy(inp, context_frames + self.nframes)
+
+    def in_grid_samples(self, name: PortName, stride: int, count: int,
+                        ahead: int = 0):
+        # mirrors LowerCtx.in_grid_samples: one strided window
+        inp = self._input(name)
+        if inp is not None:
+            anchor_off = stride * (self.window.offset // stride)
+            start = anchor_off - (count - 1 - ahead) * stride
+            self.compiler.collect(inp, Window(start, count, stride=stride))
+        return self._dummy(inp, count)
 
     def in_channels(self, name: PortName) -> typing.Optional[int]:
         inp = self._input(name)
@@ -283,6 +345,12 @@ class _CollectCtx(KernelCtx):
         coeffs = np.asarray(coeffs)
         ch = max(coeffs.shape[1], x.shape[1])
         return np.zeros((x.shape[0], ch), dtype=F32)
+
+    def sosfilt_stream(self, coeffs, x, zi):
+        coeffs = np.asarray(coeffs)
+        ch = max(coeffs.shape[1], x.shape[1], np.asarray(zi).shape[-1])
+        return (np.zeros((x.shape[0], ch), dtype=F32),
+                np.zeros_like(np.asarray(zi)))
 
 
 # --- lowering pass -----------------------------------------------------------
@@ -421,6 +489,10 @@ class LowerCtx(KernelCtx):
         from signals_tpu_torch.compiler import filters as _filters
         return _filters.sosfilt(coeffs, x)
 
+    def sosfilt_stream(self, coeffs, x, zi):
+        from signals_tpu_torch.compiler import filters as _filters
+        return _filters.sosfilt_stream(coeffs, x, zi)
+
 
 class _Compiler:
     """One lowering of one patch at one (block_frames, rate, channels)."""
@@ -431,11 +503,26 @@ class _Compiler:
         self.block_frames = index.block_frames
         self.device = index.device
         self.xp = TorchXP(index.device)
-        # set per render:
+        # set per lowering:
         self.position: int = 0
         self.params = None
+        #: carried state in (``uid -> name -> tensor``) and out
+        self.carry_in: dict = {}
+        self.carry_out: dict = {}
+        #: the window stateful nodes advance over in this lowering: one
+        #: block for a step, the whole batch or segment otherwise
+        self.main = Window(0, index.block_frames)
         self._memo: dict[tuple[int, Window], typing.Any] = {}
         self._collected: set[tuple[int, Window]] = set()
+        self._stateful_done: set[int] = set()
+        #: id(delay) -> full input timeline ``cat(buf, u)`` covering
+        #: frames [-B, total) — set by the delay solver
+        #: (CompiledPatch.delay_mega_core); _lower_delay serves windows
+        #: from it instead of the carry read
+        self.delay_solved: dict[int, typing.Any] = {}
+        #: id(delay) -> float: substitute this delay's output with a
+        #: constant (the g/h extraction traces of the affine loop solver)
+        self.delay_const: dict[int, float] = {}
         #: id(node) -> float: substitute the node's lowered output with a
         #: constant — the linear-coefficient traces of the mix epilogue
         #: (:meth:`CompiledPatch.mega_mix`)
@@ -448,14 +535,20 @@ class _Compiler:
         if key in self._collected:
             return
         self._collected.add(key)
+        self.index.info(node).windows.add(window)
         if window.end > self.block_frames:
             raise CompileError(
                 f'window {window} of {node.cls_name()} extends past the '
                 f'block end')
-        if getattr(node, 'is_host_source', False) \
-                or node.flags() & (SignalFlags.CYCLIC | SignalFlags.VIS
-                                   | SignalFlags.RECORDER):
+        if _is_host_source(node) or _is_tap(node):
             raise CompileError(f'{node.cls_name()} is not ported yet')
+        if _is_delay(node):
+            # delay output comes from history; its input is pulled at the
+            # main window each step
+            inp = node._ports['input'].sig
+            if inp is not None:
+                self.collect(inp, Window(0, self.block_frames))
+            return
         if _is_grid_stateless(node):
             for pname, stride, count in node.grid_windows(
                     self.block_frames, self.rate):
@@ -469,10 +562,30 @@ class _Compiler:
                                          stride=stride))
             return
         if _is_stateful(node):
-            raise CompileError(f'{node.cls_name()} carries state across '
-                               f'blocks; the port lowers carry-free '
-                               f'patches only so far')
+            # stateful nodes step once per block at the main window
+            ctx = _CollectCtx(self, node, Window(0, self.block_frames))
+            carry = node.init_carry(channels=node.channels, rate=self.rate,
+                                    block_frames=self.block_frames)
+            node.step(ctx, carry)
+            return
         node.kernel(_CollectCtx(self, node, window))
+        if (self.carry_seg_blocks(node) > 1
+                and _reads_carried_state(node._ports['input'].sig)):
+            # a swept filter widens its window back to its carry segment's
+            # start and past the window's end, which history cannot serve
+            raise CompileError(
+                f'{node.cls_name()}: a swept cutoff with carry segments '
+                f'downstream of a delay or a streaming node is not ported '
+                f'yet (carry=1 gives per-block replay)')
+
+    def carry_seg_blocks(self, node) -> int:
+        """Blocks per carry segment ``node`` engages at this block size (1:
+        none, or not a filter)."""
+        from signals_tpu_torch.compiler import filters as _filters
+        if (not hasattr(node, 'swept_carry_m')
+                or self.block_frames != _filters.CARRY_GRID_FRAMES):
+            return 1
+        return node.swept_carry_m(self.index.seg_carry_blocks)
 
     # -- params ---------------------------------------------------------------
 
@@ -503,7 +616,40 @@ class _Compiler:
                 params[index.info(node).uid] = leaves
         return params
 
+    def init_carry(self) -> dict:
+        """The initial carry ``uid -> name -> tensor`` on the device: each
+        stateful node's own state, a delay's input line (its length plus
+        the history its consumers look back), and a ``hist`` output ring
+        for a stateful node that is read before the current window."""
+        carry: dict[str, dict[str, torch.Tensor]] = {}
+        for node in self.index.order:
+            info = self.index.info(node)
+            hist = max(0, -info.min_offset)
+            if _is_grid_stateless(node):
+                continue            # lowered carry-free
+            if _is_delay(node):
+                c = node.init_carry(
+                    channels=node.channels, rate=self.rate,
+                    block_frames=self.block_frames, history=hist)
+            elif _is_stateful(node):
+                c = node.init_carry(channels=node.channels, rate=self.rate,
+                                    block_frames=self.block_frames)
+                if hist > 0:
+                    c['hist'] = np.zeros((hist, node.channels), dtype=F32)
+            else:
+                continue
+            carry[info.uid] = {k: torch.as_tensor(v, device=self.device)
+                               for k, v in c.items()}
+        return carry
+
     # -- lowering -------------------------------------------------------------
+
+    def _zero(self):
+        return torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _const(self, value: float):
+        return torch.full((1, 1), value, dtype=torch.float32,
+                          device=self.device)
 
     def lower(self, node: Emitter, window: Window):
         key = (id(node), window)
@@ -511,30 +657,169 @@ class _Compiler:
             return self._memo[key]
         const = self.node_const.get(id(node))
         if const is not None:
-            return torch.full((1, 1), const, dtype=torch.float32,
-                              device=self.device)
-        # (stateful nodes never get here: collect() rejected them)
-        ctx = LowerCtx(self, node, window)
-        if _is_grid_stateless(node):
-            result = node.grid_kernel(ctx, self.block_frames)
+            return self._const(const)
+        if _is_delay(node):
+            result = self._lower_delay(node, window)
+        elif _is_grid_stateless(node):
+            ctx = LowerCtx(self, node, window)
+            result = torch.as_tensor(
+                node.grid_kernel(ctx, self.block_frames),
+                dtype=torch.float32, device=self.device)
+            result = torch.where(self.node_param(node, 'enabled'), result,
+                                 self._zero())
+        elif _is_stateful(node):
+            result = self._lower_stateful(node, window)
         else:
-            result = node.kernel(ctx)
-        result = torch.as_tensor(result, dtype=torch.float32,
-                                 device=self.device)
-        enabled = self.node_param(node, 'enabled')
-        result = torch.where(enabled, result,
-                             torch.zeros((), device=self.device))
+            ctx = LowerCtx(self, node, window)
+            result = torch.as_tensor(node.kernel(ctx), dtype=torch.float32,
+                                     device=self.device)
+            result = self._apply_enabled(node, window, result)
         self._memo[key] = result
         return result
+
+    def _apply_enabled(self, node: Emitter, window: Window, result):
+        enabled = self.node_param(node, 'enabled')
+        if node.flags() & SignalFlags.PASSTHRU:
+            # a disabled side-effect node forwards its input unchanged
+            inp = node._ports['input'].sig
+            alt = (self._const(0.0) if inp is None
+                   else self.lower(inp, window))
+            result, alt = torch.broadcast_tensors(result, alt)
+            return torch.where(enabled, result, alt)
+        return torch.where(enabled, result, self._zero())
+
+    def _serve_history(self, node: Emitter, window: Window, current):
+        """Serve any sub-window of [-H, M) from the node's ``hist`` ring +
+        its output over the main window (M frames)."""
+        uid = self.index.info(node).uid
+        hist = self.carry_in.get(uid, {}).get('hist')
+        cur = torch.broadcast_to(current, (self.main.frames, node.channels))
+        if hist is None:
+            full, base = cur, 0
+        else:
+            full, base = torch.cat([hist, cur]), hist.shape[0]
+        start = base + window.offset
+        span = (window.frames - 1) * window.stride + 1
+        if start < 0 or start + span > full.shape[0]:
+            raise CompileError(
+                f'{node.cls_name()} history too short for window {window}')
+        return full[start:start + span:window.stride]
+
+    def _lower_stateful(self, node: StatefulEmitter, window: Window):
+        """One main-window step (``mega_step`` over a window of several
+        blocks, ``step`` over one block), memoized; any other requested
+        window — context lookbacks, block-rate samples, all non-future by
+        the collect pass — is served from the node's ``hist`` carry ring +
+        the main block via :meth:`_serve_history`."""
+        uid = self.index.info(node).uid
+        main = self.main
+        mkey = (id(node), main)
+        if id(node) not in self._stateful_done:
+            self._stateful_done.add(id(node))
+            ctx = LowerCtx(self, node, main)
+            carry_in = self.carry_in[uid]
+            carry = {k: v for k, v in carry_in.items() if k != 'hist'}
+            step = (node.mega_step if main.frames > self.block_frames
+                    else node.step)
+            block, new_carry = step(ctx, carry)
+            block = torch.as_tensor(block, dtype=torch.float32,
+                                    device=self.device)
+            block = torch.broadcast_to(block, (main.frames, node.channels))
+            block = torch.where(self.node_param(node, 'enabled'), block,
+                                self._zero())
+            out_carry = dict(new_carry)
+            if 'hist' in carry_in:
+                h = carry_in['hist'].shape[0]
+                out_carry['hist'] = torch.cat([carry_in['hist'], block])[-h:]
+            self.carry_out[uid] = out_carry
+            self._memo[mkey] = block
+        current = self._memo[mkey]
+        if window == main:
+            return current
+        return self._serve_history(node, window, current)
+
+    def _lower_delay(self, node, window: Window):
+        """Delay output is a pure read of the input-history buffer; the
+        input itself is lowered afterwards at the main window
+        (:meth:`finalize_delays`) — that is what breaks feedback cycles.
+
+        Two more modes serve the loop-free delay solver
+        (:meth:`CompiledPatch.delay_mega_core`): a *substituted* delay
+        lowers to a constant (the affine g/h extraction traces), and a
+        *solved* delay serves any window as a slice of its precomputed
+        full input timeline."""
+        const = self.delay_const.get(id(node))
+        if const is not None:
+            return self._const(const)
+        D = node.delay_frames(self.rate)
+        span = (window.frames - 1) * window.stride + 1
+        enabled = self.node_param(node, 'enabled')
+        solved = self.delay_solved.get(id(node))
+        if solved is not None:
+            # solved covers input frames [-B, total); output[t] = input[t-D]
+            B = solved.shape[0] - self.main.frames
+            start = B - D + window.offset
+            if start < 0:
+                raise CompileError(
+                    f'{node.cls_name()}: delay history too short for '
+                    f'{window}')
+            out = solved[start:start + span:window.stride]
+            return torch.where(enabled, out, self._zero())
+        buf = self.carry_in[self.index.info(node).uid]['buf']
+        B = buf.shape[0]             # (B, ch): frames [pos-B, pos)
+        if D < window.end:
+            raise CompileError(
+                f'{node.cls_name()}: delay of {D} frames is shorter than '
+                f'the {window.end} frames read ahead of it; feedback delays '
+                f'must be at least one block long')
+        start = B + window.offset - D
+        if start < 0:
+            raise CompileError(
+                f'{node.cls_name()}: delay buffer too short for {window}')
+        out = buf[start:start + span:window.stride]
+        return torch.where(enabled, out, self._zero())
+
+    def finalize_delays(self) -> None:
+        """After the root is lowered, lower every delay's input at the main
+        window and emit its buffer update.  Lowering one delay's input may
+        read other delays' outputs (their reads come from the carry, so
+        there is no cycle); every delay in the index gets its buffer
+        advanced."""
+        main = self.main
+        for node in self.index.order:
+            if not _is_delay(node):
+                continue
+            uid = self.index.info(node).uid
+            buf = self.carry_in[uid]['buf']
+            B = buf.shape[0]
+            inp = node._ports['input'].sig
+            if inp is None:
+                block = torch.zeros((main.frames, node.channels),
+                                    dtype=torch.float32, device=self.device)
+            else:
+                block = torch.broadcast_to(self.lower(inp, main),
+                                           (main.frames, node.channels))
+            self.carry_out[uid] = {'buf': torch.cat([buf, block])[-B:]}
+
+    def passthrough_carry(self) -> None:
+        """Any carry entries not produced during lowering pass through."""
+        for uid, c in self.carry_in.items():
+            if uid not in self.carry_out:
+                self.carry_out[uid] = c
 
 
 class CompiledPatch:
     """A patch compiled at fixed (block_frames, rate, channels, device).
 
-    ``step(params, position)`` renders one block, ``render_core(n_blocks)``
-    returns the multi-block render callable; ``params()`` re-reads traced
-    state off the live graph, so node edits apply without recompiling.
+    ``step(params, carry, position)`` renders one block and returns it with
+    the new carry, ``render_core(n_blocks)`` returns the multi-block render
+    callable; ``params()`` re-reads traced state off the live graph, so
+    node edits apply without recompiling.  ``carry0`` is the initial carry
+    (empty for a carry-free patch); carries are never modified in place.
     """
+
+    #: whole-window and segmented plans (False forces the per-block loop)
+    enable_mega = True
 
     def __init__(self, root: Emitter, *, block_frames: int, rate: int,
                  channels: int, device='cuda'):
@@ -546,11 +831,12 @@ class CompiledPatch:
         self.index = _GraphIndex(root, block_frames, rate, channels,
                                  self.device)
         self.graph_hash = self.index.graph_hash()
-        # window discovery over one block: also rejects what the port
-        # cannot lower yet, at compile time
-        _Compiler(self.index).collect(root, Window(0, block_frames))
-        #: carried state: empty for every patch this port lowers so far
-        self.carry0: dict = {}
+        # window discovery over one block: sizes the history rings and
+        # rejects what the port cannot lower yet, at compile time
+        compiler = _Compiler(self.index)
+        compiler.collect(root, Window(0, block_frames))
+        #: the initial carried state, ``uid -> name -> tensor``
+        self.carry0: dict = compiler.init_carry()
         self._render_cache: dict[int, typing.Any] = {}
 
     # -- public API -----------------------------------------------------------
@@ -578,37 +864,226 @@ class CompiledPatch:
                 m = m * mm // _math.gcd(m, mm)
         return m
 
-    def _compiler(self, params, position: int) -> _Compiler:
+    def _compiler(self, params, position: int, carry=None,
+                  n_blocks: int = 1) -> _Compiler:
+        """A lowering of ``n_blocks`` blocks from ``position``."""
         comp = _Compiler(self.index)
         comp.params = params
         comp.position = position
+        comp.carry_in = {} if carry is None else carry
+        comp.main = Window(0, n_blocks * self.block_frames)
         return comp
 
-    def step(self, params, position: int):
-        """One block at ``position`` (any block multiple), lowered at
-        ``Window(0, F)``: returns ``(F, ch)`` on the patch's device.  Every
-        patch the port lowers is carry-free, so there is no carry in or out.
-        Filters take their per-block paths: zero-state replay of each
-        block's context (:func:`~signals_tpu_torch.compiler.kernels.
-        sosfilt_timeline`), or, for swept cutoffs, one segment-kernel call
-        over the block's carry segment up to it."""
+    def _window(self, params, carry, position: int, n_blocks: int):
+        """Lower ``n_blocks`` blocks from ``position`` as one window whose
+        delay reads all come from the carry: ``(blocks (n, F, ch),
+        carry')``.  The body of :meth:`step`, :meth:`mega_core` and the
+        segments of :meth:`segment_scan_core`."""
         F = self.block_frames
-        block = self._compiler(params, position).lower(self.root,
-                                                       Window(0, F))
-        return torch.broadcast_to(block, (F, self.channels))
+        comp = self._compiler(params, position, carry, n_blocks)
+        block = comp.lower(self.root, comp.main)
+        block = torch.broadcast_to(block, (n_blocks * F, self.channels))
+        comp.finalize_delays()
+        comp.passthrough_carry()
+        return block.reshape(n_blocks, F, self.channels), comp.carry_out
+
+    def step(self, params, carry, position: int):
+        """One block at ``position`` (any block multiple), lowered at
+        ``Window(0, F)``: returns ``(block (F, ch), carry')`` on the
+        patch's device (pass ``carry0``, or ``{}`` for a carry-free patch,
+        to start).  Filters take their per-block paths: zero-state replay
+        of each block's context (:func:`~signals_tpu_torch.compiler.
+        kernels.sosfilt_timeline`); for swept cutoffs, one segment-kernel
+        call over the block's carry segment up to it; for streaming
+        filters, the carried-state kernel
+        (:func:`~signals_tpu_torch.compiler.kernels.sosfilt_stream`)."""
+        blocks, carry2 = self._window(params, carry, position, 1)
+        return blocks[0], carry2
+
+    @property
+    def mega_compatible(self) -> bool:
+        """Whether the patch can render a whole batch as one window: no
+        delays (feedback is sequential), and any stateful node offers
+        either a carry-free grid lowering or a whole-window ``mega_step``
+        (streaming filters).  Consumers may read a mega-stepped node at any
+        non-future window: the collect pass sizes a ``hist`` carry ring and
+        :meth:`_Compiler._serve_history` serves those windows."""
+        for node in self.index.order:
+            if _is_delay(node):
+                return False
+            if _is_stateful(node) and not _is_grid_stateless(node):
+                if not getattr(node, 'supports_mega_step', False):
+                    return False
+        return True
+
+    @property
+    def _use_mega(self) -> bool:
+        """The whole-window plan whenever the patch allows it.  (The JAX
+        package also weighs the channel width against its per-block
+        ``vmap`` path and lane packing, neither of which the port has.)"""
+        return self.enable_mega and self.mega_compatible
 
     def mega_core(self, n_blocks: int):
-        """The plain plan ``(params, position0) -> blocks (n, F, ch)``: the
-        whole batch lowers as ONE window — controls as per-block grid
-        samples, each filter as one kernel call writing ``(n_blocks, F,
-        V)``, the downstream nodes elementwise."""
+        """The plain plan ``(params, carry, position0) -> (blocks (n, F,
+        ch), carry')``: the whole batch lowers as ONE window — controls as
+        per-block grid samples, each filter as one kernel call writing
+        ``(n_blocks, F, V)``, streaming filters through ``mega_step``, the
+        downstream nodes elementwise.  Requires :attr:`mega_compatible`."""
+        def many(params, carry, position0: int):
+            return self._window(params, carry, position0, n_blocks)
+
+        return many
+
+    def delay_mega_plan(self):
+        """The patch's :class:`~signals_tpu_torch.compiler.feedback.
+        DelayPlan` (cached), or None when its delay feedback cannot be
+        solved loop-free."""
+        if not self.enable_mega:
+            return None
+        if not hasattr(self, '_delay_plan'):
+            from signals_tpu_torch.compiler import feedback
+            self._delay_plan = feedback.plan_delays(
+                self.index, self.block_frames, self.rate)
+        return self._delay_plan
+
+    def delay_mega_core(self, n_blocks: int, plan):
+        """Loop-free render of a delay/feedback patch: the whole batch is
+        ONE window; each delay line is *solved* up front — out-of-cycle
+        delays read their (already lowered) input timeline shifted,
+        in-cycle delays solve the affine recurrence ``u[t] = g[t] u[t-D] +
+        h[t]`` with one log-step scan over D-frame segments (``g``/``h``
+        extracted by lowering the loop expression with the delay output
+        substituted by 0 and 1 — sound because :func:`~signals_tpu_torch.
+        compiler.feedback.plan_delays` proved the loop frame-local affine).
+        Everything downstream then lowers exactly like :meth:`mega_core`.
+
+        Semantics preserved from the per-block engine: block-quantized
+        feedback (delay >= one block), buffer carry-in/out, ``enabled``
+        gating on the delay output (the buffer still advances while
+        disabled), zero pre-timeline context.
+        """
+        index = self.index
+        F = self.block_frames
+        total = n_blocks * F
+        main = Window(0, total)
+
+        def sub_trace(comp, inp, delay, const, dependent):
+            """Lower ``inp`` at the main window with ``delay``'s output
+            substituted by ``const``.  Nothing lowered so far depends on
+            this delay, so the memo is shared in; what the trace adds off
+            the delay's downstream closure is shared back (eager PyTorch
+            has no common-subexpression pass to do it)."""
+            sub = self._compiler(comp.params, comp.position, comp.carry_in,
+                                 n_blocks)
+            sub.carry_out = comp.carry_out
+            sub._stateful_done = comp._stateful_done
+            sub.delay_solved = comp.delay_solved
+            sub.delay_const = {id(delay): const}
+            sub._memo.update(comp._memo)
+            out = sub.lower(inp, main)
+            comp._memo.update((k, v) for k, v in sub._memo.items()
+                              if k[0] not in dependent)
+            return out
+
+        def many(params, carry, position0: int):
+            comp = self._compiler(params, position0, carry, n_blocks)
+            zero = comp._zero()
+            for node in plan.order:
+                uid = index.info(node).uid
+                inp = node._ports['input'].sig
+                D = node.delay_frames(self.rate)
+                buf = carry[uid]['buf']
+                B = buf.shape[0]
+                ch = node.channels
+                if inp is None:
+                    u = torch.zeros((total, ch), dtype=torch.float32,
+                                    device=self.device)
+                elif not plan.cyclic[id(node)]:
+                    u = torch.broadcast_to(comp.lower(inp, main),
+                                           (total, ch))
+                else:
+                    dependent = _downstream(node)
+                    h = torch.broadcast_to(
+                        sub_trace(comp, inp, node, 0.0, dependent),
+                        (total, ch))
+                    g = torch.broadcast_to(
+                        sub_trace(comp, inp, node, 1.0, dependent),
+                        (total, ch)) - h
+                    # a disabled delay outputs zeros (g drops out) but its
+                    # buffer still advances with the input
+                    g = torch.where(comp.node_param(node, 'enabled'), g,
+                                    zero)
+                    pre = buf[B - D:]              # last D input frames
+                    n_seg = -(-total // D)
+                    pad = (0, 0, 0, n_seg * D - total)
+                    A, Bc = _segment_scan(
+                        torch.nn.functional.pad(g, pad).reshape(n_seg, D, ch),
+                        torch.nn.functional.pad(h, pad).reshape(n_seg, D, ch))
+                    u = (A * pre[None] + Bc).reshape(n_seg * D, ch)[:total]
+                    if inp.channels == ch:
+                        # downstream consumers of the loop node reuse the
+                        # solved timeline instead of recomputing it
+                        comp._memo[(id(inp), main)] = u
+                in_full = torch.cat([buf, u])
+                comp.delay_solved[id(node)] = in_full
+                comp.carry_out[uid] = {'buf': in_full[-B:]}
+            block = comp.lower(self.root, main)
+            block = torch.broadcast_to(block, (total, self.channels))
+            # memo injection can cut stateful nodes off the root walk —
+            # force them so that their carries are produced
+            for node in index.order:
+                if (_is_stateful(node) and not _is_grid_stateless(node)
+                        and not _is_delay(node)):
+                    comp.lower(node, main)
+            comp.passthrough_carry()
+            return (block.reshape(n_blocks, F, self.channels),
+                    comp.carry_out)
+
+        return many
+
+    def segment_scan_core(self, n_blocks: int):
+        """Segmented feedback scan, or None: the general fast path for
+        delay feedback the closed-form solver rejects (nonlinear saturated
+        loops, mutually-coupled ping-pong pairs, longer dependency cycles).
+
+        Inside a window of ``S`` blocks with ``S * F <= D`` for every
+        delay, every delay read is served entirely from the carried buffer
+        — there is NO cycle within the window, whatever the loop topology —
+        so the window lowers exactly like a mega window (stateful nodes
+        ``mega_step``, producers lower once over ``S*F`` frames) and a host
+        loop chains the segments: the lowering's host cost is paid once per
+        ``S`` blocks instead of per block.
+
+        ``S`` is the largest divisor of ``n_blocks`` within the delay bound
+        when that divisor is near the bound; otherwise ``S`` is the bound
+        itself and the remainder renders as one shorter *tail* window
+        (e.g. a prime ``n_blocks = 13`` with ``S_max = 5`` runs 2
+        five-block segments + a 3-block tail).  Semantics are identical to
+        the per-block loop.
+        """
+        if not self.enable_mega or n_blocks < 2:
+            return None
+        if not hasattr(self, '_segment_S'):
+            from signals_tpu_torch.compiler import feedback
+            self._segment_S = feedback.segment_blocks(
+                self.index, self.block_frames, self.rate)
+        s_max = min(self._segment_S, n_blocks)
+        if s_max < 2:
+            return None
+        S = max((s for s in range(1, s_max + 1) if n_blocks % s == 0),
+                default=1)
+        if S < max(2, s_max // 2):
+            S = s_max                    # a tail window for wide segments
+        n_seg, rem = divmod(n_blocks, S)
         F = self.block_frames
 
-        def many(params, position0: int):
-            comp = self._compiler(params, position0)
-            block = comp.lower(self.root, Window(0, n_blocks * F))
-            block = torch.broadcast_to(block, (n_blocks * F, self.channels))
-            return block.reshape(n_blocks, F, self.channels)
+        def many(params, carry, position0: int):
+            out = []
+            for i, nb in enumerate([S] * n_seg + ([rem] if rem else [])):
+                blocks, carry = self._window(params, carry,
+                                             position0 + i * S * F, nb)
+                out.append(blocks)
+            return torch.cat(out), carry
 
         return many
 
@@ -618,9 +1093,10 @@ class CompiledPatch:
         package's ``packed_mega_mix`` with the stream count at 1 — or
         ``None`` when ineligible.
 
-        Eligible when the patch has exactly one ``CritFilter``, V voices
-        wide (V >= 2), and every path from it to the root is
-        voice-broadcast-linear (:func:`_voice_linear_to_root`).  Then::
+        Eligible when the patch carries no state and has exactly one
+        ``CritFilter``, V voices wide (V >= 2), and every path from it to
+        the root is voice-broadcast-linear (:func:`_voice_linear_to_root`).
+        Then::
 
             sum_v root_v = A * ysum + S0
             A    = (S1 - S0) / V        (voice-constant by the proof)
@@ -639,7 +1115,7 @@ class CompiledPatch:
         from signals_tpu_torch.nodes.fx import CritFilter
         V = self.channels
         filters = [n for n in self.index.order if isinstance(n, CritFilter)]
-        if V < 2 or len(filters) != 1:
+        if V < 2 or len(filters) != 1 or self.carry0:
             return None
         f = filters[0]
         if f.channels != V or not _voice_linear_to_root(f, self.root):
@@ -650,7 +1126,7 @@ class CompiledPatch:
         dependent = _downstream(f)
 
         def many_mix(params, position0: int):
-            comp = self._compiler(params, position0)
+            comp = self._compiler(params, position0, None, n_blocks)
             ysum = f.family_sum(LowerCtx(comp, f, main), (F, n_blocks))
             ys = torch.where(comp.node_param(f, 'enabled'),
                              ysum.reshape(n_blocks * F, 1),
@@ -658,7 +1134,7 @@ class CompiledPatch:
             shared: dict = {}
 
             def sub_sum(const):
-                sub = self._compiler(params, position0)
+                sub = self._compiler(params, position0, None, n_blocks)
                 sub.node_const = {id(f): const}
                 sub._memo.update(shared)
                 r = sub.lower(self.root, main)
@@ -675,12 +1151,46 @@ class CompiledPatch:
 
         return many_mix
 
+    def plan(self, n_blocks: int) -> str:
+        """The plan :meth:`render_core` picks for a batch of ``n_blocks``,
+        in the JAX package's order (its lane-packed plan aside): ``'mega'``
+        (:meth:`mega_core`), ``'delay_mega'`` (:meth:`delay_mega_core`),
+        ``'segment_scan'`` (:meth:`segment_scan_core`) or ``'blocks'`` (one
+        :meth:`step` per block)."""
+        if n_blocks > 1:
+            if self._use_mega:
+                return 'mega'
+            if self.delay_mega_plan() is not None:
+                return 'delay_mega'
+            if self.segment_scan_core(n_blocks) is not None:
+                return 'segment_scan'
+        return 'blocks'
+
     def render_core(self, n_blocks: int):
-        """``(params, position0) -> blocks (n, F, ch)`` (the plain plan,
-        cached per batch size)."""
-        if n_blocks not in self._render_cache:
-            self._render_cache[n_blocks] = self.mega_core(n_blocks)
-        return self._render_cache[n_blocks]
+        """``(params, carry, position0) -> (blocks (n, F, ch), carry')`` on
+        the plan :meth:`plan` names (cached per batch size)."""
+        if n_blocks in self._render_cache:
+            return self._render_cache[n_blocks]
+        plan = self.plan(n_blocks)
+        if plan == 'mega':
+            many = self.mega_core(n_blocks)
+        elif plan == 'delay_mega':
+            many = self.delay_mega_core(n_blocks, self.delay_mega_plan())
+        elif plan == 'segment_scan':
+            many = self.segment_scan_core(n_blocks)
+        else:
+            F = self.block_frames
+
+            def many(params, carry, position0: int):
+                out = []
+                for i in range(n_blocks):
+                    block, carry = self.step(params, carry,
+                                             position0 + i * F)
+                    out.append(block)
+                return torch.stack(out), carry
+
+        self._render_cache[n_blocks] = many
+        return many
 
     def check_position(self, position: int, n_blocks: int) -> None:
         """Render starts must be whole blocks, and every frame a render
@@ -698,16 +1208,36 @@ class CompiledPatch:
             raise ValueError(f'frames past {np.iinfo(np.int32).max} are not '
                              f'addressable (int32 frame index)')
 
-    def render(self, *, position: int = 0, n_blocks: int = 1):
+    def render(self, *, position: int = 0, n_blocks: int = 1,
+               carry: typing.Optional[dict] = None):
         """Render ``n_blocks`` blocks from ``position`` (any block
-        multiple; one block goes through :meth:`step`); returns audio
-        ``(n*F, ch)`` on the patch's device.  The output equals the
-        oracle's absolute-aligned semantics at any start."""
+        multiple; one block goes through :meth:`step`); returns ``(audio
+        (n*F, ch), carry')`` on the patch's device.  ``carry`` defaults to
+        :attr:`carry0` (a start from silence); pass the carry a render
+        returned to continue it.  For a carry-free patch the output equals
+        the oracle's absolute-aligned semantics at any start."""
         self.check_position(position, n_blocks)
-        if n_blocks == 1:
-            return self.step(self.params(), position)
-        blocks = self.render_core(n_blocks)(self.params(), position)
-        return blocks.reshape(n_blocks * self.block_frames, self.channels)
+        if carry is None:
+            carry = self.carry0
+        blocks, carry2 = self.render_core(n_blocks)(self.params(), carry,
+                                                    position)
+        return (blocks.reshape(n_blocks * self.block_frames, self.channels),
+                carry2)
+
+
+def _segment_scan(a, b):
+    """Inclusive scan along axis 0 of the elementwise affine maps ``u -> a
+    u + b`` (row ``i`` of the result composes maps ``0..i``, newest applied
+    last), in log2(n) Hillis-Steele steps — the counterpart of the JAX
+    package's ``associative_scan`` over a feedback loop's D-frame segments
+    (another association order: equal to f32 rounding)."""
+    n = a.shape[0]
+    d = 1
+    while d < n:
+        b = torch.cat([b[:d], a[d:] * b[:-d] + b[d:]])
+        a = torch.cat([a[:d], a[d:] * a[:-d]])
+        d *= 2
+    return a, b
 
 
 _compile_cache: dict[str, CompiledPatch] = {}

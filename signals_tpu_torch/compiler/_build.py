@@ -111,10 +111,11 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.sosfilt_segments_gen_launch.argtypes = [p, p, p, f, i, p, p, p, i, i,
                                                 i, i, i, i, i, p]
     lib.sosfilt_segments_gen_launch.restype = i
-    lib.sosfilt_timeline_launch.argtypes = [p, q, q, p, q, q, p, i, i, i, p]
+    lib.sosfilt_timeline_launch.argtypes = [p, q, q, p, q, q, p, p, p, i, i,
+                                            i, p]
     lib.sosfilt_timeline_launch.restype = i
-    lib.sosfilt_batch_launch.argtypes = [p, q, q, q, p, q, q, q, p, i, i, i,
-                                         i, i, p]
+    lib.sosfilt_batch_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, i,
+                                         i, i, i, i, p]
     lib.sosfilt_batch_launch.restype = i
     lib.signals_partial_width.argtypes = [i, i, i, i, i, i]
     lib.signals_partial_width.restype = i

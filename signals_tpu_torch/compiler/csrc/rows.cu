@@ -14,6 +14,17 @@
 // call and an 8-row causal-combination form per chunk; the result is the
 // same up to rounding.
 //
+// Carried state.  Either launcher takes an optional start state zi and an
+// optional end-state output zf, both (windows, nsec, 2, ch) contiguous
+// (the pair s1, s2 of every section of every lane).  With zi, slice 0 of
+// each window starts every section from it instead of from zero; its map's
+// end state is then the true one, so the same scan gives every later slice
+// its true start.  zf is the state of every section after the window's last
+// row (the last slice's final replay ends there).  Null pointers give the
+// zero-state behaviour, bit for bit.  This is how a streaming (exact IIR)
+// filter steps a block and how its whole-window form gets the end state of
+// every block.
+//
 // What bounds them on this card.  The work is small: the render-ahead batch
 // (8 windows x 16 lanes x 1152 rows) is 147k lane-rows and 1.1 MB, whose
 // roofline bound (0.3 us of bytes) is below a launch's own cost.  What
@@ -58,6 +69,15 @@ using signals::kRows;
 using signals::pow_rows;
 using signals::set_state;
 using signals::slice_start;
+
+// Section s of a lane's start state: zl points at the lane's (nsec, 2, ch)
+// entry of zi, or is null for a zero start (no zi, or not the window's first
+// slice).
+__device__ __forceinline__ Cplx init_state(const float* __restrict__ zl,
+                                           int s, int ch) {
+    if (zl == nullptr) return Cplx{0.f, 0.f};
+    return Cplx{zl[(int64_t)(2 * s) * ch], zl[(int64_t)(2 * s + 1) * ch]};
+}
 
 // One launch: the windows, their element strides, and the slicing.
 struct RowsGeo {
@@ -119,37 +139,43 @@ __device__ __forceinline__ Cplx walk(Cascade<NSEC>& cas,
 }
 
 // The scan passes of sections S.. NSEC-1: section S's replays sections
-// 0..S-1 from their true starts and runs section S from zero state; the scan
-// gives each slice section S's true start.
+// 0..S-1 from their true starts and runs section S from zero state (the
+// window's first slice from its start state zl); the scan gives each later
+// slice section S's true start.
 template <int NSEC, int S = 0>
 __device__ __forceinline__ void scan_sections(Cascade<NSEC>& cas,
                                               Cplx (&start)[NSEC],
                                               const float* __restrict__ xl,
                                               int row_a, int row_b,
                                               bool active, int k,
-                                              float4* buf, const RowsGeo& g) {
+                                              float4* buf,
+                                              const float* __restrict__ zl,
+                                              const RowsGeo& g) {
     if constexpr (S < NSEC) {
 #pragma unroll
         for (int s = 0; s < S; ++s) set_state(cas, s, start[s]);
-        set_state(cas, S, Cplx{0.f, 0.f});
+        set_state(cas, S, init_state(zl, S, g.ch));
         const Cplx a = walk<NSEC, S + 1, true, false>(cas, xl, nullptr, row_a,
                                                       row_b, active, g);
-        start[S] = slice_start(a, Cplx{cas.s1[S], cas.s2[S]}, buf, k,
-                               g.n_slices, g.lt);
+        const Cplx st = slice_start(a, Cplx{cas.s1[S], cas.s2[S]}, buf, k,
+                                    g.n_slices, g.lt);
+        start[S] = zl != nullptr ? init_state(zl, S, g.ch) : st;
         scan_sections<NSEC, S + 1>(cas, start, xl, row_a, row_b, active, k,
-                                   buf, g);
+                                   buf, zl, g);
     }
 }
 
 // grid: lane tiles of lt over the windows' lanes; block: lt lanes x
-// n_slices slices, lanes fastest.  out (tail, lanes), contiguous.  The
+// n_slices slices, lanes fastest.  out (tail, lanes), contiguous; zi and zf
+// (windows, NSEC, 2, ch) contiguous, or null.  The
 // explicit minimum of one block per SM lets ptxas use up to 128 registers:
 // without it, it held 1-2 sections to 64 and spilled at 2 (a few blocks on
 // the whole card run here, so occupancy buys nothing).
 template <int NSEC>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 rows_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
-             float* __restrict__ out, const RowsGeo g) {
+             float* __restrict__ out, const float* __restrict__ zi,
+             float* __restrict__ zf, const RowsGeo g) {
     extern __shared__ float4 smem[];
     const int k = threadIdx.x >> g.lt_log;
     const int lane = (blockIdx.x << g.lt_log) + (threadIdx.x & (g.lt - 1));
@@ -161,22 +187,38 @@ rows_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
     const int row_b = min(row_a + g.slice, g.n_rows);
     Cascade<NSEC> cas;
     cas.load(coeffs + b * g.co_win + c * g.co_ch, g.co_sec);
-    cas.reset();
+    const int64_t z_lane = (int64_t)b * NSEC * 2 * g.ch + c;
+    // the start state, in the first slice of an active lane only
+    const float* zl = (zi != nullptr && k == 0 && active) ? zi + z_lane
+                                                          : nullptr;
     if (g.n_slices > 1) {
         Cplx start[NSEC];
-        scan_sections<NSEC>(cas, start, xl, row_a, row_b, active, k, smem, g);
+        scan_sections<NSEC>(cas, start, xl, row_a, row_b, active, k, smem, zl,
+                            g);
 #pragma unroll
         for (int s = 0; s < NSEC; ++s) set_state(cas, s, start[s]);
+    } else {
+#pragma unroll
+        for (int s = 0; s < NSEC; ++s)
+            set_state(cas, s, init_state(zl, s, g.ch));
     }
     // the final replay, in the slices that hold output rows
     if (row_b > g.skip)
         walk<NSEC, NSEC, false, true>(cas, xl, out + lane, row_a, row_b,
                                       active, g);
+    // the last slice's replay ends on the window's end state
+    if (zf != nullptr && active && k == g.n_slices - 1) {
+#pragma unroll
+        for (int s = 0; s < NSEC; ++s) {
+            zf[z_lane + (int64_t)(2 * s) * g.ch] = cas.s1[s];
+            zf[z_lane + (int64_t)(2 * s + 1) * g.ch] = cas.s2[s];
+        }
+    }
 }
 
 template <int NSEC>
-int launch_n(const float* coeffs, const float* x, float* out, RowsGeo g,
-             cudaStream_t stream) {
+int launch_n(const float* coeffs, const float* x, float* out, const float* zi,
+             float* zf, RowsGeo g, cudaStream_t stream) {
     // slices of one chunk at least: a shorter slice's thread walks fewer
     // rows, which set the time at every shape measured (PERF.md)
     const signals::Slicing s = signals::plan_slices(1, g.lanes, g.n_rows,
@@ -188,18 +230,18 @@ int launch_n(const float* coeffs, const float* x, float* out, RowsGeo g,
     const int threads = (g.n_slices * g.lt + 31) / 32 * 32;
     const size_t smem = g.n_slices > 1 ? 2 * threads * sizeof(float4) : 0;
     rows_cascade<NSEC><<<(g.lanes + g.lt - 1) / g.lt, threads, smem,
-                         stream>>>(coeffs, x, out, g);
+                         stream>>>(coeffs, x, out, zi, zf, g);
     return (int)cudaGetLastError();
 }
 
-int launch(const float* coeffs, const float* x, float* out, const RowsGeo& g,
-           int nsec, void* stream) {
+int launch(const float* coeffs, const float* x, float* out, const float* zi,
+           float* zf, const RowsGeo& g, int nsec, void* stream) {
     const cudaStream_t st = (cudaStream_t)stream;
     switch (nsec) {
-    case 1: return launch_n<1>(coeffs, x, out, g, st);
-    case 2: return launch_n<2>(coeffs, x, out, g, st);
-    case 3: return launch_n<3>(coeffs, x, out, g, st);
-    case 4: return launch_n<4>(coeffs, x, out, g, st);
+    case 1: return launch_n<1>(coeffs, x, out, zi, zf, g, st);
+    case 2: return launch_n<2>(coeffs, x, out, zi, zf, g, st);
+    case 3: return launch_n<3>(coeffs, x, out, zi, zf, g, st);
+    case 4: return launch_n<4>(coeffs, x, out, zi, zf, g, st);
     default: return (int)cudaErrorInvalidValue;
     }
 }
@@ -210,13 +252,16 @@ extern "C" {
 
 // The launchers return the cudaError_t of the launch (0 on success);
 // nsec outside 1..4 is refused with cudaErrorInvalidValue.  Strides are in
-// elements; the 11 coefficient columns are contiguous.
+// elements; the 11 coefficient columns are contiguous.  zi (the start
+// state) and zf (the end state, written) are (windows, nsec, 2, ch)
+// contiguous, each null for none.
 
 // coeffs (nsec, ch, 11), x (n_rows, ch) -> out (n_rows, ch), contiguous.
 int sosfilt_timeline_launch(const float* coeffs, int64_t co_sec,
                             int64_t co_ch, const float* x, int64_t x_row,
-                            int64_t x_ch, float* out, int nsec, int ch,
-                            int n_rows, void* stream) {
+                            int64_t x_ch, float* out, const float* zi,
+                            float* zf, int nsec, int ch, int n_rows,
+                            void* stream) {
     RowsGeo g{};
     g.ch = ch;
     g.lanes = ch;
@@ -226,16 +271,16 @@ int sosfilt_timeline_launch(const float* coeffs, int64_t co_sec,
     g.x_ch = x_ch;
     g.co_sec = co_sec;
     g.co_ch = co_ch;
-    return launch(coeffs, x, out, g, nsec, stream);
+    return launch(coeffs, x, out, zi, zf, g, nsec, stream);
 }
 
 // coeffs (n_windows, nsec, ch, 11), x (n_rows, n_windows, ch) -> out (tail,
 // n_windows, ch), contiguous.
 int sosfilt_batch_launch(const float* coeffs, int64_t co_win, int64_t co_sec,
                          int64_t co_ch, const float* x, int64_t x_row,
-                         int64_t x_win, int64_t x_ch, float* out, int nsec,
-                         int n_windows, int ch, int n_rows, int tail,
-                         void* stream) {
+                         int64_t x_win, int64_t x_ch, float* out,
+                         const float* zi, float* zf, int nsec, int n_windows,
+                         int ch, int n_rows, int tail, void* stream) {
     RowsGeo g{};
     g.ch = ch;
     g.lanes = n_windows * ch;
@@ -247,7 +292,7 @@ int sosfilt_batch_launch(const float* coeffs, int64_t co_win, int64_t co_sec,
     g.co_win = co_win;
     g.co_sec = co_sec;
     g.co_ch = co_ch;
-    return launch(coeffs, x, out, g, nsec, stream);
+    return launch(coeffs, x, out, zi, zf, g, nsec, stream);
 }
 
 }  // extern "C"

@@ -12,8 +12,11 @@ inside the render from the lowered cutoff values:
   **float64** in both engines and rounds to float32 once, so the
   coefficients are bit-identical across engines; the coupled taps involve a
   catastrophic cancellation and are derived inside the f64 pipeline.
-* :func:`sosfilt_stream` — the stateful cascade in plain PyTorch (a loop
-  over frames), the reference the CUDA segment kernels are held to;
+* :func:`sosfilt_stream_scan` — the stateful cascade in plain PyTorch (a
+  loop over frames), the reference the CUDA kernels are held to;
+* :func:`sosfilt_stream` — the stateful cascade of one window: the CUDA
+  kernel :func:`~signals_tpu_torch.compiler.kernels.sosfilt_stream` on a
+  GPU, the frame loop on the CPU;
 * :func:`sosfilt` — the zero-state cascade of a whole timeline: the CUDA
   kernel :func:`~signals_tpu_torch.compiler.kernels.sosfilt_timeline` on a
   GPU, its plain version :func:`sosfilt_scan` on the CPU.
@@ -214,7 +217,7 @@ def _coupled_params(coeffs, s):
     return tuple(coeffs[s, :, k] for k in range(6, 11))
 
 
-def sosfilt_stream(coeffs, x, zi):
+def sosfilt_stream_scan(coeffs, x, zi):
     """Stateful cascade in plain PyTorch: continue from (and return) the
     coupled-form state ``zi`` of shape ``(nsec, 2, ch)``.  ``coeffs``
     ``(nsec, ch, 11)``; ``x`` ``(n, ch)``; returns ``(y (n, ch), zf)``.
@@ -245,15 +248,15 @@ def sosfilt_stream(coeffs, x, zi):
 
 
 def sosfilt_scan(coeffs, x):
-    """Zero-initial-state cascade in plain PyTorch: :func:`sosfilt_stream`
-    from zero state.  ``coeffs`` ``(nsec, ch, 11)`` from
-    :func:`design_coupled`; ``x`` ``(N, ch)`` (the channel axes broadcast
-    to the wider count).  The plain version of the CUDA kernel
+    """Zero-initial-state cascade in plain PyTorch:
+    :func:`sosfilt_stream_scan` from zero state.  ``coeffs`` ``(nsec, ch,
+    11)`` from :func:`design_coupled`; ``x`` ``(N, ch)`` (the channel axes
+    broadcast to the wider count).  The plain version of the CUDA kernel
     :func:`~signals_tpu_torch.compiler.kernels.sosfilt_timeline`."""
     ch = max(coeffs.shape[1], x.shape[1])
     zi = torch.zeros((coeffs.shape[0], 2, ch), dtype=torch.float32,
                      device=x.device)
-    return sosfilt_stream(coeffs, x, zi)[0]
+    return sosfilt_stream_scan(coeffs, x, zi)[0]
 
 
 def sosfilt(coeffs, x):
@@ -262,3 +265,13 @@ def sosfilt(coeffs, x):
     :func:`sosfilt_scan` for one on the CPU."""
     from signals_tpu_torch.compiler.kernels import sosfilt_timeline
     return sosfilt_timeline(coeffs, x)
+
+
+def sosfilt_stream(coeffs, x, zi):
+    """The stateful cascade of one window (``signals_tpu``'s
+    ``filters.sosfilt_stream``): continue from the coupled-form state
+    ``zi`` ``(nsec, 2, ch)``, return ``(y, zf)``.  The CUDA kernel for
+    tensors on a GPU, the frame loop :func:`sosfilt_stream_scan` for
+    tensors on the CPU."""
+    from signals_tpu_torch.compiler import kernels
+    return kernels.sosfilt_stream(coeffs, x, zi)

@@ -1,6 +1,6 @@
 """The cascade kernels (``signals_tpu.compiler.pallas_kernels``).
 
-Four entry points, each with a plain PyTorch version of the same signature:
+Five entry points, each with a plain PyTorch version of the same signature:
 
 * :func:`sosfilt_segments_gen` — the coupled-form biquad cascade over carry
   segments with its input synthesized from an oscillator spec (replaces the
@@ -11,7 +11,12 @@ Four entry points, each with a plain PyTorch version of the same signature:
   independent windows, writing only each window's tail (replaces
   ``_batch_kernel``);
 * :func:`sosfilt_timeline` — the zero-state cascade over one whole
-  timeline (replaces ``_section_kernel``, ``sosfilt_pallas``).
+  timeline (replaces ``_section_kernel``, ``sosfilt_pallas``);
+* :func:`sosfilt_stream` — the carried-state entry of the same kernel: one
+  window from a start state ``zi`` to its end state ``zf`` (the exact IIR
+  of a ``streaming=True`` filter; the JAX package runs it as an associative
+  scan inside its XLA program).  :func:`sosfilt_batch` takes ``zi`` and
+  returns ``zf`` too (``return_state=True``).
 
 The segment kernels take ``sum_groups = g`` (the mix epilogue: return each
 ``g``-lane group's sum instead of the lanes) and ``blocks_per_seg = m``
@@ -22,8 +27,8 @@ A wrapper runs the plain version only because its tensors lie on the CPU.
 On a CUDA tensor it launches the hand-written kernel (``csrc/segments.cu``,
 ``csrc/rows.cu``, built at first use by :mod:`._build`) or raises; each
 launch adds one to :data:`LAUNCHES`.  The segment kernels take 1 or 2
-order-2 sections per lane (every Butterworth design), the zero-state
-kernels 1 to :data:`MAX_SECTIONS`.
+order-2 sections per lane (every Butterworth design), the zero-state and
+carried-state kernels 1 to :data:`MAX_SECTIONS`.
 """
 
 from __future__ import annotations
@@ -33,14 +38,16 @@ import ctypes
 import numpy as np
 import torch
 
-from signals_tpu_torch.compiler.filters import sosfilt_scan, sosfilt_stream
+from signals_tpu_torch.compiler.filters import (sosfilt_scan,
+                                                 sosfilt_stream_scan)
 from signals_tpu_torch.core.mathx import _SIN2PI_COEFFS, sin2pi
 from signals_tpu_torch.core.xp import TorchXP
 
 OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
 
 #: launches of each hand-written kernel since :func:`reset_launch_counts`
-LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0}
+LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0,
+            'stream': 0}
 
 #: sections per lane the segment kernels take (the Butterworth designs: 1
 #: for low/high-pass, 2 for band-pass/band-stop)
@@ -153,7 +160,7 @@ def _cascade_windows_plain(coeffs, xw, *, seg_frames, context, sum_groups,
                            blocks_per_seg):
     """Shared body of the plain versions: ``xw`` (n_units, C + m*F, lanes)
     input windows of the carry segments; segments ride the channel axis of
-    :func:`~signals_tpu_torch.compiler.filters.sosfilt_stream`."""
+    :func:`~signals_tpu_torch.compiler.filters.sosfilt_stream_scan`."""
     m, F, C = blocks_per_seg, seg_frames, context
     n_blocks, nsec, lanes, _ = coeffs.shape
     n_units = n_blocks // m
@@ -167,11 +174,11 @@ def _cascade_windows_plain(coeffs, xw, *, seg_frames, context, sum_groups,
 
     z = torch.zeros((nsec, 2, n_units * lanes), dtype=torch.float32,
                     device=coeffs.device)
-    _, z = sosfilt_stream(block_coeffs(0), x[:C], z)
+    _, z = sosfilt_stream_scan(block_coeffs(0), x[:C], z)
     ys = []
     for j in range(m):
-        y, z = sosfilt_stream(block_coeffs(j), x[C + j * F:C + (j + 1) * F],
-                              z)
+        y, z = sosfilt_stream_scan(block_coeffs(j),
+                                   x[C + j * F:C + (j + 1) * F], z)
         ys.append(y.reshape(F, n_units, lanes))
     y = torch.stack(ys, dim=1)                       # (F, m, n_units, lanes)
     y = y.permute(2, 1, 0, 3).reshape(n_blocks, F, lanes)
@@ -307,7 +314,7 @@ def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
     return out
 
 
-# --- the zero-state cascades --------------------------------------------------
+# --- the zero-state and carried-state cascades --------------------------------
 
 
 def _check_rows_coeffs(coeffs, dims: int, layout: str):
@@ -328,9 +335,44 @@ def _columns_contiguous(coeffs):
     return coeffs if coeffs.stride(-1) == 1 else coeffs.contiguous()
 
 
+def _check_state(zi, shape, what: str):
+    """A start state as the kernels read it: float32 of ``shape``
+    (a one-channel state widens to the channels), contiguous."""
+    if (zi.dtype != torch.float32 or zi.dim() != len(shape)
+            or tuple(zi.shape[:-1]) != tuple(shape[:-1])
+            or zi.shape[-1] not in (1, shape[-1])):
+        raise ValueError(f'{what} must be float32 {tuple(shape)}, got '
+                         f'{tuple(zi.shape)} {zi.dtype}')
+    return torch.broadcast_to(zi, shape).contiguous()
+
+
 def sosfilt_timeline_plain(coeffs, x):
     """Plain PyTorch version of :func:`sosfilt_timeline`."""
     return sosfilt_scan(coeffs, x)
+
+
+def _timeline_args(coeffs, x):
+    """Checks and broadcasts shared by :func:`sosfilt_timeline` and
+    :func:`sosfilt_stream`: ``(nsec, ch, coeffs, x)``."""
+    nsec = _check_rows_coeffs(coeffs, 3, '(nsec, ch, 11)')
+    if x.dim() != 2 or x.dtype != torch.float32:
+        raise ValueError(f'x must be float32 (N, ch), got '
+                         f'{tuple(x.shape)} {x.dtype}')
+    ch = max(coeffs.shape[1], x.shape[1])
+    return (nsec, ch, torch.broadcast_to(coeffs, (nsec, ch, 11)),
+            torch.broadcast_to(x, (x.shape[0], ch)))
+
+
+def _timeline_launch(coeffs, x, out, zi, zf, nsec, ch, what: str) -> None:
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    coeffs = _columns_contiguous(coeffs)
+    code = lib.sosfilt_timeline_launch(
+        coeffs.data_ptr(), *coeffs.stride()[:2], x.data_ptr(), *x.stride(),
+        out.data_ptr(), None if zi is None else zi.data_ptr(),
+        None if zf is None else zf.data_ptr(), nsec, ch, x.shape[0],
+        _stream(x.device))
+    _build.check(code, what)
 
 
 def sosfilt_timeline(coeffs, x):
@@ -341,43 +383,73 @@ def sosfilt_timeline(coeffs, x):
     kernel all sections per row; the result is the same up to rounding).
     The kernel reads ``x`` and ``coeffs`` through their strides: a strided
     or broadcast view is not copied."""
-    nsec = _check_rows_coeffs(coeffs, 3, '(nsec, ch, 11)')
-    if x.dim() != 2 or x.dtype != torch.float32:
-        raise ValueError(f'x must be float32 (N, ch), got '
-                         f'{tuple(x.shape)} {x.dtype}')
-    n, ch = x.shape[0], max(coeffs.shape[1], x.shape[1])
-    coeffs = torch.broadcast_to(coeffs, (nsec, ch, 11))
-    x = torch.broadcast_to(x, (n, ch))
+    nsec, ch, coeffs, x = _timeline_args(coeffs, x)
     if _device_kind(coeffs, x) == 'cpu':
         return sosfilt_timeline_plain(coeffs, x)
-    out = torch.empty((n, ch), dtype=torch.float32, device=x.device)
-    if n * ch == 0:
+    out = torch.empty((x.shape[0], ch), dtype=torch.float32, device=x.device)
+    if x.shape[0] * ch == 0:
         return out
-    from signals_tpu_torch.compiler import _build
-    lib = _build.library()
-    coeffs = _columns_contiguous(coeffs)
-    code = lib.sosfilt_timeline_launch(
-        coeffs.data_ptr(), *coeffs.stride()[:2], x.data_ptr(), *x.stride(),
-        out.data_ptr(), nsec, ch, n, _stream(x.device))
-    _build.check(code, 'sosfilt_timeline')
+    _timeline_launch(coeffs, x, out, None, None, nsec, ch, 'sosfilt_timeline')
     LAUNCHES['timeline'] += 1
     return out
 
 
-def sosfilt_batch_plain(coeffs, x_t, *, tail=None):
+def sosfilt_stream_plain(coeffs, x, zi):
+    """Plain PyTorch version of :func:`sosfilt_stream`: the loop over
+    frames (:func:`~signals_tpu_torch.compiler.filters.sosfilt_stream_scan`)."""
+    return sosfilt_stream_scan(coeffs, x, zi)
+
+
+def sosfilt_stream(coeffs, x, zi):
+    """The carried-state cascade over one window: continue from the
+    coupled-form state ``zi`` ``(nsec, 2, ch)`` over the ``(N, ch)`` float32
+    rows ``x`` with coefficients ``(nsec, ch, 11)``; returns ``(y (N, ch),
+    zf (nsec, 2, ch))``, ``zf`` the state after the last row.  The channel
+    axes broadcast to the widest count.  Two calls over the halves of a
+    window give one call's result up to rounding (the scan cuts the rows
+    into other slices).  On a GPU this is the timeline kernel started from
+    ``zi``; it never runs the frame loop there."""
+    nsec, ch, coeffs, x = _timeline_args(coeffs, x)
+    ch = max(ch, zi.shape[-1])
+    coeffs = torch.broadcast_to(coeffs, (nsec, ch, 11))
+    x = torch.broadcast_to(x, (x.shape[0], ch))
+    zi = _check_state(zi, (nsec, 2, ch), 'zi')
+    if _device_kind(coeffs, x, zi) == 'cpu':
+        return sosfilt_stream_plain(coeffs, x, zi)
+    out = torch.empty((x.shape[0], ch), dtype=torch.float32, device=x.device)
+    if x.shape[0] * ch == 0:
+        return out, zi
+    zf = torch.empty_like(zi)
+    _timeline_launch(coeffs, x, out, zi, zf, nsec, ch, 'sosfilt_stream')
+    LAUNCHES['stream'] += 1
+    return out, zf
+
+
+def sosfilt_batch_plain(coeffs, x_t, *, tail=None, zi=None,
+                        return_state=False):
     """Plain PyTorch version of :func:`sosfilt_batch`: the windows ride the
-    channel axis of :func:`sosfilt_scan`."""
+    channel axis of the frame loop."""
     L, B = x_t.shape[0], x_t.shape[1]
     nsec, ch = coeffs.shape[1], max(coeffs.shape[2], x_t.shape[2])
     tail = L if tail is None else tail
     co = torch.broadcast_to(coeffs, (B, nsec, ch, 11)).permute(1, 0, 2, 3)
     x = torch.broadcast_to(x_t, (L, B, ch)).reshape(L, B * ch)
-    y = sosfilt_scan(co.reshape(nsec, B * ch, 11), x)
-    return y[L - tail:].reshape(tail, B, ch)
+    if zi is None:
+        z = torch.zeros((nsec, 2, B * ch), dtype=torch.float32,
+                        device=x.device)
+    else:
+        z = torch.broadcast_to(zi, (B, nsec, 2, ch)).permute(
+            1, 2, 0, 3).reshape(nsec, 2, B * ch)
+    y, zf = sosfilt_stream_scan(co.reshape(nsec, B * ch, 11), x, z)
+    y = y[L - tail:].reshape(tail, B, ch)
+    if not return_state:
+        return y
+    return y, zf.reshape(nsec, 2, B, ch).permute(2, 0, 1, 3).contiguous()
 
 
-def sosfilt_batch(coeffs, x_t, *, tail=None):
-    """Zero-state cascade over ``B`` independent windows.
+def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False):
+    """Cascade over ``B`` independent windows, from zero state or from
+    ``zi``.
 
     ``x_t``: ``(L, B, ch)`` float32 — L frames of B windows (e.g. the
     per-block context slices of a multi-block window) x ch channels;
@@ -385,6 +457,12 @@ def sosfilt_batch(coeffs, x_t, *, tail=None):
     The channel axes broadcast to the wider count.  Returns the last
     ``tail`` rows ``(tail, B, ch)`` (all ``L`` rows by default): the first
     ``L - tail`` rows only warm the state up and are never written.
+
+    ``zi`` ``(B, nsec, 2, ch)`` starts every window from a coupled-form
+    state instead of zero; ``return_state=True`` returns ``(y, zf)`` with
+    ``zf`` ``(B, nsec, 2, ch)`` the state after each window's last row (how
+    a streaming filter's whole-window form gets the zero-state end state of
+    every block in one launch).
 
     The kernel reads ``x_t`` and ``coeffs`` through their strides, so the
     windows may be a view of one timeline — overlapping, e.g.
@@ -403,18 +481,27 @@ def sosfilt_batch(coeffs, x_t, *, tail=None):
     ch = max(coeffs.shape[2], x_t.shape[2])
     coeffs = torch.broadcast_to(coeffs, (B, nsec, ch, 11))
     x_t = torch.broadcast_to(x_t, (L, B, ch))
-    if _device_kind(coeffs, x_t) == 'cpu':
-        return sosfilt_batch_plain(coeffs, x_t, tail=tail)
+    tensors = [coeffs, x_t]
+    if zi is not None:
+        zi = _check_state(zi, (B, nsec, 2, ch), 'zi')
+        tensors.append(zi)
+    if _device_kind(*tensors) == 'cpu':
+        return sosfilt_batch_plain(coeffs, x_t, tail=tail, zi=zi,
+                                   return_state=return_state)
     out = torch.empty((tail, B, ch), dtype=torch.float32, device=x_t.device)
+    zf = (torch.empty((B, nsec, 2, ch), dtype=torch.float32,
+                      device=x_t.device) if return_state else None)
     if B * ch == 0:
-        return out
+        return (out, zf) if return_state else out
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
     coeffs = _columns_contiguous(coeffs)
     code = lib.sosfilt_batch_launch(
         coeffs.data_ptr(), *coeffs.stride()[:3], x_t.data_ptr(),
-        *x_t.stride(), out.data_ptr(), nsec, B, ch, L, tail,
+        *x_t.stride(), out.data_ptr(),
+        None if zi is None else zi.data_ptr(),
+        None if zf is None else zf.data_ptr(), nsec, B, ch, L, tail,
         _stream(x_t.device))
     _build.check(code, 'sosfilt_batch')
     LAUNCHES['batch'] += 1
-    return out
+    return (out, zf) if return_state else out

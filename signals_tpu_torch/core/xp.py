@@ -78,6 +78,12 @@ class TorchXP:
     def maximum(self, a, b):
         return torch.maximum(*self._pair(a, b))
 
+    def minimum(self, a, b):
+        return torch.minimum(*self._pair(a, b))
+
+    def abs(self, x):
+        return torch.abs(x)
+
     def clip(self, x, lo, hi):
         return torch.clamp(self._t(x), lo, hi)
 

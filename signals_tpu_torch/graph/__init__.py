@@ -33,13 +33,16 @@ from signals_tpu_torch.core.state import (
     BadStateValue,   # noqa: F401  (re-exported via __all__)
     Param,
     State,
+    all_of,
+    ge,
     instance_of,
 )
 from signals_tpu_torch import registry as _registry
 from signals_tpu_torch.core.xp import NP
 
 __all__ = [
-    'Signal', 'Emitter', 'Receiver', 'port', 'ImplicitChannels',
+    'Signal', 'Emitter', 'Receiver', 'port', 'ExplicitChannels',
+    'ImplicitChannels',
     'BlockCachingEmitter', 'StatefulEmitter', 'KernelCtx', 'PullCtx',
     'CycleError', 'BadChannels', 'Param', 'State', 'BadStateValue',
     'BadStateSchema',
@@ -381,6 +384,14 @@ class Receiver(Signal, abc.ABC):
 # --- channel policy ----------------------------------------------------------
 
 
+class ExplicitChannels(Signal, abc.ABC):
+    """Channel count held in the node's state (a delay line: channel
+    inference through a feedback cycle would not terminate)."""
+
+    class State(Signal.State):
+        channels: int = Param(1, validate=all_of(instance_of(int), ge(1)))
+
+
 class ImplicitChannels(Receiver, Emitter, abc.ABC):
     """Channel count inferred from inputs: the set of input channel counts,
     broadcast-1 discarded, must be a singleton
@@ -453,8 +464,8 @@ class StatefulEmitter(BlockCachingEmitter, abc.ABC):
     context); these are new capability.  Protocol: ``init_carry`` builds the
     state pytree; ``step(ctx, carry) -> (block, carry)`` advances one block.
     In the pull engine, blocks must be requested in monotonic order (the
-    block cache serves re-requests and context sub-windows).  The port's
-    compiler lowers only carry-free nodes so far (``is_grid_stateless``).
+    block cache serves re-requests and context sub-windows); the compiler
+    threads the carry through its renders as a dict of tensors.
     """
 
     def is_stateful(self) -> bool:

@@ -1,6 +1,7 @@
 """Effects and filters (``signals_tpu.nodes.fx``).
 
-Elementwise effects (Mix/RingMod/Gain) lower to eager tensor ops.  The
+Elementwise effects (Mix/RingMod/Gain/Amp/Drive) lower to eager tensor ops.
+The
 critically-tuned Butterworth filters (LowPass, HighPass, BandPass,
 BandStop) keep the reference's *stateless
 context-window* semantics — re-pull context frames, filter from zero
@@ -10,7 +11,10 @@ across multi-block segments (:meth:`CritFilter.swept_carry_m`).  In the
 compiler the cascade runs in the kernels of
 :mod:`signals_tpu_torch.compiler.kernels`: the segment kernels or the
 batched replay over multi-block windows, the timeline kernel for a
-per-block step and for context windows.
+per-block step and for context windows.  ``streaming=True`` filters are
+exact IIRs whose coupled-form state is carried from block to block: the
+carried-state kernel per step, and per multi-block window one batched
+launch plus a scan of the blocks' state maps (:meth:`CritFilter.mega_step`).
 """
 
 from __future__ import annotations
@@ -75,14 +79,68 @@ class Gain(BinaryEffect):
         return ctx.in_('left') * ctx.in_block_rate('right')
 
 
+@register('signals.chain.fx.Amp')
+class Amp(BinaryEffect):
+    """Signed power: ``sign(L) * |L| ** R`` with the exponent at block
+    rate (finite for negative L and fractional R)."""
+
+    def kernel(self, ctx: KernelCtx):
+        xp = ctx.xp
+        x = ctx.in_('left')
+        exp = ctx.in_block_rate('right')
+        return xp.sign(x) * xp.abs(x) ** exp
+
+
+@register()
+class Drive(Effect):
+    """Soft saturation: ``tanh(input * drive) / tanh(drive)`` with the
+    drive amount at block rate (normalized so unity passes through at low
+    drive).  The saturator is :func:`~signals_tpu_torch.core.mathx.
+    tanh_exact`: a library ``tanh`` differs between engines by an ulp or
+    two, which a feedback loop re-injects on every pass."""
+
+    input: Receiver.BoundPort = port('input')
+    drive: Receiver.BoundPort = port('drive')
+
+    def kernel(self, ctx: KernelCtx):
+        from signals_tpu_torch.core.mathx import tanh_exact
+        xp = ctx.xp
+        x = ctx.in_('input')
+        d = xp.maximum(ctx.in_block_rate('drive'), F32(1e-3))
+        return tanh_exact(xp, x * d) / tanh_exact(xp, d)
+
+
+def _rotation_scan(m):
+    """Inclusive scan along axis 1 of the affine maps ``z -> P z + d`` with
+    ``P`` a scaled rotation: ``m`` is ``(4, n, ch)`` = (Pc, Ps, d1, d2),
+    row ``i`` of the result the composition of maps ``0..i`` (newest applied
+    last), in log2(n) Hillis-Steele steps — the counterpart of the JAX
+    package's ``associative_scan`` in :meth:`CritFilter.mega_step` (another
+    association order: equal to f32 rounding)."""
+    n = m.shape[1]
+    d = 1
+    while d < n:
+        oac, oas, od1, od2 = m[:, :-d]
+        nac, nas, nd1, nd2 = m[:, d:]
+        comp = torch.stack([nac * oac - nas * oas,
+                            nas * oac + nac * oas,
+                            nac * od1 - nas * od2 + nd1,
+                            nas * od1 + nac * od2 + nd2])
+        m = torch.cat([m[:, :d], comp], dim=1)
+        d *= 2
+    return m
+
+
 class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
     """Critically-tuned order-2 Butterworth filtering.
 
     Filtering is a pure function of the last ``context_frames() +
     nframes`` input frames (state recomputed from a bounded context window
     every block), with coefficients recomputed per block from the cutoff
-    signal.  ``streaming=True`` (exact carried-state IIR) runs in the pull
-    engine only; the port's compiler does not lower it yet.
+    signal.  ``streaming=True`` switches to **exact IIR**: the filter state
+    is carried across blocks instead of recomputed from context — no
+    window approximation, at the cost of position-dependent state (a seek
+    resets it).
     """
 
     input: Receiver.BoundPort = port('input')
@@ -123,6 +181,106 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
                                 (ctx.nframes, self.channels))
         y, zf = ctx.sosfilt_stream(coeffs, x, carry['zi'])
         return y, {'zi': zf}
+
+    @property
+    def supports_mega_step(self) -> bool:
+        """Streaming filters render a whole multi-block window without a
+        block loop (:meth:`mega_step`)."""
+        return self._state.streaming
+
+    def mega_step(self, ctx, carry: dict):
+        """Exact streaming IIR over a window of ``nb`` whole blocks, no
+        block loop (the JAX package's algorithm).
+
+        With per-block coefficients, block ``b`` maps the incoming state by
+        ``z' = A_b^F z + zf_b`` where ``zf_b`` is the block's zero-state end
+        state — affine maps composed across blocks by one scan.  The
+        per-frame output correction for an incoming state is ``y[k] += d1
+        s1m[k] + d2 s2m[k]`` with ``(s1m, s2m) = A_b^k z_b`` in closed form
+        (the coupled-form transition is a scaled rotation, ``A^k = rho^k
+        Rot(k theta)``), the powers in float64 so that large ``k theta``
+        stay accurate at any cutoff.  Band filters run the algorithm once
+        per section, each fed the previous section's corrected output.
+
+        The zero-state filtering of all blocks and their end states is ONE
+        :func:`~signals_tpu_torch.compiler.kernels.sosfilt_batch` call per
+        section over ``nb`` non-overlapping windows of ``F`` rows, read in
+        place.
+
+        Static crits (:meth:`crits_static`) design the same coefficients
+        for every block, so the window is one run of the carried-state
+        cascade: ONE :func:`~signals_tpu_torch.compiler.kernels.
+        sosfilt_stream` call over all ``nb*F`` rows, all sections, and no
+        scan or correction."""
+        F_, nb = ctx.block_grid
+        nyquist = ctx.rate_f32 * F32(0.5)
+        x = ctx.in_('input')                           # (nb*F, ch_in)
+        if self.crits_static():
+            crits = tuple(g[:1] for g in self._crits_grid(ctx))
+            coeffs = _filters.design_coupled(ctx.xp, self.type_code(), crits,
+                                             nyquist)
+            ch = max(x.shape[1], coeffs.shape[1], self.channels)
+            y, zf = ctx.sosfilt_stream(
+                coeffs, torch.broadcast_to(x, (nb * F_, ch)), carry['zi'])
+            return y, {'zi': zf}
+        co = self._block_coeffs(ctx, nb, nyquist)      # (nb, nsec, chs, 11)
+        ch = max(x.shape[1], co.shape[2], self.channels)
+        y = torch.broadcast_to(x, (nb * F_, ch)).reshape(nb, F_, ch)
+        zi = carry['zi']
+        zfs = []
+        for s in range(co.shape[1]):
+            cs = torch.broadcast_to(co[:, s:s + 1], (nb, 1, ch, 11))
+            y, zf_s = self._mega_step_section(cs, y, zi[s], F_, nb, ch)
+            zfs.append(zf_s)
+        return y.reshape(nb * F_, ch), {'zi': torch.stack(zfs)}
+
+    @staticmethod
+    def _mega_step_section(co, xb, zi_s, F_, nb, ch):
+        """One section of :meth:`mega_step`: ``xb`` (nb, F, ch) input
+        blocks, ``co`` (nb, 1, ch, 11) per-block coefficients, ``zi_s``
+        (2, ch0) incoming coupled-form state.  Returns ``(y (nb, F, ch),
+        zf (2, ch))``."""
+        from signals_tpu_torch.compiler.kernels import sosfilt_batch
+        # 1. zero-state filtering per block, with each block's end state
+        yt, zf = sosfilt_batch(co, xb.permute(1, 0, 2), tail=F_,
+                               return_state=True)
+        y0 = yt.permute(1, 0, 2)                        # (nb, F, ch)
+        rc, rs = co[:, 0, :, 6], co[:, 0, :, 7]         # (nb, ch)
+        d1, d2 = co[:, 0, :, 9], co[:, 0, :, 10]
+
+        # 2. A_b^F by square-and-multiply, then the affine scan over blocks
+        pc, ps = torch.ones_like(rc), torch.zeros_like(rs)
+        bc, bs = rc, rs
+        n = F_
+        while n:
+            if n & 1:
+                pc, ps = pc * bc - ps * bs, ps * bc + pc * bs
+            n >>= 1
+            if n:
+                bc, bs = bc * bc - bs * bs, 2 * bc * bs
+        Pc, Ps, D1, D2 = _rotation_scan(
+            torch.stack([pc, ps, zf[:, 0, 0], zf[:, 0, 1]]))
+        zi1 = torch.broadcast_to(zi_s[0], (ch,))
+        zi2 = torch.broadcast_to(zi_s[1], (ch,))
+        Z1 = Pc * zi1 - Ps * zi2 + D1                   # (nb, ch)
+        Z2 = Ps * zi1 + Pc * zi2 + D2
+        z_in1 = torch.cat([zi1[None], Z1[:-1]])
+        z_in2 = torch.cat([zi2[None], Z2[:-1]])
+
+        # 3. per-frame correction: (s1m, s2m)[b, k] = A_b^k z_in[b]
+        rc64, rs64 = rc.to(torch.float64), rs.to(torch.float64)
+        rho = torch.sqrt(rc64 ** 2 + rs64 ** 2)
+        theta = torch.atan2(rs64, rc64)
+        k = torch.arange(F_, dtype=torch.float64,
+                         device=rc.device)[None, :, None]
+        mag = torch.exp(k * torch.log(torch.clamp(rho, min=1e-300))[:, None])
+        ang = k * theta[:, None]
+        ck = (mag * torch.cos(ang)).to(torch.float32)   # (nb, F, ch)
+        sk = (mag * torch.sin(ang)).to(torch.float32)
+        s1m = ck * z_in1[:, None] - sk * z_in2[:, None]
+        s2m = sk * z_in1[:, None] + ck * z_in2[:, None]
+        y = y0 + d1[:, None] * s1m + d2[:, None] * s2m
+        return y, torch.stack([Z1[-1], Z2[-1]])
 
     def context_frames(self) -> int:
         return 0 if self._state.streaming else self._state.context

@@ -118,9 +118,11 @@ class PolyPatch:
         return self.compiled.params(), None
 
     def render_fn(self, n_blocks: int):
-        """``(params, position0) -> mix (n_blocks, F, out_ch)`` on the
-        mix-epilogue plan when enabled and eligible, else the plain plan
-        (cached per batch size)."""
+        """``(params, carry, position0) -> (mix (n_blocks, F, out_ch),
+        carry')`` on the mix-epilogue plan when enabled and eligible (a
+        carry-free patch: the carry passes through), else the plan
+        :meth:`~signals_tpu_torch.compiler.CompiledPatch.render_core`
+        picks, summed over the voices (cached per batch size)."""
         if n_blocks in self._render_cache:
             return self._render_cache[n_blocks]
         compiled = self.compiled
@@ -128,29 +130,35 @@ class PolyPatch:
         out_ch = self._out_channels
         mixplan = compiled.mega_mix(n_blocks) if self._mix_epilogue else None
         if mixplan is not None:
-            def render(params, position0):
+            def render(params, carry, position0):
                 mix = mixplan(params, position0)            # (n, F, 1)
-                return torch.broadcast_to(mix, (n_blocks, F, out_ch))
+                return torch.broadcast_to(mix, (n_blocks, F, out_ch)), carry
         else:
-            whole = compiled.mega_core(n_blocks)
+            whole = compiled.render_core(n_blocks)
 
-            def render(params, position0):
-                blocks = whole(params, position0)           # (n, F, V)
+            def render(params, carry, position0):
+                blocks, carry2 = whole(params, carry, position0)  # (n, F, V)
                 mix = blocks.sum(dim=2, keepdim=True)
-                return torch.broadcast_to(mix, (n_blocks, F, out_ch))
+                return (torch.broadcast_to(mix, (n_blocks, F, out_ch)),
+                        carry2)
 
         self._render_cache[n_blocks] = render
         return render
 
     def render(self, *, position: int = 0, n_blocks: int = 1,
-               params: typing.Optional[dict] = None):
-        """Render the master mix: audio ``(n*F, out_ch)`` on the device.
-        ``params`` defaults to the live graph's (:meth:`params`); pass
-        e.g. :func:`signals_tpu_torch.interop.params_from_jax` output to
-        replay another engine's values."""
+               params: typing.Optional[dict] = None,
+               carry: typing.Optional[dict] = None):
+        """Render the master mix: ``(audio (n*F, out_ch), carry')`` on the
+        device.  ``params`` defaults to the live graph's (:meth:`params`);
+        pass e.g. :func:`signals_tpu_torch.interop.params_from_jax` output
+        to replay another engine's values.  ``carry`` defaults to the
+        compiled patch's ``carry0`` (empty for a carry-free voice); pass a
+        returned carry to continue a render."""
         self.compiled.check_position(position, n_blocks)
         if params is None:
             params, _ = self.params()
-        mix = self.render_fn(n_blocks)(params, position)
+        if carry is None:
+            carry = self.compiled.carry0
+        mix, carry2 = self.render_fn(n_blocks)(params, carry, position)
         F = self.compiled.block_frames
-        return mix.reshape(n_blocks * F, self._out_channels)
+        return mix.reshape(n_blocks * F, self._out_channels), carry2

@@ -97,6 +97,7 @@ _NODE_MODULES = (
     'signals_tpu_torch.nodes.fx',
     'signals_tpu_torch.nodes.fixed',
     'signals_tpu_torch.nodes.env',
+    'signals_tpu_torch.nodes.delay',
 )
 
 _loaded = False

@@ -23,7 +23,10 @@ class Transport:
 
     ``consumer(block, position)`` is called with each rendered ``(F, ch)``
     float32 numpy block, in order, from the render thread.  A batch is
-    rendered on the patch's device and copied off it once.
+    rendered on the patch's device and copied off it once.  The patch's
+    carried state (delay lines, streaming filters) stays on the device and
+    is threaded from batch to batch; a seek, or a swap to another program,
+    starts again from the program's ``carry0``.
 
     After a seek to a block off a carry-segment boundary (swept-cutoff
     filters, :attr:`~signals_tpu_torch.compiler.CompiledPatch.
@@ -54,6 +57,8 @@ class Transport:
         self.stats = LatencyStats()
         #: the exception that stopped the stream, if any
         self.error: typing.Optional[BaseException] = None
+        #: the carry after the last batch (None: start from ``carry0``)
+        self._carry: typing.Optional[dict] = None
         self._thread: typing.Optional[threading.Thread] = None
         self._running = threading.Event()
         self._lock = threading.Lock()
@@ -71,10 +76,11 @@ class Transport:
 
     def warmup(self) -> None:
         """Build the kernels before the clock starts (a first-call build
-        would burn seconds of the realtime budget and underrun at once)."""
+        would burn seconds of the realtime budget and underrun at once).
+        Renders from ``carry0`` and keeps neither audio nor carry."""
         with self._lock:
             self.compiled.render(position=self.position,
-                                 n_blocks=self.blocks_per_call).cpu()
+                                 n_blocks=self.blocks_per_call)[0].cpu()
 
     def start(self) -> None:
         if self.is_active:
@@ -93,6 +99,7 @@ class Transport:
     def seek(self, position: int) -> None:
         with self._lock:
             self.position = position
+            self._carry = None  # carried state is position-dependent
 
     def tell(self) -> int:
         return self.position
@@ -102,8 +109,9 @@ class Transport:
         the lock."""
         start = self.position
         t0 = time.perf_counter()
-        audio = self.compiled.render(position=start,
-                                     n_blocks=n_blocks).cpu().numpy()
+        audio, self._carry = self.compiled.render(
+            position=start, n_blocks=n_blocks, carry=self._carry)
+        audio = audio.cpu().numpy()
         per_block = (time.perf_counter() - t0) / n_blocks
         for _ in range(n_blocks):
             self.stats.record(per_block)
@@ -154,7 +162,7 @@ class Transport:
         def warm():
             import traceback
             try:
-                new.render(position=pos, n_blocks=nb).cpu()
+                new.render(position=pos, n_blocks=nb)[0].cpu()
             except Exception:           # surfaced when the swap renders
                 traceback.print_exc()
             finally:
@@ -181,6 +189,7 @@ class Transport:
                 if self._pending is not None and self._pending[1].is_set():
                     with self._lock:
                         self.compiled = self._pending[0]
+                        self._carry = None
                     self._pending = None
                     self.last_swap_time = time.monotonic()
                 n = self.render_ahead()

@@ -33,9 +33,13 @@ def test_port_imports_no_jax():
 
 def test_registry_keeps_reference_qualnames():
     from signals_tpu_torch.registry import load_signal
-    from signals_tpu_torch.nodes import fx, osc
+    from signals_tpu_torch.nodes import delay, fx, osc
     assert load_signal('signals.chain.osc.Sine') is osc.Sine
     assert load_signal('signals.chain.fx.LowPass') is fx.LowPass
+    assert load_signal('signals.chain.fx.Amp') is fx.Amp
+    # Drive and Delay have no reference counterpart: their own names only
+    assert load_signal('signals_tpu_torch.nodes.fx.Drive') is fx.Drive
+    assert load_signal('signals_tpu_torch.nodes.delay.Delay') is delay.Delay
     for name in ('HighPass', 'BandPass', 'BandStop'):
         assert load_signal(f'signals.chain.fx.{name}') is getattr(fx, name)
     assert osc.Sawtooth.cls_name() == 'signals_tpu_torch.nodes.osc.Sawtooth'

@@ -16,9 +16,11 @@ The ``cuda`` cases compare each CUDA kernel with its plain version on a
 GPU (same tolerances) — every kernel at the edges of its time-sliced scan
 (:data:`SEGMENT_EDGES`, :data:`BATCH_EDGES`, :data:`TIMELINE_EDGES`, poles
 near the unit circle), lane groups wider than the kernel's summed
-subgroups, views read in place and the same call twice bit for bit — and
-render a 1024-voice flagship through the mix plan; they skip without a
-GPU.  JAX is imported inside the JAX comparisons, so the card cases run on
+subgroups, views read in place and the same call twice bit for bit, the
+carried-state entry (a start state in, the end state out, at 1-4 sections,
+a window cut into two calls, null states bit for bit the zero-state call)
+— and render a 1024-voice flagship through the mix plan; they skip without
+a GPU.  JAX is imported inside the JAX comparisons, so the card cases run on
 a machine without JAX, from the repository root:
 ``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
 """
@@ -648,11 +650,12 @@ def test_cuda_1024_voice_flagship_mix_plan(cuda_device):
     mix_plan = poly()
     assert mix_plan.compiled.mega_mix(nb) is not None
     K.reset_launch_counts()
-    got = mix_plan.render(n_blocks=nb)
+    got, carry = mix_plan.render(n_blocks=nb)
+    assert carry == {}
     torch.cuda.synchronize()
     assert K.LAUNCHES == {'segments_gen': 1, 'segments': 0, 'batch': 0,
-                          'timeline': 0}
-    want = poly(mix_epilogue=False).render(n_blocks=nb)
+                          'timeline': 0, 'stream': 0}
+    want, _ = poly(mix_epilogue=False).render(n_blocks=nb)
     assert got.shape == (nb * cs.F, 1) and bool(torch.isfinite(got).all())
     assert float(want.abs().max()) > 0.1
     assert float((got - want).abs().max()) <= V * TOL
@@ -818,3 +821,119 @@ def test_cuda_zero_state_views_in_place(cuda_device):
     assert torch.equal(got, K.sosfilt_timeline(co[0],
                                                 xt[:C + F:3].contiguous()))
     assert torch.equal(got, K.sosfilt_timeline(co[0], xt[:C + F:3]))
+
+
+def state_err(got, want):
+    """Max-abs error of a coupled-form state against its plain version, in
+    units of the state's scale (a low cutoff's state is many times its
+    input: ~1/(1 - |pole|))."""
+    return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', list(TIMELINE_EDGES))
+@pytest.mark.parametrize('nsec', [1, 2, 3, 4])
+def test_cuda_stream_matches_plain(cuda_device, nsec, case):
+    """The carried-state entry over one window at each edge of the scan and
+    every section count: ``y`` within 1e-5 and ``zf`` within 1e-5 of its
+    scale of the frame loop, one launch; the window cut into two calls (off
+    the slice grid) continues to the same rows and end state."""
+    n, ch = TIMELINE_EDGES[case]
+    rng = np.random.default_rng(70 + nsec
+                                + 10 * list(TIMELINE_EDGES).index(case))
+    co, x, zi = (t(a).to(cuda_device) for a in (
+        cascade_windows(rng, 1, ch, nsec)[0],
+        rng.standard_normal((n, ch)).astype(np.float32),
+        rng.standard_normal((nsec, 2, ch)).astype(np.float32)))
+    K.reset_launch_counts()
+    y, zf = K.sosfilt_stream(co, x, zi)
+    assert K.LAUNCHES['stream'] == 1 and K.LAUNCHES['timeline'] == 0
+    wy, wzf = (a.to(cuda_device) for a in K.sosfilt_stream_plain(
+        co.cpu(), x.cpu(), zi.cpu()))
+    assert y.shape == (n, ch) and zf.shape == (nsec, 2, ch)
+    assert float((y - wy).abs().max()) <= TOL
+    assert state_err(zf, wzf) <= TOL
+    cut = n // 3 + 5
+    ya, za = K.sosfilt_stream(co, x[:cut], zi)
+    yb, zb = K.sosfilt_stream(co, x[cut:], za)
+    assert float((torch.cat([ya, yb]) - y).abs().max()) <= TOL
+    assert state_err(zb, zf) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['render_ahead', 'ragged_tail77',
+                                  'L31_one_slice', 'tail1'])
+@pytest.mark.parametrize('nsec', [1, 2, 3, 4])
+def test_cuda_batch_state_matches_plain(cuda_device, nsec, case):
+    """K3 with a start state per window and the end states returned."""
+    L, B, ch, tail = BATCH_EDGES[case]
+    rng = np.random.default_rng(80 + nsec + 10 * list(BATCH_EDGES).index(case))
+    co, x, zi = (t(a).to(cuda_device) for a in (
+        cascade_windows(rng, B, ch, nsec),
+        rng.standard_normal((L, B, ch)).astype(np.float32),
+        rng.standard_normal((B, nsec, 2, ch)).astype(np.float32)))
+    K.reset_launch_counts()
+    y, zf = K.sosfilt_batch(co, x, tail=tail, zi=zi, return_state=True)
+    assert K.LAUNCHES['batch'] == 1
+    wy, wzf = (a.to(cuda_device) for a in K.sosfilt_batch_plain(
+        co.cpu(), x.cpu(), tail=tail, zi=zi.cpu(), return_state=True))
+    assert y.shape == (tail, B, ch) and zf.shape == (B, nsec, 2, ch)
+    assert float((y - wy).abs().max()) <= TOL
+    assert state_err(zf, wzf) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('nsec', [1, 2, 3, 4])
+def test_cuda_null_state_is_the_zero_state_call(cuda_device, nsec):
+    """Without ``zi`` and ``zf`` the kernel is the zero-state kernel it was:
+    a zero ``zi`` gives the bits of no ``zi``, and asking for the end state
+    changes no output bit — at the step, render-ahead and one-slice
+    shapes."""
+    rng = np.random.default_rng(90 + nsec)
+    for n, ch in ((1152, 16), (1152, 1), (31, 2)):
+        co, x = (t(a).to(cuda_device) for a in (
+            cascade_windows(rng, 1, ch, nsec)[0],
+            rng.standard_normal((n, ch)).astype(np.float32)))
+        want = K.sosfilt_timeline(co, x)
+        zero = torch.zeros((nsec, 2, ch), device=cuda_device)
+        assert torch.equal(K.sosfilt_stream(co, x, zero)[0], want)
+    for L, B, ch, tail in (BATCH_EDGES['render_ahead'],
+                           BATCH_EDGES['L31_one_slice']):
+        co, x = (t(a).to(cuda_device) for a in (
+            cascade_windows(rng, B, ch, nsec),
+            rng.standard_normal((L, B, ch)).astype(np.float32)))
+        want = K.sosfilt_batch(co, x, tail=tail)
+        zero = torch.zeros((B, nsec, 2, ch), device=cuda_device)
+        assert torch.equal(K.sosfilt_batch(co, x, tail=tail, zi=zero), want)
+        y, zf = K.sosfilt_batch(co, x, tail=tail, return_state=True)
+        assert torch.equal(y, want) and bool(torch.isfinite(zf).all())
+
+
+@pytest.mark.cuda
+def test_cuda_state_views_in_place(cuda_device):
+    """The carried-state entry reads views in place: the blocks of one
+    timeline as non-overlapping windows (``mega_step``'s permuted view), a
+    strided timeline, a broadcast channel and a one-channel state give the
+    bits of their contiguous copies."""
+    rng = np.random.default_rng(95)
+    F, nb, ch = 1024, 16, 8
+    xb = t(rng.standard_normal((nb, F, ch)).astype(np.float32)).to(cuda_device)
+    co = t(cascade_windows(rng, nb, ch, 1)).to(cuda_device)
+    zi = t(rng.standard_normal((nb, 1, 2, ch)).astype(np.float32)).to(
+        cuda_device)
+    view = xb.permute(1, 0, 2)
+    assert not view.is_contiguous()
+    y, zf = K.sosfilt_batch(co, view, tail=F, zi=zi, return_state=True)
+    wy, wzf = K.sosfilt_batch(co, view.contiguous(), tail=F, zi=zi,
+                              return_state=True)
+    assert torch.equal(y, wy) and torch.equal(zf, wzf)
+    x = xb.reshape(nb * F, ch)
+    co1, z1 = co[0], zi[0]
+    y, zf = K.sosfilt_stream(co1, x[:3 * F:3], z1)
+    wy, wzf = K.sosfilt_stream(co1, x[:3 * F:3].contiguous(), z1)
+    assert torch.equal(y, wy) and torch.equal(zf, wzf)
+    mono = x[:F, :1].expand(F, ch)
+    y, zf = K.sosfilt_stream(co1, mono, z1[:, :, :1])
+    wy, wzf = K.sosfilt_stream(co1, mono.contiguous(),
+                               z1[:, :, :1].expand(1, 2, ch).contiguous())
+    assert torch.equal(y, wy) and torch.equal(zf, wzf)

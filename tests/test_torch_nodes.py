@@ -67,7 +67,7 @@ def test_oscillators_bit_exact_vs_jax_pull(name):
                     nb, F, 5)
     compiled = CompiledPatch(build('signals_tpu_torch'), block_frames=F,
                              rate=RATE, channels=5, device='cpu')
-    got = compiled.render(position=pos, n_blocks=nb).numpy()
+    got = compiled.render(position=pos, n_blocks=nb)[0].numpy()
     assert np.array_equal(got_pull, want)
     assert np.array_equal(got, want)
 
@@ -159,7 +159,7 @@ def test_butterworth_family_pull_matches_jax_pull(name, swept):
                                                 swept),
                              block_frames=F, rate=RATE, channels=3,
                              device='cpu')
-    rendered = compiled.render(position=start * F, n_blocks=nb).numpy()
+    rendered = compiled.render(position=start * F, n_blocks=nb)[0].numpy()
     assert np.abs(rendered - np.asarray(jax_out)).max() <= 1e-5
 
 
@@ -187,7 +187,7 @@ def test_adsr_grid_lowering_matches_jax(gate_hz, channels):
     want, _ = jc.render(position=8 * F, n_blocks=nb)
     got = CompiledPatch(build('signals_tpu_torch'), block_frames=F,
                         rate=RATE, channels=channels, device='cpu').render(
-        position=8 * F, n_blocks=nb).numpy()
+        position=8 * F, n_blocks=nb)[0].numpy()
     want = np.asarray(want)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1e-6

@@ -154,16 +154,18 @@ def test_mono_voice_matches_jax_and_oracle(mono_ref, path):
                             rate=RATE, channels=1, device='cpu')
     assert compiled.carry_seg_align == 8
     if path == 'render':
-        got = compiled.render(position=0, n_blocks=24)
+        got, carry = compiled.render(position=0, n_blocks=24)
+        assert carry == {}
         want = mono_ref['oracle']
     elif path == 'step':
         params = compiled.params()
-        got = torch.cat([compiled.step(params, i * F) for i in range(24)])
+        got = torch.cat([compiled.step(params, {}, i * F)[0]
+                         for i in range(24)])
         want = mono_ref['oracle']
     else:
         # a start off the 8-block segment grid: the window widens back to
         # the segment start instead of raising
-        got = compiled.render(position=3 * F, n_blocks=13)
+        got, _ = compiled.render(position=3 * F, n_blocks=13)
         want = mono_ref['oracle'][3 * F:16 * F]
     got = got.numpy()
     assert got.shape == want.shape and np.isfinite(got).all()
@@ -197,7 +199,7 @@ def test_transport_realigns_after_unaligned_seek():
     assert starts == [3 * F, 8 * F, 16 * F, 24 * F]
     assert starts[1] % (8 * F) == 0
     assert positions[:24] == [(3 + i) * F for i in range(24)]
-    want = compiled.render(position=3 * F, n_blocks=24).numpy()
+    want = compiled.render(position=3 * F, n_blocks=24)[0].numpy()
     assert np.abs(audio - want).max() <= 1e-6
     assert tr.stats.total_blocks == 29
 
@@ -267,7 +269,8 @@ def test_nested_pair_step_matches_jax():
     compiled = compile_node(nested_pair('signals_tpu_torch'), block_frames=F,
                             rate=RATE, channels=2, device='cpu')
     params = compiled.params()
-    got = torch.cat([compiled.step(params, p) for p in positions]).numpy()
+    got = torch.cat([compiled.step(params, {}, p)[0]
+                     for p in positions]).numpy()
     assert got.shape == want.shape == (3 * F, 2)
     assert np.abs(got - want).max() <= TOL
     assert np.abs(want).max() > 0.05

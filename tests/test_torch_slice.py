@@ -108,7 +108,9 @@ def test_port_slice_matches_jax_render_and_oracle(jax_ref, gen,
     poly, _ = port_poly(mix_epilogue=mix_epilogue)
     params = params_from_jax(jparams, 'cpu')
     assert params.keys() == poly.params()[0].keys()   # same uid scheme
-    got = poly.render(n_blocks=NB, params=params).numpy()
+    got, carry = poly.render(n_blocks=NB, params=params)
+    assert carry == {}                 # the flagship carries no state
+    got = got.numpy()
     assert got.shape == (NB * F, 1) and np.isfinite(got).all()
     assert np.abs(got - jmix).max() <= TOL
     assert np.abs(got - oracle).max() <= TOL
@@ -124,24 +126,24 @@ def test_unaligned_start_raises():
     poly, _ = port_poly()
     with pytest.raises(ValueError, match='block size'):
         poly.render(position=F // 2, n_blocks=8)
-    aligned = poly.render(position=0, n_blocks=8)
-    unaligned = poly.render(position=3 * F, n_blocks=2)
+    aligned, _ = poly.render(position=0, n_blocks=8)
+    unaligned, _ = poly.render(position=3 * F, n_blocks=2)
     assert unaligned.shape == (2 * F, 1)
     assert float((unaligned - aligned[3 * F:5 * F]).abs().max()) <= 1e-6
-    a = poly.render(position=8 * F, n_blocks=8)
+    a, _ = poly.render(position=8 * F, n_blocks=8)
     assert a.shape == (8 * F, 1)
 
 
 def test_set_override_edits_without_recompile():
     poly, hz = port_poly()
     compiled = poly.compiled
-    before = poly.render(n_blocks=8)
+    before, _ = poly.render(n_blocks=8)
     poly.set_override(hz, 'value', freqs(base=220.0))
-    after = poly.render(n_blocks=8)
+    after, _ = poly.render(n_blocks=8)
     assert poly.compiled is compiled
     fresh, fhz = port_poly()
     fresh.set_override(fhz, 'value', freqs(base=220.0))
-    assert torch.equal(after, fresh.render(n_blocks=8))
+    assert torch.equal(after, fresh.render(n_blocks=8)[0])
     assert not torch.equal(before, after)
 
 
@@ -174,9 +176,9 @@ def test_filter_outside_block_windows_raises():
                           channels=1).render(position=8 * F, n_blocks=8)
     compiled = CompiledPatch(patch('signals_tpu_torch'), block_frames=F,
                              rate=RATE, channels=1, device='cpu')
-    got = compiled.render(position=8 * F, n_blocks=8).numpy()
+    got = compiled.render(position=8 * F, n_blocks=8)[0].numpy()
     params = compiled.params()
-    steps = torch.cat([compiled.step(params, (8 + i) * F)
+    steps = torch.cat([compiled.step(params, {}, (8 + i) * F)[0]
                        for i in range(8)]).numpy()
     want = np.asarray(want)
     assert np.abs(want).max() > 0.01
