@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Five phases; any failure raises and exits non-zero:
+Six phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain and the card.
@@ -27,7 +27,11 @@ Five phases; any failure raises and exits non-zero:
    one window of (1024, 1) and (1024, 16) at 1 and 2 sections from a
    non-zero start state, 16 windows of 1024 rows with their end states, a
    1152-row window cut into two calls against one call (1e-6) — ``y``
-   within 1e-5 max-abs, the end state within 1e-5 of its scale.
+   within 1e-5 max-abs, the end state within 1e-5 of its scale; and the
+   timeline segment kernel at the noise voice's shape (64 lanes of static
+   cutoffs reading ONE noise channel in place, C = 256, 8-block segments,
+   sum of 64) over 256 and 2584 blocks, bit for bit against the same call
+   on the channel copied out to 64 lanes.
 3. **The flagship render**: the 64-voice swept-subtractive PolyPatch built
    from the port's nodes, rendered on the card for 256 blocks through the
    product default (generator + mix epilogue), the per-voice plan and the
@@ -66,6 +70,26 @@ Five phases; any failure raises and exits non-zero:
    coefficients: one batched launch with the blocks' end states, a scan of
    their state maps) read by a context LowPass at 8 channels, two 8-block
    windows (the second reads the first's output history).
+
+6. **The rest of the nine-check set** of the JAX package's record
+   (``BENCH_full.json`` ``parity_max_abs_err``; phases 3-5 hold
+   ``poly64_mix``, ``subtractive``, ``saturated_echo``), each at full
+   width with its launch counts reset just before it and checked just
+   after, its plan, wall and device time printed, against the port's numpy
+   pull oracle: (a) ``master_bus`` (``bench.py:256-278``: the swept mono
+   voice -> FDN reverb -> RMS compressor -> gain), 2584 blocks on the
+   whole-window plan with one generator-kernel launch, 1e-5 over the first
+   32 blocks, 13 + 19 blocks against them within 1e-6; (b)
+   ``poly64_noise_mix`` (``bench.py:168-188``: one white-noise channel ->
+   64 LowPass 1000-4000 Hz -> gain), 2584 blocks on the mix plan with one
+   timeline-kernel launch, 64 x 1e-5 over 32 blocks; (c) ``sine``
+   (``bench.py:57-65``), 43 blocks bit for bit, and ``render_vis``'s
+   ``(750, 2, 1)`` summary equal to the numpy summary of the oracle's
+   audio; (d) ``fm_delay`` at its ``Spec`` root (``bench.py:191-223``), 60 s
+   through the delay solver with no kernel launch, 1e-5, its 80 band
+   magnitudes within 1e-5 of the numpy summary's largest; (e) ``additive``
+   (``bench.py:68-84``) at 16 voices bit for bit and ``poly64_static_mix``
+   (``bench.py:131-162``) within 64 x 1e-5.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -221,10 +245,10 @@ def build_saturated_echo():
     return mix
 
 
-def build_fm_delay():
-    """bench c5 (``bench.py:191-223``) at the ``Mix`` under its ``Spec``
-    tap: a 3-operator FM stack -> Mix 0.6 with the return of a 4-block
-    Delay of the mix through Gain 0.45."""
+def build_fm_delay(spec=False):
+    """bench c5 (``bench.py:191-223``): a 3-operator FM stack -> Mix 0.6
+    with the return of a 4-block Delay of the mix through Gain 0.45; the
+    root is that ``Mix``, or with ``spec`` the ``Spec`` tap over it."""
     from signals_tpu_torch.nodes.delay import Delay
     from signals_tpu_torch.nodes.fx import Gain, Mix
     from signals_tpu_torch.nodes.osc import Sine
@@ -252,7 +276,97 @@ def build_fm_delay():
     mix.right = fb
     mix.mix = fixed(0.6)
     d.input = mix
-    return mix
+    if not spec:
+        return mix
+    from signals_tpu_torch.nodes.vis import Spec
+    tap = Spec()
+    tap.input = mix
+    return tap
+
+
+def build_static_poly_voice():
+    """The static-cutoff voice as ``bench.py:131-162`` has it, one pitch
+    node to override per voice: ``(root, hz)``."""
+    from signals_tpu_torch.nodes.fx import LowPass
+    from signals_tpu_torch.nodes.osc import Sawtooth
+    hz = fixed(110.0)
+    saw = Sawtooth()
+    saw.hertz = hz
+    lp = LowPass()
+    lp.input = saw
+    lp.cutoff = fixed(2000.0)
+    lp.get_state().context = LowPass.context_for(2000.0, RATE)
+    return envelope(lp, 1.0 / 64), hz
+
+
+NOISE_C = 256       # CritFilter.context_for(1000 Hz)
+NOISE_CUTS = np.linspace(1000.0, 4000.0, V).astype(np.float32)
+
+
+def build_noise_voice():
+    """bench's noise voice (``bench.py:168-188``): one ``White`` channel ->
+    LowPass (the cutoff overridden per voice) -> Gain 1/64: ``(root,
+    cutoff)``."""
+    from signals_tpu_torch.nodes.fx import CritFilter, Gain, LowPass
+    from signals_tpu_torch.nodes.noise import White
+    lp = LowPass()
+    lp.input = White()
+    cut = fixed(2000.0)
+    lp.cutoff = cut
+    lp.get_state().context = CritFilter.context_for(1000.0, RATE)
+    assert lp.get_state().context == NOISE_C
+    out = Gain()
+    out.left = lp
+    out.right = fixed(1.0 / 64)
+    return out, cut
+
+
+def build_sine_plot():
+    """bench c1 (``bench.py:57-65``): a 440 Hz sine under a ``Wave``."""
+    from signals_tpu_torch.nodes.osc import Sine
+    from signals_tpu_torch.nodes.vis import Wave
+    osc = Sine()
+    osc.hertz = fixed(440.0)
+    tap = Wave()
+    tap.input = osc
+    return tap
+
+
+def build_additive_voice():
+    """bench c2 (``bench.py:68-84``): a sine and a saw at one pitch -> Mix
+    0.5 -> Gain 1/16: ``(root, hz)``."""
+    from signals_tpu_torch.nodes.fx import Gain, Mix
+    from signals_tpu_torch.nodes.osc import Sawtooth, Sine
+    hz = fixed(220.0)
+    sine, saw = Sine(), Sawtooth()
+    sine.hertz = hz
+    saw.hertz = hz
+    m = Mix()
+    m.left = sine
+    m.right = saw
+    m.mix = fixed(0.5)
+    g = Gain()
+    g.left = m
+    g.right = fixed(1.0 / 16)
+    return g, hz
+
+
+def build_master_bus():
+    """bench c7 (``bench.py:256-278``): the swept mono voice -> Reverb ->
+    Compressor (window 2048, threshold 0.25, ratio 4) -> Gain 0.9."""
+    from signals_tpu_torch.nodes.dyn import Compressor
+    from signals_tpu_torch.nodes.fx import Gain
+    from signals_tpu_torch.nodes.reverb import Reverb
+    rv = Reverb()
+    rv.input = build_subtractive_voice()[0]
+    comp = Compressor()
+    st = comp.get_state()
+    st.window, st.threshold, st.ratio = 2 * F, 0.25, 4.0
+    comp.input = rv
+    out = Gain()
+    out.left = comp
+    out.right = fixed(0.9)
+    return out
 
 
 def build_streaming_into_context():
@@ -304,13 +418,13 @@ def device_ms(fn, reps, kernels):
     of ``kernels``, from a ``torch.profiler`` trace of ``reps`` calls
     (after one warmup call).  A trace that lost some of the calls' kernel
     events (their count is not a multiple of ``reps``) is taken again, up
-    to three times; None when no trace holds them all."""
+    to five times; None when no trace holds them all."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -321,6 +435,39 @@ def device_ms(fn, reps, kernels):
         if us and len(us) % reps == 0:
             return sum(us) / reps / 1e3
     return None
+
+
+def graph_ms(fn, reps):
+    """Milliseconds per call of ``fn`` on the card with no host in between:
+    ``reps`` calls captured in one CUDA graph, one replay timed by CUDA
+    events (after a warm replay).  The kernels run back to back, so this is
+    their device time plus the gaps between them (under 1 us each)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(fn, reps, kernels):
+    """``(ms, how)``: :func:`device_ms`, or where no trace held the
+    kernels' events :func:`graph_ms` (a little more: it counts the gaps
+    between the launches too)."""
+    ms = device_ms(fn, reps, kernels)
+    if ms is not None:
+        return ms, 'profiler'
+    return graph_ms(fn, reps), f'CUDA graph of {reps} calls, gaps included'
 
 
 def profiled(fn):
@@ -492,9 +639,78 @@ def phase_kernels():
         del cases
         torch.cuda.empty_cache()
 
+    noise_shape_kernel(rng, dev, card, results)
     zero_state_kernels(rng, dev, card, results)
     carried_state_kernels(rng, dev, card, results)
     return results
+
+
+def noise_shape_kernel(rng, dev, card, results):
+    """K2 at the noise voice's shape, against its plain version on ``dev``:
+    V lanes of static cutoffs (one coefficient set per 8-block segment)
+    reading ONE noise channel through a lane stride of 0, context NOISE_C,
+    the in-kernel sum of V, over N_BLOCKS and a 60 s render's blocks.  The
+    call on the channel copied out to V lanes (what a contiguous input
+    costs: the copy and V times the input bytes) must give the same bits.
+    Joins ``results['segments']``'s error and adds its ``noise_*`` keys."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
+    cuts = torch.as_tensor(NOISE_CUTS.reshape(1, V), device=dev)
+    co1 = design_coupled(TorchXP(dev), 'lp', (cuts,), np.float32(RATE / 2))
+    for nb in (N_BLOCKS, n_blocks_60s()):
+        n_seg = nb // M
+        co = torch.broadcast_to(co1[None], (n_seg, 1, V, 11))
+        x = torch.as_tensor(rng.uniform(0.0, 1.0, (NOISE_C + nb * F, 1))
+                            .astype(np.float32), device=dev)
+        geo = dict(n_segments=n_seg, seg_frames=M * F, context=NOISE_C,
+                   sum_groups=V)
+
+        def call():
+            return K.sosfilt_segments(co, x, **geo)
+
+        def copied():
+            return K.sosfilt_segments(co, x.expand(-1, V).contiguous(),
+                                      **geo)
+
+        got, want = call(), K.sosfilt_segments_plain(co, x, **geo)
+        rel = float((got - want).abs().max() / want.abs().max())
+        same = bool(torch.equal(got, copied()))
+        print(f'[kernels] segments, noise shape ({V} lanes on 1 channel, C '
+              f'{NOISE_C}, {n_seg} segments of {M} blocks, sum of {V}), '
+              f'{nb} blocks vs plain: max abs / max {rel!r} (tol {TOL}); '
+              f'same bits as the input copied out to {V} lanes: {same}')
+        assert got.shape == (n_seg, M * F, 1) and rel <= TOL and same, rel
+        del got, want
+        lane_rows = n_seg * V * (NOISE_C + M * F)
+        flops = lane_rows * (CASCADE_FLOP + 1)
+        nbytes = (co1.numel() + x.numel() + nb * F) * 4
+        b_ms, b_by = bound(flops, nbytes)
+        dms, how = kernel_device_ms(call, 5, SEG_KERNELS)
+        wide = x.expand(-1, V).contiguous()
+        cms, _ = kernel_device_ms(
+            lambda: K.sosfilt_segments(co, wide, **geo), 5, SEG_KERNELS)
+        del wide
+        ms = cuda_ms(call, 10)
+        copied_ms = cuda_ms(copied, 5)
+        print(f'[kernels] segments, noise shape, {nb} blocks: device '
+              f'{dms:.4f} ms ({how}; {cms:.4f} ms reading a {V}-lane copy), '
+              f'bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, '
+              f'{nbytes / 1e6:.1f} MB), share {b_ms / dms:.3f}; per call '
+              f'{ms:.4f} ms (CUDA events, wrapper included) against '
+              f'{copied_ms:.4f} ms making the copy first  [{card}]')
+        results['segments']['err'] = max(rel, results['segments']['err'])
+        if nb == N_BLOCKS:
+            plain_ms = cuda_ms(
+                lambda: K.sosfilt_segments_plain(co, x, **geo), 1)
+            print(f'[kernels] segments, noise shape, {nb} blocks: plain '
+                  f'{plain_ms:.1f} ms')
+            results['segments'].update(
+                noise_ms=dms, noise_call_ms=ms, noise_plain_ms=plain_ms,
+                noise_bound_ms=b_ms, noise_bound_by=b_by)
+        del x
+        torch.cuda.empty_cache()
 
 
 def zero_state_kernels(rng, dev, card, results):
@@ -564,20 +780,18 @@ def zero_state_kernels(rng, dev, card, results):
               f'abs {err!r} (tol {TOL})')
         assert torch.isfinite(got).all() and err <= TOL, err
         ms = cuda_ms(call, 50)
-        dev_ms = device_ms(call, 20, ('rows_cascade',))
+        dev_ms, how = kernel_device_ms(call, 20, ('rows_cascade',))
         plain_ms = cuda_ms(plain, 1)
         b_ms, b_by = bound(flops, nbytes)
-        dev_txt = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
-        share = 'not measured' if dev_ms is None else f'{b_ms / dev_ms:.4f}'
         print(f'[kernels] {name} {what}: {ms:.4f} ms '
-              f'per call (CUDA events, wrapper included), device {dev_txt} '
-              f'(profiler), bound {b_ms:.6f} ms ({b_by}: {flops / 1e6:.3f} '
-              f'MFLOP, {nbytes / 1e6:.3f} MB), share {share}; plain '
-              f'{plain_ms:.1f} ms  [{card}]')
+              f'per call (CUDA events, wrapper included), device '
+              f'{dev_ms:.4f} ms ({how}), bound {b_ms:.6f} ms ({b_by}: '
+              f'{flops / 1e6:.3f} MFLOP, {nbytes / 1e6:.3f} MB), share '
+              f'{b_ms / dev_ms:.4f}; plain {plain_ms:.1f} ms  [{card}]')
         if key in ('batch/1', 'timeline/1'):
             results[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
-                                 device_ms=dev_ms, bound_ms=b_ms,
-                                 bound_by=b_by)
+                                 device_ms=dev_ms, device_ms_by=how,
+                                 bound_ms=b_ms, bound_by=b_by)
         else:
             results[name]['err'] = max(err, results[name]['err'])
 
@@ -590,15 +804,16 @@ def zero_state_kernels(rng, dev, card, results):
     bat = K.sosfilt_batch(co_seg, x3, tail=F).permute(1, 0, 2)
     err = float((seg - bat).abs().max())
     assert err <= TOL, err
-    seg_ms = device_ms(lambda: K.sosfilt_segments(
+    seg_ms, seg_how = kernel_device_ms(lambda: K.sosfilt_segments(
         co_seg, xt, n_segments=AHEAD, seg_frames=F, context=STATIC_C), 20,
         SEG_KERNELS)
-    bat_ms = device_ms(lambda: K.sosfilt_batch(co_seg, x3, tail=F), 20,
-                       ('rows_cascade',))
+    bat_ms, bat_how = kernel_device_ms(
+        lambda: K.sosfilt_batch(co_seg, x3, tail=F), 20, ('rows_cascade',))
     print(f'[kernels] gate, render-ahead shape ({AHEAD} blocks x '
-          f'{STATIC_CH} lanes, C={STATIC_C}): segments {seg_ms} ms vs batch '
-          f'{bat_ms} ms device (profiler), both reading the timeline in '
-          f'place; outputs agree to {err!r}  [{card}]')
+          f'{STATIC_CH} lanes, C={STATIC_C}): segments {seg_ms:.4f} ms '
+          f'({seg_how}) vs batch {bat_ms:.4f} ms ({bat_how}) device, both '
+          f'reading the timeline in place; outputs agree to {err!r}  '
+          f'[{card}]')
 
 
 def carried_state_kernels(rng, dev, card, results):
@@ -661,23 +876,21 @@ def carried_state_kernels(rng, dev, card, results):
               f'max abs / scale {ez!r} (tol {TOL})')
         assert ey <= TOL and ez <= TOL, (what, ey, ez)
         ms = cuda_ms(call, 50)
-        dev_ms = device_ms(call, 20, ('rows_cascade',))
+        dev_ms, how = kernel_device_ms(call, 20, ('rows_cascade',))
         plain_ms = cuda_ms(plain, 1)
         flops = n * ch * CASCADE_FLOP * nsec
         nbytes = (2 * n * ch + co.numel() + 2 * zi.numel()) * 4
         b_ms, b_by = bound(flops, nbytes)
-        dev_txt = 'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'
-        share = ('not measured' if dev_ms is None
-                 else f'{b_ms / dev_ms:.4f}')
         print(f'[kernels] stream {what}: {ms:.4f} ms per call (CUDA '
-              f'events, wrapper included), device {dev_txt} (profiler), '
+              f'events, wrapper included), device {dev_ms:.4f} ms ({how}), '
               f'bound {b_ms:.6f} ms ({b_by}: {flops / 1e6:.3f} MFLOP, '
-              f'{nbytes / 1e6:.3f} MB), share {share}; plain '
+              f'{nbytes / 1e6:.3f} MB), share {b_ms / dev_ms:.4f}; plain '
               f'{plain_ms:.1f} ms  [{card}]')
         if 'stream' not in results:
             results['stream'] = dict(err=max(ey, ez), ms=ms,
                                      plain_ms=plain_ms, device_ms=dev_ms,
-                                     bound_ms=b_ms, bound_by=b_by)
+                                     device_ms_by=how, bound_ms=b_ms,
+                                     bound_by=b_by)
         else:
             results['stream']['err'] = max(ey, ez,
                                            results['stream']['err'])
@@ -700,13 +913,14 @@ def carried_state_kernels(rng, dev, card, results):
                 xb.permute(1, 0, 2), tail=F, return_state=True)
 
         ey, ez = errs(call(), plain())
-        dev_ms = device_ms(call, 20, ('rows_cascade',))
+        dev_ms, how = kernel_device_ms(call, 20, ('rows_cascade',))
         flops = nb * F * ch * CASCADE_FLOP
         nbytes = (2 * nb * F * ch + co.numel() + 2 * nb * ch) * 4
         b_ms, b_by = bound(flops, nbytes)
         print(f'[kernels] batch {what} vs plain: y max abs {ey!r}, zf max '
-              f'abs / scale {ez!r} (tol {TOL}); device {dev_ms} ms '
-              f'(profiler), bound {b_ms:.6f} ms ({b_by})  [{card}]')
+              f'abs / scale {ez!r} (tol {TOL}); device {dev_ms:.4f} ms '
+              f'({how}), bound {b_ms:.6f} ms ({b_by}), share '
+              f'{b_ms / dev_ms:.4f}  [{card}]')
         assert ey <= TOL and ez <= TOL, (what, ey, ez)
         results['batch']['err'] = max(ey, ez, results['batch']['err'])
 
@@ -1087,13 +1301,178 @@ def phase_state():
                       'reader: streaming -> context windows (2 x 2)')}
 
 
+def phase_checks():
+    """The rest of the nine-check set through the port's entry points.
+    Returns, per kernel, ``(launches, what launched it)``."""
+    import torch
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.parallel import PolyPatch
+    card = card_line()
+    total = collections.Counter()
+    n60 = n_blocks_60s()
+    audio_s = n60 * F / RATE
+
+    def timed(name, fn):
+        wall, dev_ms, events = profiled(fn)
+        print(f'[checks] {name}: wall {wall:.3f} ms = '
+              f'{audio_s / (wall / 1e3):.1f}x realtime, device {dev_ms:.3f} '
+              f'ms in {events} kernels and copies, busy share '
+              f'{dev_ms / wall:.3f}  [{card}]')
+
+    def within(name, got, want, tol):
+        got = np.asarray(got)
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        err = float(np.abs(got - want).max())
+        print(f'[checks] {name}: vs oracle max abs {err!r} (tol {tol:g}, '
+              f'peak {float(np.abs(want).max())!r})')
+        assert err <= tol, (name, err)
+
+    def poly(build, values, **kw):
+        root, node = build()
+        return PolyPatch(root, n_voices=V, overrides={(node, 'value'): values},
+                         block_frames=F, rate=RATE, device='cuda', **kw)
+
+    def poly_oracle(build, values, n_blocks):
+        root, node = build()
+        node.get_state().value = values.reshape(1, V)
+        return pull_oracle(root, n_blocks, V).sum(axis=1, keepdims=True)
+
+    # (a) master_bus: K1 at one lane under the reverb's carried state
+    bus = compile_node(build_master_bus(), block_frames=F, rate=RATE,
+                       channels=1, device='cuda')
+    assert bus.plan(n60) == 'mega', bus.plan(n60)
+    assert sorted(k for c in bus.carry0.values() for k in c) == ['hist',
+                                                                 'lines']
+    t0 = time.perf_counter()
+    want = pull_oracle(build_master_bus(), ORACLE_BLOCKS, 1)
+    print(f'[checks] master_bus oracle, {ORACLE_BLOCKS} blocks: '
+          f'{time.perf_counter() - t0:.1f} s')
+    whole, _ = launched(f'master_bus, {n60} blocks, plan mega',
+                        lambda: bus.render(n_blocks=n60),
+                        {'segments_gen': 1}, total)
+    within(f'master_bus, {n60} blocks, first {ORACLE_BLOCKS}',
+           whole[:ORACLE_BLOCKS * F].cpu().numpy(), want, TOL)
+    a, carry = launched('master_bus, 13 blocks',
+                        lambda: bus.render(n_blocks=13),
+                        {'segments_gen': 1}, total)
+    b, _ = launched('master_bus, 19 blocks from block 13 with the carry',
+                    lambda: bus.render(position=13 * F, n_blocks=19,
+                                       carry=carry),
+                    {'segments_gen': 1}, total)
+    diff = float((torch.cat([a, b]) - whole[:32 * F]).abs().max())
+    print(f'[checks] master_bus, 13 + 19 blocks vs the first 32 of {n60}: '
+          f'max abs {diff!r} (tol 1e-6)')
+    assert diff <= 1e-6, diff
+    del whole
+    timed(f'master_bus, {n60} blocks, plan mega',
+          lambda: bus.render(n_blocks=n60))
+
+    # (b) poly64_noise_mix: K2 with the in-kernel sum, one noise channel
+    noise = poly(build_noise_voice, NOISE_CUTS)
+    assert noise.compiled.mega_mix(n60) is not None, \
+        'the noise voice is not eligible for the mix plan'
+    want = poly_oracle(build_noise_voice, NOISE_CUTS, ORACLE_BLOCKS)
+    mix, _ = launched(f'poly64_noise_mix, {n60} blocks, mix plan',
+                      lambda: noise.render(n_blocks=n60), {'segments': 1},
+                      total)
+    within(f'poly64_noise_mix, {n60} blocks, first {ORACLE_BLOCKS}',
+           mix[:ORACLE_BLOCKS * F].cpu().numpy(), want, V * TOL)
+    del mix
+    timed(f'poly64_noise_mix, {n60} blocks, mix plan',
+          lambda: noise.render(n_blocks=n60))
+
+    # (c) sine under a Wave: the render bit for bit, the summary exact
+    tap = build_sine_plot()
+    sine = compile_node(tap, block_frames=F, rate=RATE, channels=1,
+                        device='cuda')
+    want = pull_oracle(build_sine_plot(), 43, 1)
+    got, _ = launched('sine, 43 blocks', lambda: sine.render(
+        n_blocks=43, deliver_taps=False), {}, total)
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    print(f'[checks] sine, 43 blocks: vs oracle max abs {err!r} (must be '
+          f'0.0)')
+    assert err == 0.0, err
+    summaries, _ = launched('sine, render_vis of 43 blocks',
+                            lambda: sine.render_vis(n_blocks=43), {}, total)
+    (summary,) = summaries.values()
+    want_summary = tap.tap_summary(np, want, RATE)
+    assert summary.shape == (750, 2, 1), summary.shape
+    assert np.array_equal(summary, want_summary)
+    print(f'[checks] sine, render_vis: summary {summary.shape} equals the '
+          f'numpy summary of the oracle audio; {summary.nbytes} bytes '
+          f'copied off the card for {want.nbytes} of audio')
+    sine.render(n_blocks=4)
+    assert tap.q.qsize() == 4 and tap.q.get_nowait().shape == (F, 1)
+    timed(f'sine, render_vis of {n60} blocks',
+          lambda: sine.render_vis(n_blocks=n60))
+
+    # (d) fm_delay at its Spec root: the delay solver, no kernel
+    spec = build_fm_delay(spec=True)
+    fm = compile_node(spec, block_frames=F, rate=RATE, channels=1,
+                      device='cuda')
+    assert fm.plan(n60) == 'delay_mega', fm.plan(n60)
+    want = pull_oracle(build_fm_delay(spec=True), n60, 1)
+    got, _ = launched(f'fm_delay at the Spec, {n60} blocks',
+                      lambda: fm.render(n_blocks=n60, deliver_taps=False),
+                      {}, total)
+    within(f'fm_delay at the Spec, {n60} blocks', got.cpu().numpy(), want,
+           TOL)
+    summaries, _ = launched(f'fm_delay, render_vis of {n60} blocks',
+                            lambda: fm.render_vis(n_blocks=n60), {}, total)
+    (bands,) = summaries.values()
+    want_bands = spec.tap_summary(np, want, RATE)
+    err = float(np.abs(bands - want_bands).max())
+    print(f'[checks] fm_delay, render_vis: {bands.shape[0]} bands vs the '
+          f'numpy summary of the oracle audio: max abs {err!r} (tol 1e-5 x '
+          f'largest band {float(want_bands.max())!r})')
+    assert bands.shape == (80,) and err <= TOL * float(want_bands.max())
+    timed(f'fm_delay at the Spec, render_vis of {n60} blocks',
+          lambda: fm.render_vis(n_blocks=n60))
+
+    # (e) additive at 16 voices, bit for bit; the static mix
+    root, hz = build_additive_voice()
+    hz.get_state().value = poly_freqs(16).reshape(1, 16)
+    add = compile_node(root, block_frames=F, rate=RATE, channels=16,
+                       device='cuda')
+    oroot, ohz = build_additive_voice()
+    ohz.get_state().value = poly_freqs(16).reshape(1, 16)
+    want = pull_oracle(oroot, 43, 16)
+    got, _ = launched(f'additive, 16 voices, {n60} blocks',
+                      lambda: add.render(n_blocks=n60), {}, total)
+    err = float(np.abs(got[:43 * F].cpu().numpy() - want).max())
+    print(f'[checks] additive, 16 voices, first 43 of {n60} blocks: vs '
+          f'oracle max abs {err!r} (must be 0.0)')
+    assert err == 0.0, err
+    del got
+    timed(f'additive, 16 voices, {n60} blocks',
+          lambda: add.render(n_blocks=n60))
+    static = poly(build_static_poly_voice, poly_freqs(V))
+    assert static.compiled.mega_mix(n60) is not None
+    want = poly_oracle(build_static_poly_voice, poly_freqs(V),
+                       ORACLE_BLOCKS)
+    mix, _ = launched(f'poly64_static_mix, {n60} blocks, mix plan',
+                      lambda: static.render(n_blocks=n60),
+                      {'segments_gen': 1}, total)
+    within(f'poly64_static_mix, {n60} blocks, first {ORACLE_BLOCKS}',
+           mix[:ORACLE_BLOCKS * F].cpu().numpy(), want, V * TOL)
+    del mix
+    timed(f'poly64_static_mix, {n60} blocks, mix plan',
+          lambda: static.render(n_blocks=n60))
+    torch.cuda.synchronize()
+    return {'segments_gen': (total['segments_gen'], 'master_bus (whole, 13 '
+                             '+ 19), poly64_static_mix'),
+            'segments': (total['segments'], 'poly64_noise_mix, 64 lanes on '
+                         'one noise channel')}
+
+
 def kernel_ms(k):
-    """``(ms, how)``: a kernel's own time, beside its bound — the
-    profiler's device time (a call's CUDA-events time, host dispatch
+    """``(ms, how)``: a kernel's own time, beside its bound — its device
+    time by the profiler or by a CUDA graph of calls
+    (:func:`kernel_device_ms`; a call's CUDA-events time, host dispatch
     included, is longer than the zero-state kernels), or that CUDA-events
-    time where the traces lost events."""
+    time where a segment kernel's traces lost events."""
     if k['device_ms'] is not None:
-        return k['device_ms'], 'profiler, device'
+        return k['device_ms'], f"device, {k.get('device_ms_by', 'profiler')}"
     return k['ms'], 'CUDA events, wrapper included'
 
 
@@ -1114,10 +1493,11 @@ def main() -> int:
     launches = {name: (n, f'flagship render, {how}')
                 for name, (n, how) in phase_render().items()}
     launches.update(phase_paths())
-    for name, (n, how) in phase_state().items():
-        if name in launches:     # K3 runs on the render-ahead path too
-            n, how = n + launches[name][0], f'{launches[name][1]}; {how}'
-        launches[name] = (n, how)
+    for phase in (phase_state, phase_checks):
+        for name, (n, how) in phase().items():
+            if name in launches:     # a kernel on several phases' paths
+                n, how = n + launches[name][0], f'{launches[name][1]}; {how}'
+            launches[name] = (n, how)
     assert 'jax' not in sys.modules and 'signals_tpu' not in sys.modules
     csrc = 'signals_tpu_torch/compiler/csrc/'
     pk = 'signals_tpu/compiler/pallas_kernels.py:'
@@ -1140,7 +1520,8 @@ def main() -> int:
          'bound_ms': kern[name]['bound_ms'],
          'bound_by': kern[name]['bound_by'],
          # no PyTorch call computes a recursive biquad cascade
-         'library_ms': None}
+         'library_ms': None,
+         **{k: v for k, v in kern[name].items() if k.startswith('noise_')}}
         for name in where]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {

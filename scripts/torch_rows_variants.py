@@ -33,10 +33,25 @@ printed beside the shipped build's.  Also prints each build's ``ptxas``
 registers, stack frame and spills per kernel.
 
     python3 scripts/torch_rows_variants.py
+
+``--null-state-bits`` runs another check instead: that the carried-state
+entry changed nothing for callers that pass no state.  It builds the
+``rows.cu`` of commit d36b6eb (the time-sliced scan before ``zi`` / ``zf``
+existed) beside the current sources, into ``build/rows_d36b6eb/``, and holds
+``sosfilt_timeline`` and ``sosfilt_batch`` (no ``zi``, no ``zf``) of the
+current build to that build's launchers bit for bit at 20 shapes: 1-4
+sections, one slice and many, ragged tails, tail 1, one lane, overlapping
+``unfold`` views and broadcast channels.  The old source comes from ``git
+show d36b6eb:signals_tpu_torch/compiler/csrc/rows.cu``; on a machine whose
+copy of the repository has no history, write that file to
+``build/rows_d36b6eb/rows.cu`` first (``build/`` is not committed).
+
+    python3 scripts/torch_rows_variants.py --null-state-bits
 """
 
 from __future__ import annotations
 
+import ctypes
 import pathlib
 import re
 import shutil
@@ -222,12 +237,127 @@ def cases(rng):
     return out
 
 
+OLD_COMMIT = 'd36b6eb'
+OLD_DIR = ROOT / 'build' / f'rows_{OLD_COMMIT}'
+
+
+def old_rows_source() -> str:
+    """``rows.cu`` of :data:`OLD_COMMIT`: from the repository's history, or
+    from ``build/rows_d36b6eb/rows.cu`` where there is no history."""
+    path = 'signals_tpu_torch/compiler/csrc/rows.cu'
+    shown = subprocess.run(['git', 'show', f'{OLD_COMMIT}:{path}'], cwd=ROOT,
+                           capture_output=True, text=True)
+    if shown.returncode == 0 and 'rows_cascade' in shown.stdout:
+        return shown.stdout
+    kept = OLD_DIR / 'rows.cu'
+    if kept.is_file():
+        return kept.read_text()
+    raise SystemExit(f'no git history here and no {kept}: write the output '
+                     f'of `git show {OLD_COMMIT}:{path}` there first')
+
+
+def build_old_rows() -> ctypes.CDLL:
+    """The old ``rows.cu`` built with the current headers (they have not
+    changed since) and loaded with its own C interface (no ``zi``, no
+    ``zf``)."""
+    text = old_rows_source()
+    src_dir = OLD_DIR / 'csrc'
+    shutil.rmtree(src_dir, ignore_errors=True)
+    shutil.copytree(_build._CSRC, src_dir)
+    (src_dir / 'rows.cu').write_text(text)
+    nvcc = _build.nvcc_path()
+    obj, so = OLD_DIR / 'rows.o', OLD_DIR / 'librows_old.so'
+    _build._run_all([[nvcc, *_build.COMPILE_FLAGS, '-o', str(obj),
+                      str(src_dir / 'rows.cu')]])
+    _build._run_all([[nvcc, *_build.LINK_FLAGS, '-o', str(so), str(obj)]])
+    lib = ctypes.CDLL(str(so))
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.sosfilt_timeline_launch.argtypes = [p, q, q, p, q, q, p, i, i, i, p]
+    lib.sosfilt_timeline_launch.restype = i
+    lib.sosfilt_batch_launch.argtypes = [p, q, q, q, p, q, q, q, p, i, i, i,
+                                         i, i, p]
+    lib.sosfilt_batch_launch.restype = i
+    return lib
+
+
+def old_timeline(lib, coeffs, x):
+    nsec, ch, coeffs, x = K._timeline_args(coeffs, x)
+    coeffs = K._columns_contiguous(coeffs)
+    out = torch.empty((x.shape[0], ch), dtype=torch.float32, device=x.device)
+    code = lib.sosfilt_timeline_launch(
+        coeffs.data_ptr(), *coeffs.stride()[:2], x.data_ptr(), *x.stride(),
+        out.data_ptr(), nsec, ch, x.shape[0], K._stream(x.device))
+    assert code == 0, code
+    return out
+
+
+def old_batch(lib, coeffs, x_t, tail):
+    L, B = x_t.shape[:2]
+    nsec, ch = coeffs.shape[1], max(coeffs.shape[2], x_t.shape[2])
+    coeffs = K._columns_contiguous(
+        torch.broadcast_to(coeffs, (B, nsec, ch, 11)))
+    x_t = torch.broadcast_to(x_t, (L, B, ch))
+    out = torch.empty((tail, B, ch), dtype=torch.float32, device=x_t.device)
+    code = lib.sosfilt_batch_launch(
+        coeffs.data_ptr(), *coeffs.stride()[:3], x_t.data_ptr(),
+        *x_t.stride(), out.data_ptr(), nsec, B, ch, L, tail,
+        K._stream(x_t.device))
+    assert code == 0, code
+    return out
+
+
+def null_state_bits() -> int:
+    """The current kernels without a state against the old build, bit for
+    bit; returns the number of shapes held."""
+    lib = build_old_rows()
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(4)
+
+    def coeffs(nsec, lanes):
+        lo = torch.as_tensor(rng.uniform(20.0, 3000.0, (1, lanes))
+                             .astype(np.float32), device=dev)
+        crits = [lo * (1.5 ** k) for k in range(2 if nsec > 1 else 1)]
+        co = design_coupled(TorchXP(dev), 'lp' if nsec == 1 else 'bp',
+                            tuple(crits), np.float32(cs.RATE / 2))
+        # 3 and 4 sections: the band design's two, repeated
+        return torch.cat([co] * 2)[:nsec] if nsec > 2 else co
+
+    def rows(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    held = 0
+    for nsec in (1, 2, 3, 4):
+        for n, ch in ((1152, 16), (1152, 1), (15, 3), (20000, 5)):
+            co, x = coeffs(nsec, ch), rows(n, ch)
+            assert torch.equal(K.sosfilt_timeline(co, x),
+                               old_timeline(lib, co, x)), (nsec, n, ch)
+            held += 1
+    for nsec, L, B, ch, tail in ((1, 1152, 8, 16, 1024), (2, 1152, 8, 16,
+                                                          1024),
+                                 (1, 129, 8, 16, 1), (4, 300, 3, 5, 7)):
+        co = coeffs(nsec, B * ch).reshape(nsec, B, ch, 11).permute(1, 0, 2, 3)
+        xt = rows(L + (B - 1) * 1024, ch)
+        for x_t in (xt.unfold(0, L, 1024).permute(2, 0, 1),
+                    xt[:L, None, :1].expand(L, B, ch)):
+            assert torch.equal(K.sosfilt_batch(co, x_t, tail=tail),
+                               old_batch(lib, co, x_t, tail)), (nsec, L, B)
+            held += 1
+    return held
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('torch_rows_variants: no CUDA GPU visible to torch',
               file=sys.stderr)
         return 2
     card = cs.card_line()
+    if '--null-state-bits' in sys.argv[1:]:
+        n = null_state_bits()
+        print(f'[null-state] sosfilt_timeline and sosfilt_batch without a '
+              f'state give the bits of the {OLD_COMMIT} rows.cu at {n} '
+              f'shapes  [{card}]')
+        return 0
     libs = {name: _build.load(path)
             for name, path in build_variants().items()}
     for name, what in WHAT.items():

@@ -12,6 +12,12 @@ GPU.  Two engines share one set of node kernel definitions:
 
 This package never imports ``jax`` or ``signals_tpu``.  Flags and the root
 error type mirror the reference (``src/signals/__init__.py:18-64``).
+
+Importing it turns TF32 off for every matrix product and convolution of the
+process (``torch.backends.cuda.matmul.allow_tf32``,
+``torch.backends.cudnn.allow_tf32``): the parity budget is 1e-5 against an
+f64 oracle, and a 10-bit mantissa anywhere near a spectrum or a mix breaks
+it.  The renderer itself calls no matrix product.
 """
 
 from __future__ import annotations
@@ -20,8 +26,12 @@ import enum
 import typing
 
 import numpy as np
+import torch
 
 __version__ = '0.1.0'
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 PortName = str
 

@@ -37,8 +37,16 @@ order: the whole-window plan (:meth:`CompiledPatch.mega_core`; stateful
 nodes ``mega_step``), the loop-free delay solver (:meth:`CompiledPatch.
 delay_mega_core`), the segmented feedback scan (:meth:`CompiledPatch.
 segment_scan_core`), the per-block loop; and, for carry-free polyphony, the
-mix-epilogue plan (:meth:`CompiledPatch.mega_mix`).  Not ported yet: host
-sources, taps, lane packing.
+mix-epilogue plan (:meth:`CompiledPatch.mega_mix`).
+
+* **Taps.**  Visualization nodes (``SignalFlags.VIS``) lower as
+  pass-throughs and register their output over the main window as an extra
+  render output: every plan returns ``taps`` (``uid -> (n_blocks, F, ch)``
+  on the device), :meth:`CompiledPatch.render` hands each enabled tap its
+  blocks on the host, :meth:`CompiledPatch.render_vis` reduces them to
+  display summaries on the device and copies only those.
+
+Not ported yet: host sources, lane packing.
 """
 
 from __future__ import annotations
@@ -515,6 +523,8 @@ class _Compiler:
         self._memo: dict[tuple[int, Window], typing.Any] = {}
         self._collected: set[tuple[int, Window]] = set()
         self._stateful_done: set[int] = set()
+        #: uid -> a tap node's output over the main window ``(frames, ch)``
+        self.taps: dict[str, typing.Any] = {}
         #: id(delay) -> full input timeline ``cat(buf, u)`` covering
         #: frames [-B, total) — set by the delay solver
         #: (CompiledPatch.delay_mega_core); _lower_delay serves windows
@@ -540,7 +550,7 @@ class _Compiler:
             raise CompileError(
                 f'window {window} of {node.cls_name()} extends past the '
                 f'block end')
-        if _is_host_source(node) or _is_tap(node):
+        if _is_host_source(node):
             raise CompileError(f'{node.cls_name()} is not ported yet')
         if _is_delay(node):
             # delay output comes from history; its input is pulled at the
@@ -654,7 +664,8 @@ class _Compiler:
     def lower(self, node: Emitter, window: Window):
         key = (id(node), window)
         if key in self._memo:
-            return self._memo[key]
+            # a result shared in from another trace still registers its tap
+            return self._note_tap(node, window, self._memo[key])
         const = self.node_const.get(id(node))
         if const is not None:
             return self._const(const)
@@ -675,6 +686,14 @@ class _Compiler:
                                      device=self.device)
             result = self._apply_enabled(node, window, result)
         self._memo[key] = result
+        return self._note_tap(node, window, result)
+
+    def _note_tap(self, node: Emitter, window: Window, result):
+        """Taps register their output at the main window only; returns
+        ``result``."""
+        if window == self.main and _is_tap(node):
+            self.taps[self.index.info(node).uid] = torch.broadcast_to(
+                result, (window.frames, node.channels))
         return result
 
     def _apply_enabled(self, node: Emitter, window: Window, result):
@@ -837,6 +856,10 @@ class CompiledPatch:
         compiler.collect(root, Window(0, block_frames))
         #: the initial carried state, ``uid -> name -> tensor``
         self.carry0: dict = compiler.init_carry()
+        #: uid -> tap node (visualization), in graph order
+        self.tap_nodes: dict[str, Emitter] = {
+            self.index.info(n).uid: n for n in self.index.order
+            if _is_tap(n)}
         self._render_cache: dict[int, typing.Any] = {}
 
     # -- public API -----------------------------------------------------------
@@ -876,8 +899,8 @@ class CompiledPatch:
 
     def _window(self, params, carry, position: int, n_blocks: int):
         """Lower ``n_blocks`` blocks from ``position`` as one window whose
-        delay reads all come from the carry: ``(blocks (n, F, ch),
-        carry')``.  The body of :meth:`step`, :meth:`mega_core` and the
+        delay reads all come from the carry: ``(blocks (n, F, ch), carry',
+        taps)``.  The body of :meth:`step`, :meth:`mega_core` and the
         segments of :meth:`segment_scan_core`."""
         F = self.block_frames
         comp = self._compiler(params, position, carry, n_blocks)
@@ -885,7 +908,13 @@ class CompiledPatch:
         block = torch.broadcast_to(block, (n_blocks * F, self.channels))
         comp.finalize_delays()
         comp.passthrough_carry()
-        return block.reshape(n_blocks, F, self.channels), comp.carry_out
+        return (block.reshape(n_blocks, F, self.channels), comp.carry_out,
+                self._block_taps(comp, n_blocks))
+
+    def _block_taps(self, comp: _Compiler, n_blocks: int) -> dict:
+        """The taps a lowering registered, ``uid -> (n_blocks, F, ch)``."""
+        return {uid: t.reshape(n_blocks, self.block_frames, -1)
+                for uid, t in comp.taps.items()}
 
     def step(self, params, carry, position: int):
         """One block at ``position`` (any block multiple), lowered at
@@ -897,7 +926,7 @@ class CompiledPatch:
         call over the block's carry segment up to it; for streaming
         filters, the carried-state kernel
         (:func:`~signals_tpu_torch.compiler.kernels.sosfilt_stream`)."""
-        blocks, carry2 = self._window(params, carry, position, 1)
+        blocks, carry2, _taps = self._window(params, carry, position, 1)
         return blocks[0], carry2
 
     @property
@@ -925,10 +954,11 @@ class CompiledPatch:
 
     def mega_core(self, n_blocks: int):
         """The plain plan ``(params, carry, position0) -> (blocks (n, F,
-        ch), carry')``: the whole batch lowers as ONE window — controls as
-        per-block grid samples, each filter as one kernel call writing
-        ``(n_blocks, F, V)``, streaming filters through ``mega_step``, the
-        downstream nodes elementwise.  Requires :attr:`mega_compatible`."""
+        ch), carry', taps)``: the whole batch lowers as ONE window —
+        controls as per-block grid samples, each filter as one kernel call
+        writing ``(n_blocks, F, V)``, streaming filters through
+        ``mega_step``, the downstream nodes elementwise.  Requires
+        :attr:`mega_compatible`."""
         def many(params, carry, position0: int):
             return self._window(params, carry, position0, n_blocks)
 
@@ -1029,15 +1059,16 @@ class CompiledPatch:
                 comp.carry_out[uid] = {'buf': in_full[-B:]}
             block = comp.lower(self.root, main)
             block = torch.broadcast_to(block, (total, self.channels))
-            # memo injection can cut stateful nodes off the root walk —
-            # force them so that their carries are produced
+            # memo injection can cut taps and stateful nodes off the root
+            # walk — force them so that tap feeds and carries are produced
             for node in index.order:
-                if (_is_stateful(node) and not _is_grid_stateless(node)
+                if _is_tap(node) or (
+                        _is_stateful(node) and not _is_grid_stateless(node)
                         and not _is_delay(node)):
                     comp.lower(node, main)
             comp.passthrough_carry()
             return (block.reshape(n_blocks, F, self.channels),
-                    comp.carry_out)
+                    comp.carry_out, self._block_taps(comp, n_blocks))
 
         return many
 
@@ -1078,12 +1109,13 @@ class CompiledPatch:
         F = self.block_frames
 
         def many(params, carry, position0: int):
-            out = []
+            out, tap_parts = [], []
             for i, nb in enumerate([S] * n_seg + ([rem] if rem else [])):
-                blocks, carry = self._window(params, carry,
-                                             position0 + i * S * F, nb)
+                blocks, carry, taps = self._window(params, carry,
+                                                   position0 + i * S * F, nb)
                 out.append(blocks)
-            return torch.cat(out), carry
+                tap_parts.append(taps)
+            return torch.cat(out), carry, _cat_taps(tap_parts)
 
         return many
 
@@ -1093,9 +1125,12 @@ class CompiledPatch:
         package's ``packed_mega_mix`` with the stream count at 1 — or
         ``None`` when ineligible.
 
-        Eligible when the patch carries no state and has exactly one
-        ``CritFilter``, V voices wide (V >= 2), and every path from it to
-        the root is voice-broadcast-linear (:func:`_voice_linear_to_root`).
+        Eligible when the patch carries no state, holds no tap (the plan
+        lowers no node of the filter's downstream at full width, so it has
+        no tap feed to return: such a patch takes the plain plan, which
+        delivers its taps) and has exactly one ``CritFilter``, V voices
+        wide (V >= 2), and every path from it to the root is
+        voice-broadcast-linear (:func:`_voice_linear_to_root`).
         Then::
 
             sum_v root_v = A * ysum + S0
@@ -1115,7 +1150,7 @@ class CompiledPatch:
         from signals_tpu_torch.nodes.fx import CritFilter
         V = self.channels
         filters = [n for n in self.index.order if isinstance(n, CritFilter)]
-        if V < 2 or len(filters) != 1 or self.carry0:
+        if V < 2 or len(filters) != 1 or self.carry0 or self.tap_nodes:
             return None
         f = filters[0]
         if f.channels != V or not _voice_linear_to_root(f, self.root):
@@ -1167,8 +1202,8 @@ class CompiledPatch:
         return 'blocks'
 
     def render_core(self, n_blocks: int):
-        """``(params, carry, position0) -> (blocks (n, F, ch), carry')`` on
-        the plan :meth:`plan` names (cached per batch size)."""
+        """``(params, carry, position0) -> (blocks (n, F, ch), carry',
+        taps)`` on the plan :meth:`plan` names (cached per batch size)."""
         if n_blocks in self._render_cache:
             return self._render_cache[n_blocks]
         plan = self.plan(n_blocks)
@@ -1182,12 +1217,13 @@ class CompiledPatch:
             F = self.block_frames
 
             def many(params, carry, position0: int):
-                out = []
+                out, tap_parts = [], []
                 for i in range(n_blocks):
-                    block, carry = self.step(params, carry,
-                                             position0 + i * F)
-                    out.append(block)
-                return torch.stack(out), carry
+                    blocks, carry, taps = self._window(
+                        params, carry, position0 + i * F, 1)
+                    out.append(blocks)
+                    tap_parts.append(taps)
+                return torch.cat(out), carry, _cat_taps(tap_parts)
 
         self._render_cache[n_blocks] = many
         return many
@@ -1209,20 +1245,68 @@ class CompiledPatch:
                              f'addressable (int32 frame index)')
 
     def render(self, *, position: int = 0, n_blocks: int = 1,
-               carry: typing.Optional[dict] = None):
+               carry: typing.Optional[dict] = None,
+               deliver_taps: bool = True):
         """Render ``n_blocks`` blocks from ``position`` (any block
         multiple; one block goes through :meth:`step`); returns ``(audio
         (n*F, ch), carry')`` on the patch's device.  ``carry`` defaults to
         :attr:`carry0` (a start from silence); pass the carry a render
         returned to continue it.  For a carry-free patch the output equals
-        the oracle's absolute-aligned semantics at any start."""
+        the oracle's absolute-aligned semantics at any start.
+
+        With ``deliver_taps`` each enabled tap's blocks are copied to the
+        host and handed to its ``consume_tap`` one block at a time, with
+        their positions; a disabled tap forwards its audio and is handed
+        nothing (the reference's PASSTHRU semantics)."""
         self.check_position(position, n_blocks)
         if carry is None:
             carry = self.carry0
-        blocks, carry2 = self.render_core(n_blocks)(self.params(), carry,
-                                                    position)
+        blocks, carry2, taps = self.render_core(n_blocks)(
+            self.params(), carry, position)
+        if deliver_taps:
+            F = self.block_frames
+            for uid, node in self.tap_nodes.items():
+                if uid in taps and node.get_state().enabled:
+                    arr = taps[uid].cpu().numpy()
+                    for i in range(n_blocks):
+                        node.consume_tap(arr[i], position + i * F, self.rate)
         return (blocks.reshape(n_blocks * self.block_frames, self.channels),
                 carry2)
+
+    def render_vis(self, *, position: int = 0, n_blocks: int = 1,
+                   carry: typing.Optional[dict] = None):
+        """Render on the device and copy off it ONLY the visualization
+        taps' decimated display summaries (``Vis.tap_summary``: Wave =
+        per-pixel min/max envelope, Spec = FFT band magnitudes) — ~1500
+        points per tap instead of full-rate f32 audio; the full-rate tap
+        array never leaves the device.  A disabled tap computes and copies
+        nothing.
+
+        Returns ``({uid: np.ndarray summary}, carry')`` and delivers each
+        summary to its node's ``consume_summary`` (plots pick them up via
+        ``Vis.render`` when no full-rate blocks are queued)."""
+        from signals_tpu_torch.nodes.vis import Vis
+        self.check_position(position, n_blocks)
+        if carry is None:
+            carry = self.carry0
+        _blocks, carry2, taps = self.render_core(n_blocks)(
+            self.params(), carry, position)
+        frames = n_blocks * self.block_frames
+        xp = TorchXP(self.device)
+        summaries = {}
+        for uid, node in self.tap_nodes.items():
+            if (uid in taps and isinstance(node, Vis)
+                    and node.get_state().enabled):
+                arr = node.tap_summary(xp, taps[uid].reshape(frames, -1),
+                                       self.rate).cpu().numpy()
+                summaries[uid] = arr
+                node.consume_summary(arr, frames, position, self.rate)
+        return summaries, carry2
+
+
+def _cat_taps(parts: list) -> dict:
+    """The taps of consecutive windows joined along the block axis."""
+    return {uid: torch.cat([p[uid] for p in parts]) for uid in parts[0]}
 
 
 def _segment_scan(a, b):

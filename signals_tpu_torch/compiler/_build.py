@@ -105,8 +105,8 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     q = ctypes.c_int64
-    lib.sosfilt_segments_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, i,
-                                            p]
+    lib.sosfilt_segments_launch.argtypes = [p, p, q, q, p, p, i, i, i, i, i,
+                                            i, i, p]
     lib.sosfilt_segments_launch.restype = i
     lib.sosfilt_segments_gen_launch.argtypes = [p, p, p, f, i, p, p, p, i, i,
                                                 i, i, i, i, i, p]

@@ -167,6 +167,9 @@ struct Geo {
     int n_slices;    // slices per carry segment
     int h, h_log;    // lanes per summed subgroup (0: per-lane output), log2
     int out_width;   // columns of out: lanes, or lanes / h
+    // the input timeline's strides in elements (GEN: unused); a lane stride
+    // of 0 is one channel that every lane reads
+    int x_row, x_lane;
 };
 
 // What one thread owns: one lane of its carry segment's rows [row_a, row_b).
@@ -231,7 +234,7 @@ __device__ __forceinline__ void inputs(float (&v)[kRows], int r0,
     for (int i = 0; i < kRows; ++i) {
         const int r = r0 + i;
         v[i] = (sl.active && r < sl.row_b)
-                   ? x[(row0 + r) * g.lanes + sl.lane] : 0.f;
+                   ? x[(row0 + r) * g.x_row + sl.lane * g.x_lane] : 0.f;
     }
 }
 
@@ -481,8 +484,13 @@ template <bool GEN, int OSC, int NSEC>
 int launch_n(const float* coeffs, const float* x, const int* toff,
              const float* lanef, const GenSpec& gen, float* out,
              float* partial, int n_blocks, int lanes, int F, int C, int m,
-             int sum_groups, cudaStream_t stream) {
-    const Geo g = plan(n_blocks / m, lanes, F, C, m, sum_groups);
+             int sum_groups, int64_t x_row, int64_t x_lane,
+             cudaStream_t stream) {
+    if (x_row < 0 || x_row > INT_MAX || x_lane < 0 || x_lane > INT_MAX)
+        return (int)cudaErrorInvalidValue;
+    Geo g = plan(n_blocks / m, lanes, F, C, m, sum_groups);
+    g.x_row = (int)x_row;
+    g.x_lane = (int)x_lane;
     const bool wide = sum_groups > g.h;
     if (wide && partial == nullptr) return (int)cudaErrorInvalidValue;
     const int threads = (g.n_slices * g.lt + 31) / 32 * 32;
@@ -504,16 +512,17 @@ template <bool GEN, int OSC>
 int launch(const float* coeffs, const float* x, const int* toff,
            const float* lanef, const GenSpec& gen, float* out,
            float* partial, int n_blocks, int nsec, int lanes, int F, int C,
-           int m, int sum_groups, cudaStream_t stream) {
+           int m, int sum_groups, int64_t x_row, int64_t x_lane,
+           cudaStream_t stream) {
     switch (nsec) {
     case 1:
         return launch_n<GEN, OSC, 1>(coeffs, x, toff, lanef, gen, out,
                                      partial, n_blocks, lanes, F, C, m,
-                                     sum_groups, stream);
+                                     sum_groups, x_row, x_lane, stream);
     case 2:
         return launch_n<GEN, OSC, 2>(coeffs, x, toff, lanef, gen, out,
                                      partial, n_blocks, lanes, F, C, m,
-                                     sum_groups, stream);
+                                     sum_groups, x_row, x_lane, stream);
     default:
         return (int)cudaErrorInvalidValue;
     }
@@ -533,14 +542,18 @@ int signals_partial_width(int n_blocks, int lanes, int F, int C, int m,
 }
 
 // The launchers return the cudaError_t of the launch (0 on success).
-int sosfilt_segments_launch(const float* coeffs, const float* x, float* out,
+// x is read through its strides (in elements): row r of lane l is
+// x[r * x_row + l * x_lane], so a one-channel timeline under many lanes
+// (x_lane = 0) is read in place, never copied out to the lanes.
+int sosfilt_segments_launch(const float* coeffs, const float* x,
+                            int64_t x_row, int64_t x_lane, float* out,
                             float* partial, int n_blocks, int nsec, int lanes,
                             int F, int C, int m, int sum_groups,
                             void* stream) {
     GenSpec gen{};
     return launch<false, 0>(coeffs, x, nullptr, nullptr, gen, out, partial,
                             n_blocks, nsec, lanes, F, C, m, sum_groups,
-                            (cudaStream_t)stream);
+                            x_row, x_lane, (cudaStream_t)stream);
 }
 
 int sosfilt_segments_gen_launch(const float* coeffs, const int* toff,
@@ -557,19 +570,20 @@ int sosfilt_segments_gen_launch(const float* coeffs, const int* toff,
     case OSC_SINE:
         return launch<true, OSC_SINE>(coeffs, nullptr, toff, lanef, gen, out,
                                       partial, n_blocks, nsec, lanes, F, C,
-                                      m, sum_groups, st);
+                                      m, sum_groups, 0, 0, st);
     case OSC_SQUARE:
         return launch<true, OSC_SQUARE>(coeffs, nullptr, toff, lanef, gen,
                                         out, partial, n_blocks, nsec, lanes,
-                                        F, C, m, sum_groups, st);
+                                        F, C, m, sum_groups, 0, 0, st);
     case OSC_SAW:
         return launch<true, OSC_SAW>(coeffs, nullptr, toff, lanef, gen, out,
                                      partial, n_blocks, nsec, lanes, F, C,
-                                     m, sum_groups, st);
+                                     m, sum_groups, 0, 0, st);
     default:
         return launch<true, OSC_TRIANGLE>(coeffs, nullptr, toff, lanef, gen,
                                           out, partial, n_blocks, nsec,
-                                          lanes, F, C, m, sum_groups, st);
+                                          lanes, F, C, m, sum_groups, 0, 0,
+                                          st);
     }
 }
 

@@ -252,15 +252,16 @@ def sosfilt_segments_gen(coeffs, toff, lanef, *, n_segments: int,
 
 
 def _timeline(coeffs, x, n_segments, seg_frames, context):
-    """``x`` broadcast to the coefficient lanes and zero-padded to the
-    ``context + n_segments*seg_frames`` rows the segments read."""
+    """``x`` zero-padded to the ``context + n_segments*seg_frames`` rows the
+    segments read and broadcast to the coefficient lanes — as a view: a
+    one-channel timeline under many lanes keeps its one column in memory
+    (lane stride 0)."""
     lanes = max(coeffs.shape[2], x.shape[1])
     coeffs = torch.broadcast_to(coeffs, coeffs.shape[:2] + (lanes, 11))
-    x = torch.broadcast_to(x, (x.shape[0], lanes))
     need = context + n_segments * seg_frames
     if x.shape[0] < need:
-        x = torch.cat([x, x.new_zeros((need - x.shape[0], lanes))])
-    return coeffs, x[:need]
+        x = torch.cat([x, x.new_zeros((need - x.shape[0], x.shape[1]))])
+    return coeffs, torch.broadcast_to(x[:need], (need, lanes))
 
 
 def sosfilt_segments_plain(coeffs, x, *, n_segments: int, seg_frames: int,
@@ -284,8 +285,11 @@ def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
     (b+1)*F)``; carry segment ``u`` (``m`` blocks) reads rows ``[u*m*F, u*m*F
     + C + m*F)``, warming up from zero state over its first ``C`` rows.
     ``x`` and ``coeffs`` ``(n_segments, nsec, ch, 11)`` broadcast to the
-    wider channel count.  Returns ``(n_segments, seg_frames, ch)``
-    block-major, or ``(..., ch // sum_groups)`` group sums."""
+    wider channel count; the kernel reads ``x`` through its strides, so a
+    one-channel timeline under ``ch`` coefficient lanes (a mono noise
+    source feeding ``ch`` filters) is read in place, never copied out to
+    the lanes.  Returns ``(n_segments, seg_frames, ch)`` block-major, or
+    ``(..., ch // sum_groups)`` group sums."""
     m = max(1, int(blocks_per_seg))
     if x.dim() != 2 or x.dtype != torch.float32:
         raise ValueError(f'x must be float32 (T, ch), got '
@@ -302,11 +306,12 @@ def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
         return sosfilt_segments_plain(coeffs, x, **kw)
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
-    coeffs, x = coeffs.contiguous(), x.contiguous()
+    coeffs = coeffs.contiguous()
     out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, context,
                                           m, lanes, sum_groups)
     code = lib.sosfilt_segments_launch(
-        coeffs.data_ptr(), x.data_ptr(), out.data_ptr(), partial_ptr,
+        coeffs.data_ptr(), x.data_ptr(), *x.stride(), out.data_ptr(),
+        partial_ptr,
         n_segments, coeffs.shape[1], lanes, seg_frames, context, m,
         sum_groups, _stream(coeffs.device))
     _build.check(code, 'sosfilt_segments')

@@ -11,7 +11,11 @@ Kernels call ``xp.where``, ``xp.floor``, ``xp.maximum``, ``xp.sign``,
 ``xp.broadcast_to``, ``xp.astype(x, dtype)`` and friends; dtypes are
 ``xp.float32`` / ``xp.float64`` / ``xp.int32``.  Python and numpy scalars
 mix with tensors as weak scalars (the tensor's dtype wins), as they do with
-numpy arrays.
+numpy arrays.  Reductions are called as functions with an ``axis``
+(``xp.sum(x, axis=1)``, ``xp.min`` / ``xp.max`` / ``xp.mean``): the tensor
+methods of the same names return other things.  Integer shifts, ``&`` and
+``^`` are the operators themselves: ``>>`` is arithmetic on a signed
+integer in both namespaces.
 """
 
 from __future__ import annotations
@@ -141,3 +145,47 @@ class TorchXP:
     @staticmethod
     def cummax(x, axis=0):
         return torch.cummax(x, dim=axis).values
+
+    @staticmethod
+    def exp(x):
+        return torch.exp(x)
+
+    @staticmethod
+    def sum(x, axis=None):
+        return torch.sum(x) if axis is None else torch.sum(x, dim=axis)
+
+    @staticmethod
+    def mean(x, axis=None):
+        return torch.mean(x) if axis is None else torch.mean(x, dim=axis)
+
+    @staticmethod
+    def min(x, axis=None):
+        return torch.amin(x) if axis is None else torch.amin(x, dim=axis)
+
+    @staticmethod
+    def max(x, axis=None):
+        return torch.amax(x) if axis is None else torch.amax(x, dim=axis)
+
+    @staticmethod
+    def cumsum(x, axis=0):
+        return torch.cumsum(x, dim=axis)
+
+    @staticmethod
+    def reshape(x, shape):
+        return torch.reshape(x, shape)
+
+    @staticmethod
+    def pad(x, pad_width):
+        """numpy's ``pad`` with zeros for a 2-D ``x`` padded along axis 0
+        only: ``pad_width = ((before, after), (0, 0))``."""
+        (before, after), (b1, a1) = pad_width
+        if b1 or a1 or x.dim() != 2:
+            raise NotImplementedError('pad: axis 0 of a 2-D tensor only')
+        return torch.nn.functional.pad(x, (0, 0, before, after))
+
+    class fft:
+        """``xp.fft.rfft`` along the last axis (f32 in, complex64 out)."""
+
+        @staticmethod
+        def rfft(x):
+            return torch.fft.rfft(x)

@@ -42,7 +42,7 @@ from signals_tpu_torch.core.xp import NP
 
 __all__ = [
     'Signal', 'Emitter', 'Receiver', 'port', 'ExplicitChannels',
-    'ImplicitChannels',
+    'ExplicitChannelsEmitter', 'ImplicitChannels', 'PassThroughResult',
     'BlockCachingEmitter', 'StatefulEmitter', 'KernelCtx', 'PullCtx',
     'CycleError', 'BadChannels', 'Param', 'State', 'BadStateValue',
     'BadStateSchema',
@@ -240,6 +240,8 @@ class Emitter(Signal, abc.ABC):
     def __init__(self):
         super().__init__()
         self._outputs: set[tuple[PortName, 'Receiver']] = set()
+        #: the newest pull request (a spectrum plot reads its rate)
+        self._last_request: typing.Optional[Request] = None
 
     @property
     def outputs_with_ports(self) -> typing.AbstractSet[tuple[PortName, 'Receiver']]:
@@ -268,6 +270,7 @@ class Emitter(Signal, abc.ABC):
         return self._eval(request) if self._state.enabled else self.empty_result()
 
     def respond(self, request: Request) -> np.ndarray:
+        self._last_request = request
         return self._get_result(request)
 
     def destroy(self) -> None:
@@ -392,6 +395,17 @@ class ExplicitChannels(Signal, abc.ABC):
         channels: int = Param(1, validate=all_of(instance_of(int), ge(1)))
 
 
+class ExplicitChannelsEmitter(ExplicitChannels, Emitter, abc.ABC):
+    """An emitter whose width is its ``channels`` state (noise sources)."""
+
+    class State(ExplicitChannels.State, Emitter.State):
+        pass
+
+    @property
+    def channels(self) -> int:
+        return self._state.channels
+
+
 class ImplicitChannels(Receiver, Emitter, abc.ABC):
     """Channel count inferred from inputs: the set of input channel counts,
     broadcast-1 discarded, must be a singleton
@@ -405,6 +419,22 @@ class ImplicitChannels(Receiver, Emitter, abc.ABC):
         if len(counts) != 1:
             raise BadChannels(self, counts)
         return next(iter(counts))
+
+
+class PassThroughResult(ImplicitChannels, abc.ABC):
+    """Side-effect nodes: when disabled, forward the input unchanged instead
+    of going silent (reference ``chain/__init__.py:409-417``)."""
+
+    input: Receiver.BoundPort = port('input')
+
+    @classmethod
+    def flags(cls) -> SignalFlags:
+        return super().flags() | SignalFlags.PASSTHRU
+
+    def _get_result(self, request: Request) -> np.ndarray:
+        if self._state.enabled:
+            return super()._get_result(request)
+        return self.input.forward(request)
 
 
 # --- block cache (reference ``chain/__init__.py:420-457``) ------------------

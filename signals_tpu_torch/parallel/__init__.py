@@ -90,10 +90,46 @@ class PolyPatch:
             raise ValueError(
                 f'patch does not propagate the voice channel axis: root '
                 f'has {root.channels} channels, expected {n_voices}')
+        self._check_explicit_channels(root, n_voices)
         self.compiled: CompiledPatch = compile_node(
             root, block_frames=block_frames, rate=rate, channels=n_voices,
             device=self.device)
         self._out_channels = 1 if channels is None else channels
+
+    @staticmethod
+    def _check_explicit_channels(root: Emitter, n_voices: int) -> None:
+        """Interior explicit-channel nodes (a ``Delay``) must carry the
+        voice lanes too when their INPUT does — the root check alone misses
+        them when a widened path reconverges (an osc -> mix dry path makes
+        the root V-wide while the feedback delay stays mono and fails in a
+        broadcast at lowering time).  A genuinely mono explicit-channel
+        node (a noise source, a sidechain: every input at most as wide as
+        its declared channels) broadcasts only at its consumer and is
+        legal."""
+        from signals_tpu_torch.graph import ExplicitChannels
+        stack, visited = [root], set()
+        while stack:
+            n = stack.pop()
+            if id(n) in visited:
+                continue
+            visited.add(id(n))
+            ports = getattr(n, '_ports', {})
+            if isinstance(n, ExplicitChannels) and n.channels != n_voices:
+                for p in ports.values():
+                    if p.sig is None:
+                        continue
+                    try:
+                        w = p.sig.channels
+                    except Exception:
+                        continue
+                    if w > n.channels:
+                        raise ValueError(
+                            f'channels layout: {n.cls_name()} declares '
+                            f'{n.channels} explicit channel(s) but its '
+                            f'input is {w} wide (voices ride the channel '
+                            f'axis) — set its channels to {n_voices} '
+                            f'(voices per device) or use layout="vmap"')
+            stack.extend(p.sig for p in ports.values() if p.sig is not None)
 
     def set_override(self, node, pname: str, values) -> None:
         """Update a per-voice override's values live (no recompilation)."""
@@ -137,7 +173,7 @@ class PolyPatch:
             whole = compiled.render_core(n_blocks)
 
             def render(params, carry, position0):
-                blocks, carry2 = whole(params, carry, position0)  # (n, F, V)
+                blocks, carry2, _taps = whole(params, carry, position0)
                 mix = blocks.sum(dim=2, keepdim=True)
                 return (torch.broadcast_to(mix, (n_blocks, F, out_ch)),
                         carry2)

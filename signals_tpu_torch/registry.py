@@ -98,6 +98,10 @@ _NODE_MODULES = (
     'signals_tpu_torch.nodes.fixed',
     'signals_tpu_torch.nodes.env',
     'signals_tpu_torch.nodes.delay',
+    'signals_tpu_torch.nodes.noise',
+    'signals_tpu_torch.nodes.reverb',
+    'signals_tpu_torch.nodes.dyn',
+    'signals_tpu_torch.nodes.vis',
 )
 
 _loaded = False

@@ -633,6 +633,36 @@ def test_cuda_wide_sum_groups_match_plain(cuda_device, gen, lanes,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('view', ['one_channel', 'every_other_column',
+                                  'every_third_row'])
+@pytest.mark.parametrize('sum_groups', [0, 64])
+def test_cuda_segments_reads_views_in_place(cuda_device, view, sum_groups):
+    """The timeline kernel reads its input through strides: a one-channel
+    timeline under 64 coefficient lanes (the noise voice: lane stride 0),
+    a column-strided and a row-strided view each give the bits of the same
+    call on the view copied out to (T, 64)."""
+    rng = np.random.default_rng(21)
+    lanes, nb, F, C, m = 64, 16, 1024, 256, 8
+    co = t(lowpass_coeffs(rng, nb // m, lanes, 1000.0, 4000.0)).to(
+        cuda_device)
+    T = C + nb * F
+    base = t(rng.uniform(0, 1, (3 * T, 2 * lanes)).astype(np.float32)).to(
+        cuda_device)
+    x = {'one_channel': base[:T, :1],
+         'every_other_column': base[:T, ::2],
+         'every_third_row': base[::3, :lanes]}[view]
+    geo = dict(n_segments=nb // m, seg_frames=m * F, context=C,
+               sum_groups=sum_groups)
+    got = K.sosfilt_segments(co, x, **geo)
+    want = K.sosfilt_segments(co, x.expand(T, lanes).contiguous(), **geo)
+    assert got.shape == (nb // m, m * F, lanes // (sum_groups or 1))
+    assert torch.equal(got, want)
+    plain = K.sosfilt_segments_plain(co, x.expand(T, lanes), **geo)
+    scale = plain.abs().max() if sum_groups else 1.0
+    assert float((got - plain).abs().max()) <= TOL * float(scale)
+
+
+@pytest.mark.cuda
 def test_cuda_1024_voice_flagship_mix_plan(cuda_device):
     """The flagship at 1024 voices renders through the mix plan (one K1
     launch with a 1024-lane group sum) and agrees with the per-voice plan
