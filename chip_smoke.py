@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Six phases; any failure raises and exits non-zero:
+Seven phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain and the card.
@@ -90,6 +90,29 @@ Six phases; any failure raises and exits non-zero:
    magnitudes within 1e-5 of the numpy summary's largest; (e) ``additive``
    (``bench.py:68-84``) at 16 voices bit for bit and ``poly64_static_mix``
    (``bench.py:131-162``) within 64 x 1e-5.
+
+7. **Differentiable fitting** (``[fit]`` lines), each fit with its launch
+   counts reset just before it and checked just after, its steps/s, ms a
+   step, device time a step and busy share printed: (a) each backward
+   kernel of ``csrc/adjoint.cu`` against its plain adjoint on the card
+   within 1e-5 of each output's largest value and the same bits twice —
+   B1 at the flagship's shape (32 blocks, sum of 64 and per lane), B2 at
+   c9's (517 blocks, C 1024) and the noise voice's (one channel under 64
+   lanes), B3 at the render-ahead, step and carried-state shapes — and
+   its device time at the c8, c9 and flagship-fit shapes beside its bound;
+   (b) c8 (``bench.py:449-546``: 64 saws -> LowPass with a trainable
+   ``Fixed`` cutoff -> gain 1/64, 43 blocks): one loss-and-gradient call
+   whose cutoff gradient is within 1e-4 of the same call on the plain
+   kernels, then 16 ``learn.fit`` steps (``{K1: 16, B1: 16}``); (c) c9
+   (``bench.py:549-651``: 64 voices x 12 s, two sine partials -> Mix ->
+   LowPass -> gain, 192 trainables, ``relative_lr``,
+   ``per_channel_spectral_loss``): 20 ``learn.fit`` steps, the loss falls,
+   the peak memory (``{K2: 20, B2: 20}``); (d) ``PolyPatch.fit`` of the
+   flagship's cutoff centre on the mix plan, 64 blocks: the gradient within
+   1e-4 of the plain kernels' at 16 blocks, then 10 steps (``{K1: 10, B1:
+   10}``); (e) the static voice's cutoff, 4 steps each through the batched
+   replay (``{K3: 4, B3: 4}``) and as a streaming filter
+   (``{sosfilt_stream: 4, B3: 4}``).
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -521,6 +544,18 @@ def bound(flops, nbytes):
                                                                  'bytes')
 
 
+def synth_flop(lanef, toff, n_units, ctx, unit_frames):
+    """The f32 operations of the saw source that ``n_units`` carry segments
+    of ``ctx + unit_frames`` rows a lane need: rows with a frame index >= 0
+    (the rest are zeros), at 10 or 13 operations (phase 0 and hz >= 0 or
+    not)."""
+    lf, t0 = lanef.cpu().numpy(), toff.cpu().numpy().astype(np.int64)
+    first = np.arange(n_units)[:, None] * unit_frames + t0[None, :]
+    rows = np.clip(first + ctx + unit_frames, 0, ctx + unit_frames).sum(axis=0)
+    per_row = np.where((lf[1] == 0) & (lf[0] >= 0), SAW_PH0_FLOP, SAW_FLOP)
+    return int((rows * per_row).sum())
+
+
 def segment_cases(rng, nb):
     """The segment kernels at the flagship's geometry over ``nb`` blocks
     (``nb // M`` carry segments x V lanes, C context rows each), swept
@@ -545,13 +580,7 @@ def segment_cases(rng, nb):
                           context=C, osc_code=K.OSC_SAW, rate=RATE)[0]
     lane_rows = nb // M * V * (C + M * F)      # the rows the algorithm runs
     co_bytes = co.numel() * 4
-    # the synthesis these lanes need: rows with a frame index >= 0 (the
-    # rest are zeros), at 10 or 13 operations (phase 0 and hz >= 0 or not)
-    lf, t0 = lanef.cpu().numpy(), toff.cpu().numpy().astype(np.int64)
-    first = np.arange(nb // M)[:, None] * (M * F) + t0[None, :]
-    synth_rows = (np.clip(first + C + M * F, 0, C + M * F)).sum(axis=0)
-    saw_flop = np.where((lf[1] == 0) & (lf[0] >= 0), SAW_PH0_FLOP, SAW_FLOP)
-    synth_flop = int((synth_rows * saw_flop).sum())
+    synth = synth_flop(lanef, toff, nb // M, C, M * F)
 
     def out_bytes(g):
         return nb * F * (V // g if g else V) * 4
@@ -563,7 +592,7 @@ def segment_cases(rng, nb):
             lambda g=0: K.sosfilt_segments_gen_plain(co, toff, lanef, **gen,
                                                      sum_groups=g),
             lambda g: (lane_rows * (CASCADE_FLOP + (1 if g else 0))
-                       + synth_flop),
+                       + synth),
             lambda g: co_bytes + 4 * V * 4 + out_bytes(g)),
         'segments': (
             lambda g=0: K.sosfilt_segments(co, x, **geo, sum_groups=g),
@@ -1465,6 +1494,477 @@ def phase_checks():
                          'one noise channel')}
 
 
+# --- phase 7: differentiable fitting ------------------------------------------
+
+C8_BLOCKS = 43            # bench.py:449-546: 1 s at F = 1024
+C8_C = 1024               # c8's LowPass context (the node's default)
+C9_SECONDS = 12.0
+C9_C = 1024               # c9's LowPass context (the node's default)
+FIT_BLOCKS = 64           # the flagship fit (PolyPatch.fit, mix plan)
+FIT_CHECK_BLOCKS = 16     # its gradient against the plain kernels
+VJP_FLOP = 38             # per section and row: the forward row again (12)
+                          # and its adjoint (26: 14 for the five gradient
+                          # sums, 2 for the input's cotangent, 10 for lambda)
+VJP_KERNELS = {'segments_gen_vjp': ('seg_cascade_vjp',),
+               'segments_vjp': ('seg_cascade_vjp',),
+               'rows_vjp': ('rows_cascade_vjp',)}
+
+
+def port_sig(node, *ports):
+    """The node reached from ``node`` through the named input ports."""
+    for p in ports:
+        node = node._ports[p].sig
+    return node
+
+
+def build_c8(cutoff):
+    """bench.py:449-546 (c8): 64 Sawtooth voices at the detuned table ->
+    LowPass with a ``Fixed`` cutoff -> Gain 1/64; returns ``(root,
+    cutoff node)``."""
+    from signals_tpu_torch.nodes.fx import Gain, LowPass
+    from signals_tpu_torch.nodes.osc import Sawtooth
+    saw = Sawtooth()
+    saw.hertz = fixed(poly_freqs(V).reshape(1, V))
+    cut = fixed(cutoff)
+    lp = LowPass()
+    lp.input = saw
+    lp.cutoff = cut
+    g = Gain()
+    g.left = lp
+    g.right = fixed(1.0 / V)
+    return g, cut
+
+
+def build_c9(hzv, cutv, volv):
+    """bench.py:549-651 (c9): per voice two sine partials (F0, 3 F0) ->
+    Mix 0.7 -> LowPass -> Gain, with ``(1, 64)`` hertz, cutoff and gain
+    ``Fixed`` rows; returns ``(root, hz, cut, vol)``."""
+    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix
+    from signals_tpu_torch.nodes.osc import Sine
+    hz = fixed(np.asarray(hzv, np.float32).reshape(1, -1))
+    o1 = Sine()
+    o1.hertz = hz
+    h3 = Gain()
+    h3.left = hz
+    h3.right = fixed(3.0)
+    o2 = Sine()
+    o2.hertz = h3
+    mx = Mix()
+    mx.left = o1
+    mx.right = o2
+    mx.mix = fixed(0.7)
+    cut = fixed(np.asarray(cutv, np.float32).reshape(1, -1))
+    lp = LowPass()
+    lp.input = mx
+    lp.cutoff = cut
+    vol = fixed(np.asarray(volv, np.float32).reshape(1, -1))
+    g = Gain()
+    g.left = lp
+    g.right = vol
+    return g, hz, cut, vol
+
+
+def c9_targets(n_voices=V):
+    """bench.py:613-622: the target and start values of c9 (seed 7)."""
+    rng = np.random.default_rng(7)
+    tgt_hz = poly_freqs(n_voices)
+    tgt_cut = np.linspace(350.0, 1200.0, n_voices).astype(np.float32)
+    tgt_vol = rng.uniform(0.3, 0.9, n_voices).astype(np.float32)
+    start_hz = (tgt_hz * (1.0 + rng.uniform(-0.02, 0.02, n_voices))
+                ).astype(np.float32)
+    return (tgt_hz, tgt_cut, tgt_vol), (
+        start_hz, np.full(n_voices, 800.0, np.float32),
+        np.full(n_voices, 0.5, np.float32))
+
+
+def c9_blocks():
+    return int(round(C9_SECONDS * RATE / F))
+
+
+def rel_max(got, want):
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def vjp_case(name, call, plain, *, bits=True):
+    """A backward kernel's call against its plain adjoint on the card:
+    every output within TOL of its largest |value|, and two calls the same
+    bits.  Returns the largest error and the plain call's ms."""
+    import torch
+    got = call()
+    again = call() if bits else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain()
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        if b is None:
+            assert a is None, (name, i)
+            continue
+        assert a.shape == b.shape and torch.isfinite(a).all(), (name, i)
+        err = max(err, rel_max(a, b))
+        if bits:
+            assert torch.equal(a, again[i]), (name, i, 'bits differ')
+    print(f'[fit] {name}: vs the plain adjoint max abs / max {err!r} (tol '
+          f'{TOL}){", the same bits twice" if bits else ""}; plain adjoint '
+          f'{plain_ms:.1f} ms')
+    assert err <= TOL, (name, err)
+    return err, plain_ms
+
+
+def vjp_time(name, call, kernels, flops, nbytes, card):
+    """Device ms of a backward kernel at one shape, beside its bound."""
+    dms = device_ms(call, 3, kernels)
+    b_ms, b_by = bound(flops, nbytes)
+    dtxt = 'not measured' if dms is None else f'{dms:.4f} ms'
+    share = 'not measured' if dms is None else f'{b_ms / dms:.4f}'
+    print(f'[fit] {name}: device {dtxt} (profiler), bound {b_ms:.4f} ms '
+          f'({b_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), '
+          f'share {share}  [{card}]')
+    return dms, b_ms, b_by
+
+
+def seg_vjp_work(n_blocks, m, ctx, lanes, nsec, gy_width, *, synth,
+                 x_bytes, gx_bytes):
+    """``(flops, bytes)`` of a segment-kernel backward: the forward rows
+    again and their adjoint, ``synth`` operations of source synthesis (B1:
+    once, as :func:`synth_flop` counts it), the coefficients and cotangents
+    read once, the gradients written once."""
+    rows = n_blocks // m * lanes * (ctx + m * F)
+    flops = rows * nsec * VJP_FLOP + synth
+    co = n_blocks * nsec * lanes * 11 * 4
+    nbytes = 2 * co + n_blocks * F * gy_width * 4 + x_bytes + gx_bytes
+    return flops, nbytes
+
+
+def vjp_kernels(card):
+    """(a) Each backward kernel against its plain adjoint on the card, and
+    its device time at the fits' shapes beside its bound.  Returns per
+    kernel ``{err, ms, plain_ms, device_ms, bound_ms, bound_by}``."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
+    dev = torch.device('cuda')
+    rng = np.random.default_rng(7)
+    out = {}
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    def lowpass(cuts):
+        c = torch.as_tensor(np.asarray(cuts, np.float32).reshape(1, -1),
+                            device=dev)
+        return design_coupled(TorchXP(dev), 'lp', (c,), np.float32(RATE / 2))
+
+    # B1 at the flagship's shape: 32 blocks, 4 carry segments, sum and lanes
+    co, toff, lanef, gen, _cases = segment_cases(rng, 32)
+    errs = []
+    for g in (V, 0):
+        gy = randn(32, F, V // g if g else V)
+        kw = dict(gen, sum_groups=g)
+        err, pms = vjp_case(
+            f'B1 segments_gen_vjp, flagship shape, 32 blocks, '
+            f'{"sum of 64" if g else "per lane"}',
+            lambda: K.sosfilt_segments_gen_vjp(co, toff, lanef, gy, **kw),
+            lambda: K.sosfilt_segments_gen_vjp_plain(co, toff, lanef, gy,
+                                                     **kw))
+        errs.append(err)
+    # ... and at the flagship fit's shape, where it is timed (64 blocks, sum
+    # of 64, the source cotangent not needed: the cutoff's centre is
+    # trained), then at c8's
+    co, toff, lanef, gen, _cases = segment_cases(rng, FIT_BLOCKS)
+    gy = randn(FIT_BLOCKS, F, 1)
+    kw = dict(gen, sum_groups=V, source_grad=False)
+    call = lambda: K.sosfilt_segments_gen_vjp(         # noqa: E731
+        co, toff, lanef, gy, **kw)
+    err, plain_ms = vjp_case(
+        f'B1 segments_gen_vjp, flagship fit shape, {FIT_BLOCKS} blocks, sum '
+        f'of {V}, no source cotangent', call,
+        lambda: K.sosfilt_segments_gen_vjp_plain(co, toff, lanef, gy, **kw))
+    errs.append(err)
+    fl, nb_ = seg_vjp_work(FIT_BLOCKS, M, C, V, 1, 1,
+                           synth=synth_flop(lanef, toff, FIT_BLOCKS // M, C,
+                                            M * F),
+                           x_bytes=16 * V, gx_bytes=0)
+    dms, b_ms, b_by = vjp_time(
+        f'B1 at the flagship fit ({FIT_BLOCKS} blocks, m {M}, C {C}, sum of '
+        f'{V})', call, VJP_KERNELS['segments_gen_vjp'], fl, nb_, card)
+    ms = cuda_ms(call, 5)
+    out['segments_gen_vjp'] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
+                                   device_ms=dms, bound_ms=b_ms,
+                                   bound_by=b_by)
+    c8co = lowpass(np.full(V, 800.0))[None].expand(C8_BLOCKS, 1, V, 11)
+    c8co = c8co.contiguous()
+    c8toff = torch.full((V,), -C8_C, dtype=torch.int32, device=dev)
+    c8gy = randn(C8_BLOCKS, F, V)
+    c8kw = dict(n_segments=C8_BLOCKS, seg_frames=F, context=C8_C,
+                osc_code=K.OSC_SAW, rate=RATE, blocks_per_seg=1)
+    fl, nb_ = seg_vjp_work(C8_BLOCKS, 1, C8_C, V, 1, V,
+                           synth=synth_flop(lanef, c8toff, C8_BLOCKS, C8_C, F),
+                           x_bytes=16 * V, gx_bytes=0)
+    vjp_time(f'B1 at c8 ({C8_BLOCKS} blocks, m 1, C {C8_C}, per lane)',
+             lambda: K.sosfilt_segments_gen_vjp(
+                 c8co, c8toff, lanef, c8gy, **c8kw, source_grad=False),
+             VJP_KERNELS['segments_gen_vjp'], fl, nb_, card)
+    del co, gy, c8co, c8gy
+    torch.cuda.empty_cache()
+
+    # B2 at c9's shape: per lane, static cutoffs, the context of 1024
+    nb = c9_blocks()
+    co = lowpass(np.linspace(350.0, 1200.0, V))[None].expand(nb, 1, V, 11)
+    co = co.contiguous()
+    x = randn(C9_C + nb * F, V)
+    gy = randn(nb, F, V)
+    kw = dict(n_segments=nb, seg_frames=F, context=C9_C)
+    err_c9, plain_c9 = vjp_case(
+        f'B2 segments_vjp, c9 shape ({nb} blocks, C {C9_C}, per lane)',
+        lambda: K.sosfilt_segments_vjp(co, x, gy, **kw),
+        lambda: K.sosfilt_segments_vjp_plain(co, x, gy, **kw))
+    call = lambda: K.sosfilt_segments_vjp(co, x, gy, **kw)   # noqa: E731
+    fl, nb_ = seg_vjp_work(nb, 1, C9_C, V, 1, V, synth=0,
+                           x_bytes=x.numel() * 4, gx_bytes=x.numel() * 4)
+    dms, b_ms, b_by = vjp_time(f'B2 at c9 ({nb} blocks)', call,
+                               VJP_KERNELS['segments_vjp'], fl, nb_, card)
+    ms = cuda_ms(call, 3)
+    del co, x, gy
+    torch.cuda.empty_cache()
+    # ... and at the noise voice's shape: one channel under 64 lanes
+    nbn = 32
+    co = lowpass(NOISE_CUTS)[None].expand(nbn // M, 1, V, 11).contiguous()
+    xn = randn(NOISE_C + nbn * F, 1).expand(NOISE_C + nbn * F, V)
+    gy = randn(nbn // M, M * F, 1)
+    kw = dict(n_segments=nbn // M, seg_frames=M * F, context=NOISE_C,
+              sum_groups=V)
+    err_n, _ = vjp_case(
+        f'B2 segments_vjp, noise shape ({nbn} blocks, one channel under '
+        f'{V} lanes, sum of {V})',
+        lambda: K.sosfilt_segments_vjp(co, xn, gy, **kw),
+        lambda: K.sosfilt_segments_vjp_plain(co, xn, gy, **kw))
+    assert K.sosfilt_segments_vjp(co, xn, gy, **kw)[1].shape == xn.shape
+    out['segments_vjp'] = dict(err=max(err_c9, err_n), ms=ms,
+                               plain_ms=plain_c9, device_ms=dms,
+                               bound_ms=b_ms, bound_by=b_by)
+
+    # B3: the render-ahead batch, the step's timeline, the carried state
+    L, nw = STATIC_C + F, AHEAD
+    co = lowpass(np.linspace(1000.0, 3000.0, nw * STATIC_CH)).reshape(
+        1, nw, STATIC_CH, 11).permute(1, 0, 2, 3).contiguous()
+    xt = randn(STATIC_C + nw * F, STATIC_CH)
+    xw = xt.unfold(0, L, F)[:nw].permute(2, 0, 1)
+    gy = randn(F, nw, STATIC_CH)
+    call = lambda: K.sosfilt_batch_vjp(co, xw, gy, tail=F)   # noqa: E731
+    e1, plain_b3 = vjp_case(
+        f'B3 batch_vjp, render-ahead shape (L {L}, {nw} windows, '
+        f'{STATIC_CH} lanes, tail {F})', call,
+        lambda: K.sosfilt_batch_vjp_plain(co, xw, gy, tail=F))
+    rows = nw * STATIC_CH * L
+    fl = rows * VJP_FLOP
+    nb_ = (2 * co.numel() + gy.numel() + xt.numel() + L * nw * STATIC_CH) * 4
+    dms, b_ms, b_by = vjp_time('B3 at the render-ahead shape', call,
+                               VJP_KERNELS['rows_vjp'], fl, nb_, card)
+    ms = cuda_ms(call, 20)
+    c1, x1, gy1 = co[0], xt[:L], randn(L, STATIC_CH)
+    e2, _ = vjp_case(f'B3 timeline_vjp, step shape ({L}, {STATIC_CH})',
+                     lambda: K.sosfilt_timeline_vjp(c1, x1, gy1),
+                     lambda: K.sosfilt_timeline_vjp_plain(c1, x1, gy1))
+    zi, gzf = 0.5 * randn(1, 2, STATIC_CH), randn(1, 2, STATIC_CH)
+    e3, _ = vjp_case(
+        f'B3 stream_vjp ({F}, {STATIC_CH}) from a non-zero start state',
+        lambda: K.sosfilt_stream_vjp(c1, x1[:F], zi, gy1[:F], gzf),
+        lambda: K.sosfilt_stream_vjp_plain(c1, x1[:F], zi, gy1[:F], gzf))
+    out['rows_vjp'] = dict(err=max(e1, e2, e3), ms=ms, plain_ms=plain_b3,
+                           device_ms=dms, bound_ms=b_ms, bound_by=b_by)
+    return out
+
+
+def fit_steps(name, run, n, expect, total, card, audio_s):
+    """``run(n)`` (n optimizer steps) after a one-step warmup, with the
+    launch counts reset just before it and checked just after; then one
+    step under the profiler for its device time.  Prints steps/s, ms a
+    step, device ms a step and the busy share; returns ``run(n)``'s
+    result."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = launched(f'{name}, {n} steps', lambda: run(n),
+                   {k: n * v for k, v in expect.items()}, total)
+    wall = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(1)
+        torch.cuda.synchronize()
+    by_name = collections.Counter()
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:60]] += e.time_range.elapsed_us()
+    n_events = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    dev_ms = sum(by_name.values()) / 1e3
+    print(f'[fit] {name}: {n} steps at {1e3 / wall:.2f} steps/s, '
+          f'{wall:.3f} ms a step ({audio_s / (wall / 1e3):.2f} s of audio '
+          f'differentiated per s); one step: device {dev_ms:.3f} ms in '
+          f'{n_events} kernels and copies, busy share {dev_ms / wall:.3f}  '
+          f'[{card}]')
+    top = ', '.join(f'{k} {v / 1e3:.3f}' for k, v in by_name.most_common(4))
+    print(f'[fit] {name}: device ms by kernel, largest: {top}')
+    return res
+
+
+def phase_fit():
+    """Differentiable fitting through the port's entry points (``learn``,
+    ``PolyPatch.fit``).  Returns ``(per backward kernel {err, ms, ...},
+    per kernel (launches, what launched it))``."""
+    import torch
+    from signals_tpu_torch import learn
+    from signals_tpu_torch.compiler import compile_node
+    t_phase = time.perf_counter()
+    card = card_line()
+    total = collections.Counter()
+    kern = vjp_kernels(card)
+
+    # (b) c8: one loss-and-gradient call against the plain kernels, then
+    # 16 Adam steps
+    t_root, _ = build_c8(2500.0)
+    tgt = compile_node(t_root, block_frames=F, rate=RATE, channels=V,
+                       device='cuda').render(n_blocks=C8_BLOCKS)[0]
+    root, cut = build_c8(800.0)
+    c8 = compile_node(root, block_frames=F, rate=RATE, channels=V,
+                      device='cuda')
+    assert c8.plan(C8_BLOCKS) == 'mega'
+    loss_fn = learn.make_loss_fn(c8, tgt)
+    uid = c8.index.info(cut).uid
+
+    def value_and_grad(patch, lfn, uid):
+        params = patch.params()
+        leaf = params[uid]['value'].requires_grad_()
+        value = lfn(params)
+        return value, torch.autograd.grad(value, leaf)[0]
+
+    v, g = launched('c8, loss and cutoff gradient',
+                    lambda: value_and_grad(c8, loss_fn, uid),
+                    {'segments_gen': 1, 'segments_gen_vjp': 1}, total)
+    with plain_kernels():
+        v_p, g_p = value_and_grad(c8, loss_fn, uid)
+    rel = rel_max(g, g_p)
+    print(f'[fit] c8: loss {v.item()!r} (plain {v_p.item()!r}), cutoff '
+          f'gradient {g.item()!r} vs the plain kernels {g_p.item()!r}: '
+          f'relative {rel!r} (tol 1e-4)')
+    assert torch.isfinite(g).all() and rel <= 1e-4, rel
+    fit_steps(f'c8 ({V} voices, {C8_BLOCKS} blocks), learn.fit',
+              lambda n: learn.fit(root, tgt, [(cut, 'value')], rate=RATE,
+                                  block_frames=F, steps=n,
+                                  learning_rate=2.0, apply=False),
+              16, {'segments_gen': 1, 'segments_gen_vjp': 1}, total, card,
+              C8_BLOCKS * F / RATE)
+
+    # (c) c9: 20 steps of learn.fit at 64 voices x 12 s
+    (t_hz, t_cut, t_vol), (s_hz, s_cut, s_vol) = c9_targets()
+    nb = c9_blocks()
+    t_root, *_ = build_c9(t_hz, t_cut, t_vol)
+    tgt = compile_node(t_root, block_frames=F, rate=RATE, channels=V,
+                       device='cuda').render(n_blocks=nb)[0]
+    root, hz, cut, vol = build_c9(s_hz, s_cut, s_vol)
+    assert compile_node(root, block_frames=F, rate=RATE, channels=V,
+                        device='cuda').plan(nb) == 'mega'
+    torch.cuda.reset_peak_memory_stats()
+    res = fit_steps(
+        f'c9 ({V} voices x {nb} blocks, 192 trainables), learn.fit',
+        lambda n: learn.fit(root, tgt, [(hz, 'value'), (cut, 'value'),
+                                        (vol, 'value')],
+                            rate=RATE, block_frames=F, steps=n,
+                            learning_rate=0.005, relative_lr=True,
+                            loss=learn.per_channel_spectral_loss,
+                            apply=False),
+        20, {'segments': 1, 'segments_vjp': 1}, total, card,
+        nb * F / RATE)
+    peak = torch.cuda.max_memory_allocated()
+    print(f'[fit] c9: loss {res.losses[0]!r} -> {res.losses[-1]!r} over 20 '
+          f'steps; peak memory {peak / 2**30:.3f} GiB  [{card}]')
+    assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
+    del tgt
+    torch.cuda.empty_cache()
+
+    # (d) PolyPatch.fit of the flagship's cutoff centre, mix plan
+    t_poly = make_poly()
+    port_sig(t_poly.compiled.root, 'left', 'left', 'cutoff',
+             'right').get_state().value = np.full((1, 1), 2500.0, np.float32)
+    tgt = t_poly.render(n_blocks=FIT_BLOCKS)[0]
+    poly = make_poly()
+    centre = port_sig(poly.compiled.root, 'left', 'left', 'cutoff', 'right')
+    assert float(centre.get_state().value[0, 0]) == 2000.0
+    assert poly.compiled.mega_mix(FIT_BLOCKS) is not None
+    uid = poly.compiled.index.info(centre).uid
+    render = poly.render_fn(FIT_CHECK_BLOCKS)
+    short = tgt[:FIT_CHECK_BLOCKS * F]
+
+    def poly_grad():
+        params, _ = poly.params()
+        leaf = params[uid]['value'].requires_grad_()
+        mix, _ = render(params, {}, 0)
+        value = learn.spectral_loss(mix.reshape(-1, 1), short)
+        return torch.autograd.grad(value, leaf)[0]
+
+    g = launched(f'flagship, cutoff-centre gradient, {FIT_CHECK_BLOCKS} '
+                 f'blocks, mix plan', poly_grad,
+                 {'segments_gen': 1, 'segments_gen_vjp': 1}, total)
+    with plain_kernels():
+        g_p = poly_grad()
+    rel = rel_max(g, g_p)
+    print(f'[fit] flagship: cutoff-centre gradient {g.item()!r} vs the plain '
+          f'kernels {g_p.item()!r}: relative {rel!r} (tol 1e-4)')
+    assert torch.isfinite(g).all() and rel <= 1e-4, rel
+    res = fit_steps(f'flagship ({V} voices, {FIT_BLOCKS} blocks), '
+                    f'PolyPatch.fit, mix plan',
+                    lambda n: poly.fit(tgt, [(centre, 'value')], steps=n,
+                                       learning_rate=20.0, apply=False),
+                    10, {'segments_gen': 1, 'segments_gen_vjp': 1}, total,
+                    card, FIT_BLOCKS * F / RATE)
+    print(f'[fit] flagship: loss {res.losses[0]!r} -> {res.losses[-1]!r} '
+          f'over 10 steps')
+    assert np.isfinite(res.losses).all()
+
+    # (e) the zero-state and carried-state entries' backward: the static
+    # voice's cutoff (16 channels, context 128: the batched replay) and
+    # the same voice streaming (one carried-state launch a window)
+    for streaming, kernel in ((False, 'batch'), (True, 'stream')):
+        t_root = build_static_voice(streaming=streaming)
+        port_sig(t_root, 'left', 'left', 'cutoff').get_state().value = \
+            np.full((1, 1), 1500.0, np.float32)
+        tgt = compile_node(t_root, block_frames=F, rate=RATE,
+                           channels=STATIC_CH, device='cuda').render(
+            n_blocks=AHEAD)[0]
+        root = build_static_voice(streaming=streaming)
+        cutn = port_sig(root, 'left', 'left', 'cutoff')
+        fit_steps(f'static voice{" (streaming)" if streaming else ""}, '
+                  f'{STATIC_CH} channels, {AHEAD} blocks, learn.fit',
+                  lambda n: learn.fit(root, tgt, [(cutn, 'value')],
+                                      rate=RATE, block_frames=F, steps=n,
+                                      learning_rate=20.0, apply=False),
+                  4, {kernel: 1, f'{kernel}_vjp': 1}, total, card,
+                  AHEAD * F / RATE)
+    torch.cuda.synchronize()
+    print(f'[fit] phase 7: {time.perf_counter() - t_phase:.1f} s')
+    launches = {
+        'segments_gen': (total['segments_gen'], 'c8 fit, flagship '
+                         'PolyPatch.fit'),
+        'segments': (total['segments'], 'c9 fit'),
+        'batch': (total['batch'], 'static-voice fit'),
+        'stream': (total['stream'], 'streaming static-voice fit'),
+        'segments_gen_vjp': (total['segments_gen_vjp'], 'c8 fit, flagship '
+                             'PolyPatch.fit'),
+        'segments_vjp': (total['segments_vjp'], 'c9 fit'),
+        'rows_vjp': (total['batch_vjp'] + total['timeline_vjp']
+                     + total['stream_vjp'], 'static-voice fits: batched '
+                     'and carried-state entries')}
+    return kern, launches
+
+
 def kernel_ms(k):
     """``(ms, how)``: a kernel's own time, beside its bound — its device
     time by the profiler or by a CUDA graph of calls
@@ -1493,8 +1993,11 @@ def main() -> int:
     launches = {name: (n, f'flagship render, {how}')
                 for name, (n, how) in phase_render().items()}
     launches.update(phase_paths())
-    for phase in (phase_state, phase_checks):
-        for name, (n, how) in phase().items():
+    phases = [phase_state(), phase_checks()]
+    vjp, fit_launches = phase_fit()
+    kern.update(vjp)
+    for found in phases + [fit_launches]:
+        for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths
                 n, how = n + launches[name][0], f'{launches[name][1]}; {how}'
             launches[name] = (n, how)
@@ -1508,10 +2011,19 @@ def main() -> int:
              # the carried-state entry of the timeline kernel's template;
              # the JAX package runs signals_tpu/compiler/filters.py:200
              # (an associative scan inside its XLA program)
-             'stream': ('rows.cu', '34')}
+             'stream': ('rows.cu', '34'),
+             # the backward kernels: the analytic adjoint of the cascade
+             # (signals_tpu/compiler/filters.py:620) under each entry's
+             # custom VJP in pallas_kernels.py
+             'segments_gen_vjp': ('adjoint.cu', '1788'),
+             'segments_vjp': ('adjoint.cu', '1723'),
+             'rows_vjp': ('adjoint.cu', '1632')}
+    filters_adjoint = 'signals_tpu/compiler/filters.py:620 and '
     print(json.dumps({'kernels': [
         {'name': f'sosfilt_{name}', 'route': 'cuda',
-         'source': csrc + where[name][0], 'replaces': pk + where[name][1],
+         'source': csrc + where[name][0],
+         'replaces': ((filters_adjoint if name.endswith('_vjp') else '')
+                      + pk + where[name][1]),
          'launches': launches[name][0], 'launched_by': launches[name][1],
          'max_abs_err': kern[name]['err'],
          'ms': kernel_ms(kern[name])[0], 'ms_by': kernel_ms(kern[name])[1],

@@ -117,6 +117,13 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.sosfilt_batch_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, i,
                                          i, i, i, i, p]
     lib.sosfilt_batch_launch.restype = i
+    lib.sosfilt_segments_vjp_launch.argtypes = [p, p, q, q, p, p, f, i, p,
+                                                i, p, p, p, p, i, i, i, i, i,
+                                                i, i, p]
+    lib.sosfilt_segments_vjp_launch.restype = i
+    lib.sosfilt_rows_vjp_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p,
+                                            p, p, p, p, i, i, i, i, i, p]
+    lib.sosfilt_rows_vjp_launch.restype = i
     lib.signals_partial_width.argtypes = [i, i, i, i, i, i]
     lib.signals_partial_width.restype = i
     lib.signals_cuda_error_string.argtypes = [i]

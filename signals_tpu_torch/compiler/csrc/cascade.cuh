@@ -17,6 +17,17 @@ namespace signals {
 
 struct Taps { float rc, rs, d0, d1, d2; };
 
+// One section's row: returns y and advances the lagged state (s1, s2).
+__device__ __forceinline__ float cascade_step(const Taps& t, float v,
+                                              float& s1, float& s2) {
+    const float y = t.d0 * v + t.d1 * s1 + t.d2 * s2;
+    const float n1 = t.rc * s1 - t.rs * s2 + v;
+    const float n2 = t.rs * s1 + t.rc * s2;
+    s1 = n1;
+    s2 = n2;
+    return y;
+}
+
 template <int NSEC>
 struct Cascade {
     Taps tp[NSEC];
@@ -42,15 +53,7 @@ struct Cascade {
     template <int NS = NSEC>
     __device__ __forceinline__ float step(float v) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s) {
-            const Taps& t = tp[s];
-            const float y = t.d0 * v + t.d1 * s1[s] + t.d2 * s2[s];
-            const float n1 = t.rc * s1[s] - t.rs * s2[s] + v;
-            const float n2 = t.rs * s1[s] + t.rc * s2[s];
-            s1[s] = n1;
-            s2[s] = n2;
-            v = y;
-        }
+        for (int s = 0; s < NS; ++s) v = cascade_step(tp[s], v, s1[s], s2[s]);
         return v;
     }
 

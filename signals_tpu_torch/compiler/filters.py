@@ -247,6 +247,74 @@ def sosfilt_stream_scan(coeffs, x, zi):
     return x, torch.stack(zf)
 
 
+def sosfilt_stream_vjp_plain(coeffs, x, zi, gy, gzf=None):
+    """The analytic adjoint of :func:`sosfilt_stream_scan` in plain PyTorch
+    (``signals_tpu.compiler.filters``' custom VJP of the cascade, in stream
+    form): the cotangents ``(gcoeffs (nsec, ch, 11), gx (n, ch), gzi (nsec,
+    2, ch))`` of the inputs, in the order of the backward kernels' entries,
+    from ``gy`` ``(n, ch)``, the output's cotangent, and ``gzf`` ``(nsec, 2,
+    ch)`` (None: zero), the end state's.
+
+    Per section, with ``R = [[rc, -rs], [rs, rc]]``, the lagged state
+    ``s_{t-1}`` and the section's input ``v_t``: the adjoint state ``λ_t``
+    (the cotangent of the state after row ``t``) starts at ``gzf`` and runs
+    backwards, ``λ_{t-1} = Rᵀ λ_t + (d1, d2) ȳ_t``; ``v̄_t = d0 ȳ_t + λ1_t``
+    is the cotangent of the section's input, the previous section's ``ȳ``;
+    ``r̄c = Σ λ1_t s1_{t-1} + λ2_t s2_{t-1}``, ``r̄s = Σ λ2_t s1_{t-1} -
+    λ1_t s2_{t-1}``, ``d̄k = Σ ȳ_t (v_t, s1_{t-1}, s2_{t-1})``; the state
+    left after row 0 is ``gzi``.  Columns 0-5 of ``gcoeffs`` (the b/a form,
+    which no kernel reads) stay zero.  A loop over frames, forward to
+    record the states and backward for ``λ``: the plain version every
+    backward kernel is held to."""
+    nsec, n = coeffs.shape[0], x.shape[0]
+    ch = max(coeffs.shape[1], x.shape[1], zi.shape[-1], gy.shape[-1])
+    dev = x.device
+    v = torch.broadcast_to(x, (n, ch))
+    ins, lagged = [], []
+    for s in range(nsec):
+        rc, rs, d0, d1, d2 = (torch.broadcast_to(p, (ch,))
+                              for p in _coupled_params(coeffs, s))
+        s1 = torch.broadcast_to(zi[s, 0], (ch,))
+        s2 = torch.broadcast_to(zi[s, 1], (ch,))
+        ys, p1, p2 = [], [], []
+        for t in range(n):
+            p1.append(s1)
+            p2.append(s2)
+            ys.append(d0 * v[t] + d1 * s1 + d2 * s2)
+            s1, s2 = rc * s1 - rs * s2 + v[t], rs * s1 + rc * s2
+        ins.append(v)
+        lagged.append((torch.stack(p1), torch.stack(p2)) if n else (v, v))
+        v = torch.stack(ys) if n else v
+    g = torch.broadcast_to(gy, (n, ch))
+    gco = torch.zeros((nsec, ch, 11), dtype=torch.float32, device=dev)
+    gzi = torch.zeros((nsec, 2, ch), dtype=torch.float32, device=dev)
+    for s in range(nsec - 1, -1, -1):
+        rc, rs, d0, d1, d2 = (torch.broadcast_to(p, (ch,))
+                              for p in _coupled_params(coeffs, s))
+        if gzf is None:
+            l1 = l2 = torch.zeros((ch,), dtype=torch.float32, device=dev)
+        else:
+            l1 = torch.broadcast_to(gzf[s, 0], (ch,))
+            l2 = torch.broadcast_to(gzf[s, 1], (ch,))
+        i1, i2 = d1 * g, d2 * g
+        lam1, lam2 = [None] * n, [None] * n
+        for t in range(n - 1, -1, -1):
+            lam1[t], lam2[t] = l1, l2
+            l1, l2 = rc * l1 + rs * l2 + i1[t], rc * l2 - rs * l1 + i2[t]
+        gzi[s, 0], gzi[s, 1] = l1, l2
+        if not n:
+            continue
+        L1, L2 = torch.stack(lam1), torch.stack(lam2)
+        S1, S2 = lagged[s]
+        gco[s, :, 6] = (L1 * S1 + L2 * S2).sum(0)
+        gco[s, :, 7] = (L2 * S1 - L1 * S2).sum(0)
+        gco[s, :, 8] = (g * ins[s]).sum(0)
+        gco[s, :, 9] = (g * S1).sum(0)
+        gco[s, :, 10] = (g * S2).sum(0)
+        g = d0 * g + L1
+    return gco, g, gzi
+
+
 def sosfilt_scan(coeffs, x):
     """Zero-initial-state cascade in plain PyTorch:
     :func:`sosfilt_stream_scan` from zero state.  ``coeffs`` ``(nsec, ch,

@@ -38,6 +38,7 @@ import ctypes
 import numpy as np
 import torch
 
+from signals_tpu_torch.compiler import filters as _filters
 from signals_tpu_torch.compiler.filters import (sosfilt_scan,
                                                  sosfilt_stream_scan)
 from signals_tpu_torch.core.mathx import _SIN2PI_COEFFS, sin2pi
@@ -46,8 +47,10 @@ from signals_tpu_torch.core.xp import TorchXP
 OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
 
 #: launches of each hand-written kernel since :func:`reset_launch_counts`
+#: (``*_vjp``: the backward kernels of ``csrc/adjoint.cu``)
 LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0,
-            'stream': 0}
+            'stream': 0, 'segments_gen_vjp': 0, 'segments_vjp': 0,
+            'batch_vjp': 0, 'timeline_vjp': 0, 'stream_vjp': 0}
 
 #: sections per lane the segment kernels take (the Butterworth designs: 1
 #: for low/high-pass, 2 for band-pass/band-stop)
@@ -114,6 +117,14 @@ def _outputs(lib, coeffs, seg_frames, context, blocks_per_seg, lanes,
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _needs_grad(*tensors) -> bool:
+    """Whether a call must record its backward: grad mode is on and an
+    input requires grad.  Otherwise the entry runs as a plain forward and
+    saves nothing (the serving paths)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 # --- the generator-fed cascade ------------------------------------------------
@@ -231,18 +242,28 @@ def sosfilt_segments_gen(coeffs, toff, lanef, *, n_segments: int,
     kw = dict(n_segments=n_segments, seg_frames=seg_frames,
               context=context, osc_code=osc_code, rate=rate,
               sum_groups=sum_groups, blocks_per_seg=m)
+    if _needs_grad(coeffs, lanef):
+        return _SegmentsGenFn.apply(coeffs, toff, lanef, kw)
+    return _segments_gen_run(coeffs, toff, lanef, kw)
+
+
+def _segments_gen_run(coeffs, toff, lanef, kw):
+    """The forward of :func:`sosfilt_segments_gen` on checked inputs: the
+    plain version on the CPU, the kernel on a GPU."""
     if _device_kind(coeffs, toff, lanef) == 'cpu':
         return sosfilt_segments_gen_plain(coeffs, toff, lanef, **kw)
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
+    F, C, m, g = (kw['seg_frames'], kw['context'], kw['blocks_per_seg'],
+                  kw['sum_groups'])
+    lanes = coeffs.shape[2]
     coeffs, toff, lanef = (t.contiguous() for t in (coeffs, toff, lanef))
-    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, context,
-                                          m, lanes, sum_groups)
+    out, _partial, partial_ptr = _outputs(lib, coeffs, F, C, m, lanes, g)
     code = lib.sosfilt_segments_gen_launch(
         coeffs.data_ptr(), toff.data_ptr(), lanef.data_ptr(),
-        float(np.float32(1.0 / rate)), osc_code, _SIN_C, out.data_ptr(),
-        partial_ptr, n_segments, coeffs.shape[1], lanes, seg_frames, context,
-        m, sum_groups, _stream(coeffs.device))
+        float(np.float32(1.0 / kw['rate'])), kw['osc_code'], _SIN_C,
+        out.data_ptr(), partial_ptr, kw['n_segments'], coeffs.shape[1],
+        lanes, F, C, m, g, _stream(coeffs.device))
     _build.check(code, 'sosfilt_segments_gen')
     LAUNCHES['segments_gen'] += 1
     return out
@@ -302,18 +323,27 @@ def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
                           sum_groups, m)
     kw = dict(n_segments=n_segments, seg_frames=seg_frames,
               context=context, sum_groups=sum_groups, blocks_per_seg=m)
+    if _needs_grad(coeffs, x):
+        return _SegmentsFn.apply(coeffs, x, kw)
+    return _segments_run(coeffs, x, kw)
+
+
+def _segments_run(coeffs, x, kw):
+    """The forward of :func:`sosfilt_segments` on the checked, padded and
+    broadcast inputs."""
     if _device_kind(coeffs, x) == 'cpu':
         return sosfilt_segments_plain(coeffs, x, **kw)
     from signals_tpu_torch.compiler import _build
     lib = _build.library()
+    F, C, m, g = (kw['seg_frames'], kw['context'], kw['blocks_per_seg'],
+                  kw['sum_groups'])
+    lanes = coeffs.shape[2]
     coeffs = coeffs.contiguous()
-    out, _partial, partial_ptr = _outputs(lib, coeffs, seg_frames, context,
-                                          m, lanes, sum_groups)
+    out, _partial, partial_ptr = _outputs(lib, coeffs, F, C, m, lanes, g)
     code = lib.sosfilt_segments_launch(
         coeffs.data_ptr(), x.data_ptr(), *x.stride(), out.data_ptr(),
-        partial_ptr,
-        n_segments, coeffs.shape[1], lanes, seg_frames, context, m,
-        sum_groups, _stream(coeffs.device))
+        partial_ptr, kw['n_segments'], coeffs.shape[1], lanes, F, C, m, g,
+        _stream(coeffs.device))
     _build.check(code, 'sosfilt_segments')
     LAUNCHES['segments'] += 1
     return out
@@ -389,6 +419,13 @@ def sosfilt_timeline(coeffs, x):
     The kernel reads ``x`` and ``coeffs`` through their strides: a strided
     or broadcast view is not copied."""
     nsec, ch, coeffs, x = _timeline_args(coeffs, x)
+    if _needs_grad(coeffs, x):
+        return _TimelineFn.apply(coeffs, x)
+    return _timeline_run(coeffs, x)
+
+
+def _timeline_run(coeffs, x):
+    nsec, ch = coeffs.shape[0], coeffs.shape[1]
     if _device_kind(coeffs, x) == 'cpu':
         return sosfilt_timeline_plain(coeffs, x)
     out = torch.empty((x.shape[0], ch), dtype=torch.float32, device=x.device)
@@ -419,6 +456,13 @@ def sosfilt_stream(coeffs, x, zi):
     coeffs = torch.broadcast_to(coeffs, (nsec, ch, 11))
     x = torch.broadcast_to(x, (x.shape[0], ch))
     zi = _check_state(zi, (nsec, 2, ch), 'zi')
+    if _needs_grad(coeffs, x, zi):
+        return _StreamFn.apply(coeffs, x, zi)
+    return _stream_run(coeffs, x, zi)
+
+
+def _stream_run(coeffs, x, zi):
+    nsec, ch = coeffs.shape[0], coeffs.shape[1]
     if _device_kind(coeffs, x, zi) == 'cpu':
         return sosfilt_stream_plain(coeffs, x, zi)
     out = torch.empty((x.shape[0], ch), dtype=torch.float32, device=x.device)
@@ -490,6 +534,16 @@ def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False):
     if zi is not None:
         zi = _check_state(zi, (B, nsec, 2, ch), 'zi')
         tensors.append(zi)
+    if _needs_grad(*tensors):
+        y, zf = _BatchFn.apply(coeffs, x_t, zi, tail)
+        return (y, zf) if return_state else y
+    return _batch_run(coeffs, x_t, zi, tail, return_state)
+
+
+def _batch_run(coeffs, x_t, zi, tail, return_state):
+    L, B = x_t.shape[0], x_t.shape[1]
+    nsec, ch = coeffs.shape[1], coeffs.shape[2]
+    tensors = [coeffs, x_t] + ([] if zi is None else [zi])
     if _device_kind(*tensors) == 'cpu':
         return sosfilt_batch_plain(coeffs, x_t, tail=tail, zi=zi,
                                    return_state=return_state)
@@ -510,3 +564,408 @@ def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False):
     _build.check(code, 'sosfilt_batch')
     LAUNCHES['batch'] += 1
     return (out, zf) if return_state else out
+
+
+# --- backward: the adjoint kernels and their plain versions -------------------
+#
+# Every entry above is differentiable: called with an input that requires
+# grad, it runs as a ``torch.autograd.Function`` whose forward is the entry
+# itself and whose backward is the analytic adjoint of the cascade
+# (:func:`signals_tpu_torch.compiler.filters.sosfilt_stream_vjp_plain`):
+# on a GPU the hand-written kernels of ``csrc/adjoint.cu`` (``B1``
+# ``seg_cascade_vjp<GEN = true>``, ``B2`` ``seg_cascade_vjp<GEN = false>``,
+# ``B3`` ``rows_cascade_vjp<NSEC>``), on the CPU their plain versions
+# (``*_vjp_plain``).  The JAX package wraps each entry in ``jax.custom_vjp``
+# with the VJP of its scan reference as the backward
+# (``signals_tpu/compiler/pallas_kernels.py:1574-1869``).  Gradients reach
+# columns 6-10 of the coefficients (``rc rs d0 d1 d2``, what the cascade
+# reads); columns 0-5 get zero.  A backward kernel keeps nothing across
+# calls: it recomputes the forward's states into a scratch buffer it is
+# handed for the call.
+
+
+def _scratch(n_lanes: int, n_rows: int, nsec: int, device):
+    """The backward kernels' scratch: per row, lane and section the lagged
+    state (s1, s2), and the input of every section after the first."""
+    return torch.empty(n_lanes * n_rows * (3 * nsec - 1),
+                       dtype=torch.float32, device=device)
+
+
+def _lane_cotangent(gy, sum_groups: int):
+    """The cotangent of each lane's output: with ``sum_groups = g`` lane
+    ``l`` reads its group's, ``l // g``."""
+    return gy.repeat_interleave(sum_groups, dim=-1) if sum_groups else gy
+
+
+def _cascade_windows_vjp_plain(coeffs, xw, gy, *, seg_frames, context,
+                               sum_groups, blocks_per_seg):
+    """The adjoint of :func:`_cascade_windows_plain`: ``(gxw (n_units, C +
+    m*F, lanes), gcoeffs (n_blocks, nsec, lanes, 11))`` from the output's
+    cotangent ``gy``.  A forward pass records the state at each block's
+    start; then the blocks run backwards through the frame-loop adjoint
+    with the state's cotangent carried, the context rows last (under block
+    0's coefficients, so they add to block 0's gradient)."""
+    m, F, C = blocks_per_seg, seg_frames, context
+    n_blocks, nsec, lanes, _ = coeffs.shape
+    n_units = n_blocks // m
+    NL = n_units * lanes
+    x = xw.permute(1, 0, 2).reshape(C + m * F, NL)
+    co = coeffs.reshape(n_units, m, nsec, lanes, 11)
+
+    def block_coeffs(j):
+        return co[:, j].permute(1, 0, 2, 3).reshape(nsec, NL, 11)
+
+    gl = _lane_cotangent(gy, sum_groups).reshape(n_units, m, F, lanes)
+    gl = gl.permute(1, 2, 0, 3).reshape(m, F, NL)
+    zero = torch.zeros((nsec, 2, NL), dtype=torch.float32,
+                       device=coeffs.device)
+    _, z = sosfilt_stream_scan(block_coeffs(0), x[:C], zero)
+    starts = [z]
+    for j in range(m - 1):
+        _, z = sosfilt_stream_scan(block_coeffs(j),
+                                   x[C + j * F:C + (j + 1) * F], z)
+        starts.append(z)
+    gz = None
+    gxs = [None] * m
+    gco = torch.zeros((m, nsec, NL, 11), dtype=torch.float32,
+                      device=coeffs.device)
+    for j in range(m - 1, -1, -1):
+        gco[j], gxs[j], gz = _filters.sosfilt_stream_vjp_plain(
+            block_coeffs(j), x[C + j * F:C + (j + 1) * F], starts[j], gl[j],
+            gz)
+    gco_c, gx_c, _ = _filters.sosfilt_stream_vjp_plain(
+        block_coeffs(0), x[:C], zero, torch.zeros_like(x[:C]), gz)
+    gco[0] += gco_c
+    gxw = torch.cat([gx_c] + gxs).reshape(C + m * F, n_units, lanes)
+    gco = gco.reshape(m, nsec, n_units, lanes, 11).permute(2, 0, 1, 3, 4)
+    return (gxw.permute(1, 0, 2),
+            gco.reshape(n_blocks, nsec, lanes, 11))
+
+
+def _fold_windows(gxw, n_rows: int, step: int):
+    """The cotangent of a timeline read as overlapping windows: window
+    ``u`` (``gxw[u]``, ``W`` rows) covers rows ``[u*step, u*step + W)``.
+    A fixed number of shifted adds, ``ceil(W / step)``, in window order (no
+    atomics: the same bits every time), so a context longer than a
+    segment is folded too."""
+    n_units, W, lanes = gxw.shape
+    k_max = -(-W // step)
+    g = torch.nn.functional.pad(gxw, (0, 0, 0, k_max * step - W))
+    g = g.reshape(n_units, k_max, step, lanes)
+    out = torch.zeros(((n_units + k_max - 1) * step, lanes),
+                      dtype=gxw.dtype, device=gxw.device)
+    for k in range(k_max):
+        out[k * step:(k + n_units) * step] += g[:, k].reshape(-1, lanes)
+    return out[:n_rows]
+
+
+def _source_lanef_grad(toff, lanef, gsrc, kw):
+    """The cotangent of ``lanef`` from the source rows' ``gsrc``: autograd
+    through :func:`gen_source_rows` (elementwise; ``floor`` and ``sign``
+    have zero gradient, as in the JAX package)."""
+    m = kw['blocks_per_seg']
+    with torch.enable_grad():
+        lf = lanef.detach().requires_grad_()
+        xw = gen_source_rows(toff, lf, n_segments=kw['n_segments'] // m,
+                             seg_frames=m * kw['seg_frames'],
+                             context=kw['context'], osc_code=kw['osc_code'],
+                             rate=kw['rate'])
+        (g,) = torch.autograd.grad(xw, lf, gsrc)
+    return g
+
+
+def sosfilt_segments_gen_vjp_plain(coeffs, toff, lanef, gy, *,
+                                   n_segments: int, seg_frames: int,
+                                   context: int, osc_code: int, rate: int,
+                                   sum_groups: int = 0,
+                                   blocks_per_seg: int = 1,
+                                   source_grad: bool = True):
+    """Plain PyTorch version of :func:`sosfilt_segments_gen_vjp`."""
+    m = blocks_per_seg
+    xw = gen_source_rows(toff, lanef, n_segments=n_segments // m,
+                         seg_frames=m * seg_frames, context=context,
+                         osc_code=osc_code, rate=rate)
+    gxw, gco = _cascade_windows_vjp_plain(
+        coeffs, xw, gy, seg_frames=seg_frames, context=context,
+        sum_groups=sum_groups, blocks_per_seg=m)
+    return gco, (gxw if source_grad else None)
+
+
+def sosfilt_segments_gen_vjp(coeffs, toff, lanef, gy, *, n_segments: int,
+                             seg_frames: int, context: int, osc_code: int,
+                             rate: int, sum_groups: int = 0,
+                             blocks_per_seg: int = 1,
+                             source_grad: bool = True):
+    """The backward of :func:`sosfilt_segments_gen` (same geometry): from
+    the output's cotangent ``gy`` (its shape), ``(gcoeffs (n_segments,
+    nsec, lanes, 11), gsrc)`` with ``gsrc`` ``(n_units, C + m*F, lanes)``
+    the cotangent of the synthesized source rows (None unless
+    ``source_grad``).  On a GPU the kernel B1 synthesizes the rows again
+    in-kernel."""
+    m = max(1, int(blocks_per_seg))
+    kw = dict(n_segments=n_segments, seg_frames=seg_frames,
+              context=context, osc_code=osc_code, rate=rate,
+              sum_groups=sum_groups, blocks_per_seg=m)
+    if _device_kind(coeffs, toff, lanef, gy) == 'cpu':
+        return sosfilt_segments_gen_vjp_plain(coeffs, toff, lanef, gy,
+                                              source_grad=source_grad, **kw)
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    coeffs, toff, lanef, gy = (t.contiguous()
+                               for t in (coeffs, toff, lanef, gy))
+    nsec, lanes = coeffs.shape[1], coeffs.shape[2]
+    n_units, n_rows = n_segments // m, context + m * seg_frames
+    gco = torch.zeros_like(coeffs)
+    gsrc = (torch.empty((n_units, n_rows, lanes), dtype=torch.float32,
+                        device=coeffs.device) if source_grad else None)
+    scratch = _scratch(n_units * lanes, n_rows, nsec, coeffs.device)
+    code = lib.sosfilt_segments_vjp_launch(
+        coeffs.data_ptr(), None, 0, 0, toff.data_ptr(), lanef.data_ptr(),
+        float(np.float32(1.0 / rate)), osc_code, _SIN_C, 1, gy.data_ptr(),
+        None if gsrc is None else gsrc.data_ptr(), gco.data_ptr(),
+        scratch.data_ptr(), n_segments, nsec, lanes, seg_frames, context, m,
+        sum_groups, _stream(coeffs.device))
+    _build.check(code, 'sosfilt_segments_gen_vjp')
+    LAUNCHES['segments_gen_vjp'] += 1
+    return gco, gsrc
+
+
+def sosfilt_segments_vjp_plain(coeffs, x, gy, *, n_segments: int,
+                               seg_frames: int, context: int,
+                               sum_groups: int = 0, blocks_per_seg: int = 1):
+    """Plain PyTorch version of :func:`sosfilt_segments_vjp`."""
+    m = blocks_per_seg
+    n_units, L = n_segments // m, context + m * seg_frames
+    xw = x.unfold(0, L, m * seg_frames)[:n_units].permute(0, 2, 1)
+    gxw, gco = _cascade_windows_vjp_plain(
+        coeffs, xw, gy, seg_frames=seg_frames, context=context,
+        sum_groups=sum_groups, blocks_per_seg=m)
+    return gco, _fold_windows(gxw, x.shape[0], m * seg_frames)
+
+
+def sosfilt_segments_vjp(coeffs, x, gy, *, n_segments: int, seg_frames: int,
+                         context: int, sum_groups: int = 0,
+                         blocks_per_seg: int = 1, input_grad: bool = True):
+    """The backward of :func:`sosfilt_segments` on the inputs its kernel
+    reads (``coeffs`` ``(n_segments, nsec, lanes, 11)``, ``x`` the padded
+    ``(C + n_segments*F, lanes)`` timeline, any strides): ``(gcoeffs,
+    gx)``, ``gx`` dense in ``x``'s shape (None without ``input_grad``).  On
+    a GPU the kernel B2 writes each window's input cotangent, which
+    :func:`_fold_windows` folds into the timeline."""
+    m = max(1, int(blocks_per_seg))
+    kw = dict(n_segments=n_segments, seg_frames=seg_frames,
+              context=context, sum_groups=sum_groups, blocks_per_seg=m)
+    if _device_kind(coeffs, x, gy) == 'cpu':
+        gco, gx = sosfilt_segments_vjp_plain(coeffs, x, gy, **kw)
+        return gco, gx if input_grad else None
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    coeffs, gy = coeffs.contiguous(), gy.contiguous()
+    nsec, lanes = coeffs.shape[1], coeffs.shape[2]
+    n_units, n_rows = n_segments // m, context + m * seg_frames
+    gco = torch.zeros_like(coeffs)
+    gxw = (torch.empty((n_units, n_rows, lanes), dtype=torch.float32,
+                       device=coeffs.device) if input_grad else None)
+    scratch = _scratch(n_units * lanes, n_rows, nsec, coeffs.device)
+    code = lib.sosfilt_segments_vjp_launch(
+        coeffs.data_ptr(), x.data_ptr(), *x.stride(), None, None, 0.0, 0,
+        None, 0, gy.data_ptr(), None if gxw is None else gxw.data_ptr(),
+        gco.data_ptr(), scratch.data_ptr(), n_segments, nsec, lanes,
+        seg_frames, context, m, sum_groups, _stream(coeffs.device))
+    _build.check(code, 'sosfilt_segments_vjp')
+    LAUNCHES['segments_vjp'] += 1
+    if gxw is None:
+        return gco, None
+    return gco, _fold_windows(gxw, x.shape[0], m * seg_frames)
+
+
+def sosfilt_batch_vjp_plain(coeffs, x_t, gy, *, tail=None, zi=None,
+                            gzf=None):
+    """Plain PyTorch version of :func:`sosfilt_batch_vjp`: the windows ride
+    the channel axis of the frame-loop adjoint."""
+    L, B = x_t.shape[0], x_t.shape[1]
+    nsec, ch = coeffs.shape[1], max(coeffs.shape[2], x_t.shape[2])
+    tail = L if tail is None else tail
+    co = torch.broadcast_to(coeffs, (B, nsec, ch, 11)).permute(1, 0, 2, 3)
+    x = torch.broadcast_to(x_t, (L, B, ch)).reshape(L, B * ch)
+
+    def lanes_of(z):
+        return torch.broadcast_to(z, (B, nsec, 2, ch)).permute(
+            1, 2, 0, 3).reshape(nsec, 2, B * ch)
+
+    z = (torch.zeros((nsec, 2, B * ch), dtype=torch.float32,
+                     device=x.device) if zi is None else lanes_of(zi))
+    g = torch.zeros((L, B * ch), dtype=torch.float32, device=x.device)
+    g[L - tail:] = gy.reshape(tail, B * ch)
+    gco, gx, gzi = _filters.sosfilt_stream_vjp_plain(
+        co.reshape(nsec, B * ch, 11), x, z, g,
+        None if gzf is None else lanes_of(gzf))
+    gco = gco.reshape(nsec, B, ch, 11).permute(1, 0, 2, 3).contiguous()
+    gzi = (None if zi is None else
+           gzi.reshape(nsec, 2, B, ch).permute(2, 0, 1, 3).contiguous())
+    return gco, gx.reshape(L, B, ch), gzi
+
+
+def _rows_vjp(coeffs, x_t, gy, tail, zi, gzf, what: str):
+    """B3 over ``(L, B, ch)`` windows: ``(gcoeffs (B, nsec, ch, 11), gx
+    (L, B, ch), gzi or None)``; ``coeffs`` and ``x_t`` any strides (the
+    forward's views), ``zi``/``gzf`` ``(B, nsec, 2, ch)`` or None."""
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    L, B, ch = x_t.shape
+    nsec = coeffs.shape[1]
+    dev = x_t.device
+    coeffs = _columns_contiguous(coeffs)
+    gy = gy.contiguous()
+    zi = None if zi is None else zi.contiguous()
+    gzf = None if gzf is None else gzf.contiguous()
+    gco = torch.zeros((B, nsec, ch, 11), dtype=torch.float32, device=dev)
+    gx = torch.empty((L, B, ch), dtype=torch.float32, device=dev)
+    gzi = None if zi is None else torch.empty_like(zi)
+    if B * ch == 0 or L == 0:
+        return gco, gx.zero_(), None if gzi is None else gzi.zero_()
+    scratch = _scratch(B * ch, L, nsec, dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = lib.sosfilt_rows_vjp_launch(
+        coeffs.data_ptr(), *coeffs.stride()[:3], x_t.data_ptr(),
+        *x_t.stride(), ptr(zi), gy.data_ptr(), ptr(gzf), gx.data_ptr(),
+        gco.data_ptr(), ptr(gzi), scratch.data_ptr(), nsec, B, ch, L, tail,
+        _stream(dev))
+    _build.check(code, what)
+    LAUNCHES[what.replace('sosfilt_', '')] += 1
+    return gco, gx, gzi
+
+
+def sosfilt_batch_vjp(coeffs, x_t, gy, *, tail=None, zi=None, gzf=None):
+    """The backward of :func:`sosfilt_batch` on the inputs its kernel reads
+    (``coeffs`` ``(B, nsec, ch, 11)``, ``x_t`` ``(L, B, ch)``, both at the
+    full channel count, any strides; ``zi`` ``(B, nsec, 2, ch)`` or None):
+    from ``gy`` ``(tail, B, ch)`` and the end state's ``gzf`` (or None),
+    ``(gcoeffs, gx (L, B, ch), gzi)``, ``gzi`` None without ``zi``.  On a
+    GPU the kernel B3."""
+    L = x_t.shape[0]
+    tail = L if tail is None else int(tail)
+    if _device_kind(*[t for t in (coeffs, x_t, gy, zi, gzf)
+                      if t is not None]) == 'cpu':
+        return sosfilt_batch_vjp_plain(coeffs, x_t, gy, tail=tail, zi=zi,
+                                       gzf=gzf)
+    return _rows_vjp(coeffs, x_t, gy, tail, zi, gzf, 'sosfilt_batch_vjp')
+
+
+def sosfilt_timeline_vjp_plain(coeffs, x, gy):
+    """Plain PyTorch version of :func:`sosfilt_timeline_vjp`."""
+    zi = torch.zeros((coeffs.shape[0], 2, coeffs.shape[1]),
+                     dtype=torch.float32, device=x.device)
+    gco, gx, _ = _filters.sosfilt_stream_vjp_plain(coeffs, x, zi, gy)
+    return gco, gx
+
+
+def sosfilt_timeline_vjp(coeffs, x, gy):
+    """The backward of :func:`sosfilt_timeline` (``coeffs`` ``(nsec, ch,
+    11)`` and ``x`` ``(N, ch)`` at the full channel count): ``(gcoeffs,
+    gx)``.  On a GPU the kernel B3 over one window."""
+    if _device_kind(coeffs, x, gy) == 'cpu':
+        return sosfilt_timeline_vjp_plain(coeffs, x, gy)
+    gco, gx, _ = _rows_vjp(coeffs[None], x[:, None], gy[:, None], x.shape[0],
+                           None, None, 'sosfilt_timeline_vjp')
+    return gco[0], gx[:, 0]
+
+
+# the plain version of :func:`sosfilt_stream_vjp`
+sosfilt_stream_vjp_plain = _filters.sosfilt_stream_vjp_plain
+
+
+def sosfilt_stream_vjp(coeffs, x, zi, gy, gzf=None):
+    """The backward of :func:`sosfilt_stream` (``coeffs`` ``(nsec, ch,
+    11)``, ``x`` ``(N, ch)``, ``zi`` ``(nsec, 2, ch)``, all at the full
+    channel count): from ``gy`` and the end state's ``gzf`` (or None),
+    ``(gcoeffs, gx, gzi)``.  On a GPU the kernel B3 from ``zi``."""
+    if _device_kind(*[t for t in (coeffs, x, zi, gy, gzf)
+                      if t is not None]) == 'cpu':
+        return sosfilt_stream_vjp_plain(coeffs, x, zi, gy, gzf)
+    gco, gx, gzi = _rows_vjp(coeffs[None], x[:, None], gy[:, None],
+                             x.shape[0], zi[None],
+                             None if gzf is None else gzf[None],
+                             'sosfilt_stream_vjp')
+    return gco[0], gx[:, 0], gzi[0]
+
+
+class _SegmentsGenFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, toff, lanef, kw):
+        ctx.save_for_backward(coeffs, toff, lanef)
+        ctx.kw = kw
+        return _segments_gen_run(coeffs, toff, lanef, kw)
+
+    @staticmethod
+    def backward(ctx, gy):
+        coeffs, toff, lanef = ctx.saved_tensors
+        gco, gsrc = sosfilt_segments_gen_vjp(
+            coeffs, toff, lanef, gy, source_grad=ctx.needs_input_grad[2],
+            **ctx.kw)
+        glf = (None if gsrc is None
+               else _source_lanef_grad(toff, lanef, gsrc, ctx.kw))
+        return gco, None, glf, None
+
+
+class _SegmentsFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, x, kw):
+        ctx.save_for_backward(coeffs, x)
+        ctx.kw = kw
+        return _segments_run(coeffs, x, kw)
+
+    @staticmethod
+    def backward(ctx, gy):
+        coeffs, x = ctx.saved_tensors
+        gco, gx = sosfilt_segments_vjp(
+            coeffs, x, gy, input_grad=ctx.needs_input_grad[1], **ctx.kw)
+        return gco, gx, None
+
+
+class _BatchFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, x_t, zi, tail):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(coeffs, x_t, zi)
+        ctx.tail = tail
+        return _batch_run(coeffs, x_t, zi, tail, True)
+
+    @staticmethod
+    def backward(ctx, gy, gzf):
+        coeffs, x_t, zi = ctx.saved_tensors
+        L, B = x_t.shape[0], x_t.shape[1]
+        gy = (torch.zeros((ctx.tail, B, x_t.shape[2]), dtype=torch.float32,
+                          device=x_t.device) if gy is None else gy)
+        gco, gx, gzi = sosfilt_batch_vjp(coeffs, x_t, gy, tail=ctx.tail,
+                                         zi=zi, gzf=gzf)
+        return gco, gx, gzi, None
+
+
+class _TimelineFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, x):
+        ctx.save_for_backward(coeffs, x)
+        return _timeline_run(coeffs, x)
+
+    @staticmethod
+    def backward(ctx, gy):
+        coeffs, x = ctx.saved_tensors
+        return sosfilt_timeline_vjp(coeffs, x, gy)
+
+
+class _StreamFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, coeffs, x, zi):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(coeffs, x, zi)
+        return _stream_run(coeffs, x, zi)
+
+    @staticmethod
+    def backward(ctx, gy, gzf):
+        coeffs, x, zi = ctx.saved_tensors
+        gy = torch.zeros_like(x) if gy is None else gy
+        return sosfilt_stream_vjp(coeffs, x, zi, gy, gzf)

@@ -62,6 +62,20 @@ def _hadamard_mix(cols, fed):
     return acc
 
 
+def _refuse_grad(*values) -> None:
+    """Fitting through the FDN is not ported: its whole-window advance
+    writes its timeline in place and replays a captured CUDA graph, which
+    autograd does not record.  A value that requires grad (a trainable
+    upstream, or the reverb's own ``t60``/``mix`` trained) raises here
+    instead of giving a wrong or silently detached gradient."""
+    if torch.is_grad_enabled() and any(
+            isinstance(v, torch.Tensor) and v.requires_grad for v in values):
+        raise NotImplementedError(
+            'Reverb: fitting through a reverb is not ported yet (a '
+            'trainable parameter reaches it with grad enabled); train the '
+            'patch without it, or render under torch.no_grad()')
+
+
 @register()
 class Reverb(StatefulEmitter, ImplicitChannels, Receiver):
     """8-line Hadamard FDN reverb.
@@ -123,6 +137,7 @@ class Reverb(StatefulEmitter, ImplicitChannels, Receiver):
         L = buf.shape[0]
 
         x = xp.broadcast_to(ctx.in_('input'), (F, ch))
+        _refuse_grad(x, buf, ctx.param('t60'), ctx.param('mix'))
 
         # per-line delayed output: static slices (len_i >= F guaranteed)
         outs = xp.concatenate(
@@ -183,6 +198,7 @@ class Reverb(StatefulEmitter, ImplicitChannels, Receiver):
         mixp = ctx.xp.asarray(ctx.param('mix'),
                               dtype=torch.float32).reshape(())
         x = torch.broadcast_to(ctx.in_('input'), (T, ch))
+        _refuse_grad(x, g, mixp, carry['lines'])
         inject = (x * F32(1.0 / n_lines))[:, None, :]
         buf = carry['lines']                       # (L, n_lines, ch)
         L = buf.shape[0]

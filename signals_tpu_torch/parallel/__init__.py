@@ -198,3 +198,60 @@ class PolyPatch:
         mix, carry2 = self.render_fn(n_blocks)(params, carry, position)
         F = self.compiled.block_frames
         return mix.reshape(n_blocks * F, self._out_channels), carry2
+
+    def fit(self, target, trainable, *, steps: int = 200,
+            learning_rate: float = 0.02, loss=None,
+            steps_per_dispatch: int = None, position: int = 0,
+            apply: bool = True, relative_lr: bool = False):
+        """Gradient-fit parameters of the poly patch against target MIX
+        audio (``(frames,)`` or ``(frames, out_ch)``).
+
+        ``trainable``: ``(node, pname)`` pairs; a pair naming a per-voice
+        override trains the whole per-voice row (e.g. 64 per-voice gains
+        fit together against one mixed target).  The loss renders through
+        the same plan as :meth:`render` (the mix-epilogue plan where the
+        patch allows it: the backward of the in-kernel voice sum hands each
+        lane its group's cotangent).  ``loss`` defaults to
+        :func:`signals_tpu_torch.learn.spectral_loss`; ``steps_per_dispatch``
+        and ``relative_lr`` as in :func:`signals_tpu_torch.learn.fit`.  With
+        ``apply=True`` fitted overrides are written back through
+        :meth:`set_override` and fitted shared params into the live node
+        states.  Returns a :class:`signals_tpu_torch.learn.FitResult`."""
+        from signals_tpu_torch import learn
+        compiled = self.compiled
+        F = compiled.block_frames
+        target, n_blocks = learn._conform_target(target, F, self.device)
+        compiled.check_position(position, n_blocks)
+        loss = learn.spectral_loss if loss is None else loss
+        render = self.render_fn(n_blocks)
+        params, _ = self.params()
+        carry0 = compiled.carry0
+        index = compiled.index
+        train = learn._split_train(params, {(index.info(node).uid, pname)
+                                            for node, pname in trainable})
+
+        def loss_fn(tp, target, full_params):
+            mix, _ = render(learn._merge_train(full_params, tp), carry0,
+                            position)
+            return loss(mix.reshape(n_blocks * F, self._out_channels),
+                        target)
+
+        train, losses = learn.fused_descent(
+            loss_fn, train, steps=steps, learning_rate=learning_rate,
+            steps_per_dispatch=steps_per_dispatch, loss_args=(target, params),
+            lr_scale=learn._relative_scale(train) if relative_lr else None)
+
+        final = learn._merge_train(params, train)
+        if apply:
+            axes = {(id(n), p): axis
+                    for n, p, axis, _ in self._channel_overrides}
+            for node, pname in trainable:
+                fitted = final[index.info(node).uid][pname]
+                axis = axes.get((id(node), pname))
+                if axis is None:
+                    learn.write_back(node, pname, fitted)
+                else:
+                    fitted = fitted.detach().cpu().numpy()
+                    self.set_override(node, pname,
+                                      fitted[0] if axis == 1 else fitted)
+        return learn.FitResult(params=final, losses=np.asarray(losses))

@@ -102,6 +102,7 @@ _NODE_MODULES = (
     'signals_tpu_torch.nodes.reverb',
     'signals_tpu_torch.nodes.dyn',
     'signals_tpu_torch.nodes.vis',
+    'signals_tpu_torch.nodes.wavetable',
 )
 
 _loaded = False

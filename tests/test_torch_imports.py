@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``signals_tpu_torch``
-(the node library included) pulls in neither ``jax`` nor the JAX package
-nor matplotlib, builds no kernel, and leaves TF32 off."""
+(the node library and ``learn`` included) pulls in neither ``jax``,
+``optax`` nor the JAX package nor matplotlib, builds no kernel, and leaves
+TF32 off."""
 
 import pathlib
 import subprocess
@@ -16,8 +17,10 @@ for m in pkgutil.walk_packages(signals_tpu_torch.__path__, 'signals_tpu_torch.')
 from signals_tpu_torch import registry
 registry.ensure_loaded()
 from signals_tpu_torch.compiler import _build
+assert 'signals_tpu_torch.learn' in sys.modules
+assert 'signals_tpu_torch.nodes.wavetable' in sys.modules
 bad = sorted(n for n in sys.modules
-             if n.split('.')[0] in ('jax', 'jaxlib', 'signals_tpu'))
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu'))
 assert not bad, bad
 assert 'matplotlib' not in sys.modules
 assert _build._lib is None
@@ -55,3 +58,6 @@ def test_registry_keeps_reference_qualnames():
                       (dyn, 'Limiter')):
         assert load_signal(f'{mod.__name__}.{name}') is getattr(mod, name)
     assert osc.Sawtooth.cls_name() == 'signals_tpu_torch.nodes.osc.Sawtooth'
+    from signals_tpu_torch.nodes import wavetable
+    assert (load_signal('signals_tpu.nodes.wavetable.Wavetable')
+            is wavetable.Wavetable)

@@ -683,8 +683,7 @@ def test_cuda_1024_voice_flagship_mix_plan(cuda_device):
     got, carry = mix_plan.render(n_blocks=nb)
     assert carry == {}
     torch.cuda.synchronize()
-    assert K.LAUNCHES == {'segments_gen': 1, 'segments': 0, 'batch': 0,
-                          'timeline': 0, 'stream': 0}
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {'segments_gen': 1}
     want, _ = poly(mix_epilogue=False).render(n_blocks=nb)
     assert got.shape == (nb * cs.F, 1) and bool(torch.isfinite(got).all())
     assert float(want.abs().max()) > 0.1
