@@ -96,10 +96,15 @@ Seven phases; any failure raises and exits non-zero:
    step, device time a step and busy share printed: (a) each backward
    kernel of ``csrc/adjoint.cu`` against its plain adjoint on the card
    within 1e-5 of each output's largest value and the same bits twice —
-   B1 at the flagship's shape (32 blocks, sum of 64 and per lane), B2 at
-   c9's (517 blocks, C 1024) and the noise voice's (one channel under 64
-   lanes), B3 at the render-ahead, step and carried-state shapes — and
-   its device time at the c8, c9 and flagship-fit shapes beside its bound;
+   B1 at the flagship's shape (32 blocks, sum of 64 and per lane), at the
+   flagship fit's (64 blocks) and at c8's (43 blocks, C 1024), B2 at c9's
+   (517 blocks, C 1024) and the noise voice's (one channel under 64
+   lanes), both at the edges of their time-sliced scan (``VJP_EDGES``:
+   block starts inside a chunk, 5 lanes, two sections, F 24, 30 Hz and
+   15-18 kHz poles, 1024 blocks), B3 at the render-ahead, step and
+   carried-state shapes — and its device time at the c8, c9 and
+   flagship-fit shapes beside its bound and beside commit bef113c's (the
+   serial walk, which B3 still is), and B2's peak memory at c9;
    (b) c8 (``bench.py:449-546``: 64 saws -> LowPass with a trainable
    ``Fixed`` cutoff -> gain 1/64, 43 blocks): one loss-and-gradient call
    whose cutoff gradient is within 1e-4 of the same call on the plain
@@ -1508,6 +1513,38 @@ VJP_FLOP = 38             # per section and row: the forward row again (12)
 VJP_KERNELS = {'segments_gen_vjp': ('seg_cascade_vjp',),
                'segments_vjp': ('seg_cascade_vjp',),
                'rows_vjp': ('rows_cascade_vjp',)}
+# The backward kernels' device ms at the timed shapes at commit bef113c
+# (one thread per (segment or window, lane) walking its rows through a
+# scratch buffer, as B3 still does; PERF.md section 6, on an H100 80GB
+# HBM3 at 700 W), printed beside this run's
+VJP_BEFORE_MS = {'flagship fit': '3.308-3.380', 'c8': '1.094-1.107',
+                 'c9': '2.031-2.115', 'render-ahead': '0.2735-0.2798'}
+# The edges of B1 / B2's time-sliced adjoint scan (tests/test_torch_vjp.py
+# GEN_VJP_CASES, SEG_VJP_CASES): oscillator (None: B2 on a noise timeline),
+# lanes, blocks, F, C, m, sum group, sections, LowPass cutoffs (None: a
+# band-pass), one input channel under every lane
+VJP_EDGES = {
+    'C 300 (mid-chunk block starts), 5 lanes, sum of 5':
+        ('saw', 5, 8, 256, 300, 4, 5, 1, (500.0, 5000.0), False),
+    'two sections, C 300, 48 lanes, sum of 48':
+        ('saw', 48, 8, 256, 300, 4, 48, 2, None, False),
+    'F 24, m 8 (chunks across block starts)':
+        ('saw', 64, 16, 24, 40, 8, 0, 1, (500.0, 5000.0), False),
+    '30 Hz poles, sum of 64':
+        ('saw', 64, 16, 256, 128, 8, 64, 1, (30.0, 30.0), False),
+    '15-18 kHz poles, sine':
+        ('sine', 64, 16, 256, 128, 8, 0, 1, (15000.0, 18000.0), False),
+    '1024 blocks, sum of 64 (fewer lanes a block to fit shared memory)':
+        ('saw', 64, 1024, F, C, M, 64, 1, (600.0, 5000.0), False),
+    'C 96, one channel':
+        (None, 64, 8, 256, 96, 1, 0, 1, (500.0, 5000.0), True),
+    'C 300, 5 lanes, m 4':
+        (None, 5, 8, 256, 300, 4, 0, 1, (500.0, 5000.0), False),
+    'F 24, m 8, two sections':
+        (None, 48, 16, 24, 40, 8, 0, 2, None, False),
+    '30 Hz poles, m 8':
+        (None, 64, 8, 256, 512, 8, 0, 1, (30.0, 30.0), False),
+}
 
 
 def port_sig(node, *ports):
@@ -1614,16 +1651,71 @@ def vjp_case(name, call, plain, *, bits=True):
     return err, plain_ms
 
 
-def vjp_time(name, call, kernels, flops, nbytes, card):
-    """Device ms of a backward kernel at one shape, beside its bound."""
+def vjp_time(name, call, kernels, flops, nbytes, card, before):
+    """Device ms of a backward kernel at one shape, beside its bound and
+    its device ms at commit bef113c (``VJP_BEFORE_MS``)."""
     dms = device_ms(call, 3, kernels)
     b_ms, b_by = bound(flops, nbytes)
     dtxt = 'not measured' if dms is None else f'{dms:.4f} ms'
     share = 'not measured' if dms is None else f'{b_ms / dms:.4f}'
     print(f'[fit] {name}: device {dtxt} (profiler), bound {b_ms:.4f} ms '
           f'({b_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), '
-          f'share {share}  [{card}]')
+          f'share {share}; bef113c: {VJP_BEFORE_MS[before]} ms  '
+          f'[{card}]')
     return dms, b_ms, b_by
+
+
+def vjp_edges(rng, dev):
+    """B1 / B2 against their plain adjoints at ``VJP_EDGES``: each output
+    within TOL of its largest |value|, the same bits twice.  Returns the
+    largest error of each kernel."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
+    errs = {'segments_gen_vjp': 0.0, 'segments_vjp': 0.0}
+    nyq = np.float32(RATE / 2)
+    for name, (osc, lanes, nb, f, ctx, m, g, nsec, cuts,
+               one_ch) in VJP_EDGES.items():
+        def uniform(lo, hi):
+            return torch.as_tensor(rng.uniform(lo, hi, (1, nb * lanes))
+                                   .astype(np.float32), device=dev)
+        co = (design_coupled(TorchXP(dev), 'lp', (uniform(*cuts),), nyq)
+              if cuts else design_coupled(TorchXP(dev), 'bp', (
+                  uniform(200.0, 800.0), uniform(2000.0, 6000.0)), nyq))
+        co = co.reshape(nsec, nb, lanes, 11).permute(1, 0, 2, 3).contiguous()
+        gy = torch.as_tensor(rng.standard_normal(
+            (nb, f, lanes // g if g else lanes)).astype(np.float32),
+            device=dev)
+        kw = dict(n_segments=nb, seg_frames=f, context=ctx, sum_groups=g,
+                  blocks_per_seg=m)
+        if osc is None:
+            x = torch.as_tensor(rng.standard_normal(
+                (ctx + nb * f, 1 if one_ch else lanes)).astype(np.float32),
+                device=dev)
+            co, x = K._timeline(co, x, nb, f, ctx)
+            kernel = 'segments_vjp'
+            call = lambda: K.sosfilt_segments_vjp(        # noqa: E731
+                co, x, gy, **kw)
+            plain = lambda: K.sosfilt_segments_vjp_plain(  # noqa: E731
+                co, x, gy, **kw)
+        else:
+            toff = torch.full((lanes,), -ctx, dtype=torch.int32, device=dev)
+            lanef = torch.as_tensor(np.stack([
+                rng.uniform(100.0, 1000.0, lanes),
+                rng.uniform(0.0, 0.5, lanes),
+                np.ones(lanes)]).astype(np.float32), device=dev)
+            kw.update(osc_code={'saw': K.OSC_SAW, 'sine': K.OSC_SINE}[osc],
+                      rate=RATE)
+            kernel = 'segments_gen_vjp'
+            call = lambda: K.sosfilt_segments_gen_vjp(    # noqa: E731
+                co, toff, lanef, gy, **kw)
+            plain = lambda: K.sosfilt_segments_gen_vjp_plain(  # noqa: E731
+                co, toff, lanef, gy, **kw)
+        err, _ = vjp_case(f'{"B1" if osc else "B2"} edge: {name}', call,
+                          plain)
+        errs[kernel] = max(errs[kernel], err)
+    return errs
 
 
 def seg_vjp_work(n_blocks, m, ctx, lanes, nsec, gy_width, *, synth,
@@ -1692,7 +1784,8 @@ def vjp_kernels(card):
                            x_bytes=16 * V, gx_bytes=0)
     dms, b_ms, b_by = vjp_time(
         f'B1 at the flagship fit ({FIT_BLOCKS} blocks, m {M}, C {C}, sum of '
-        f'{V})', call, VJP_KERNELS['segments_gen_vjp'], fl, nb_, card)
+        f'{V})', call, VJP_KERNELS['segments_gen_vjp'], fl, nb_, card,
+        'flagship fit')
     ms = cuda_ms(call, 5)
     out['segments_gen_vjp'] = dict(err=max(errs), ms=ms, plain_ms=plain_ms,
                                    device_ms=dms, bound_ms=b_ms,
@@ -1703,13 +1796,22 @@ def vjp_kernels(card):
     c8gy = randn(C8_BLOCKS, F, V)
     c8kw = dict(n_segments=C8_BLOCKS, seg_frames=F, context=C8_C,
                 osc_code=K.OSC_SAW, rate=RATE, blocks_per_seg=1)
+    err, _ = vjp_case(
+        f'B1 segments_gen_vjp, c8 shape ({C8_BLOCKS} blocks, C {C8_C}, per '
+        f'lane, no source cotangent)',
+        lambda: K.sosfilt_segments_gen_vjp(c8co, c8toff, lanef, c8gy,
+                                           **c8kw, source_grad=False),
+        lambda: K.sosfilt_segments_gen_vjp_plain(c8co, c8toff, lanef, c8gy,
+                                                 **c8kw, source_grad=False))
+    errs.append(err)
+    out['segments_gen_vjp']['err'] = max(errs)
     fl, nb_ = seg_vjp_work(C8_BLOCKS, 1, C8_C, V, 1, V,
                            synth=synth_flop(lanef, c8toff, C8_BLOCKS, C8_C, F),
                            x_bytes=16 * V, gx_bytes=0)
     vjp_time(f'B1 at c8 ({C8_BLOCKS} blocks, m 1, C {C8_C}, per lane)',
              lambda: K.sosfilt_segments_gen_vjp(
                  c8co, c8toff, lanef, c8gy, **c8kw, source_grad=False),
-             VJP_KERNELS['segments_gen_vjp'], fl, nb_, card)
+             VJP_KERNELS['segments_gen_vjp'], fl, nb_, card, 'c8')
     del co, gy, c8co, c8gy
     torch.cuda.empty_cache()
 
@@ -1728,8 +1830,18 @@ def vjp_kernels(card):
     fl, nb_ = seg_vjp_work(nb, 1, C9_C, V, 1, V, synth=0,
                            x_bytes=x.numel() * 4, gx_bytes=x.numel() * 4)
     dms, b_ms, b_by = vjp_time(f'B2 at c9 ({nb} blocks)', call,
-                               VJP_KERNELS['segments_vjp'], fl, nb_, card)
+                               VJP_KERNELS['segments_vjp'], fl, nb_, card,
+                               'c9')
     ms = cuda_ms(call, 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    print(f'[fit] B2 at c9: peak memory {peak / 2**20:.1f} MiB, '
+          f'{(peak - held) / 2**20:.1f} MiB over the {held / 2**20:.1f} MiB '
+          f'held before the call (its inputs)  [{card}]')
     del co, x, gy
     torch.cuda.empty_cache()
     # ... and at the noise voice's shape: one channel under 64 lanes
@@ -1748,6 +1860,12 @@ def vjp_kernels(card):
     out['segments_vjp'] = dict(err=max(err_c9, err_n), ms=ms,
                                plain_ms=plain_c9, device_ms=dms,
                                bound_ms=b_ms, bound_by=b_by)
+    del co, xn, gy
+    torch.cuda.empty_cache()
+    # ... and both at the edges of their time-sliced scan
+    for name, err in vjp_edges(rng, dev).items():
+        out[name]['err'] = max(out[name]['err'], err)
+    torch.cuda.empty_cache()
 
     # B3: the render-ahead batch, the step's timeline, the carried state
     L, nw = STATIC_C + F, AHEAD
@@ -1765,7 +1883,8 @@ def vjp_kernels(card):
     fl = rows * VJP_FLOP
     nb_ = (2 * co.numel() + gy.numel() + xt.numel() + L * nw * STATIC_CH) * 4
     dms, b_ms, b_by = vjp_time('B3 at the render-ahead shape', call,
-                               VJP_KERNELS['rows_vjp'], fl, nb_, card)
+                               VJP_KERNELS['rows_vjp'], fl, nb_, card,
+                               'render-ahead')
     ms = cuda_ms(call, 20)
     c1, x1, gy1 = co[0], xt[:L], randn(L, STATIC_CH)
     e2, _ = vjp_case(f'B3 timeline_vjp, step shape ({L}, {STATIC_CH})',

@@ -118,8 +118,8 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
                                          i, i, i, i, p]
     lib.sosfilt_batch_launch.restype = i
     lib.sosfilt_segments_vjp_launch.argtypes = [p, p, q, q, p, p, f, i, p,
-                                                i, p, p, p, p, i, i, i, i, i,
-                                                i, i, p]
+                                                i, p, p, p, i, i, i, i, i, i,
+                                                i, p]
     lib.sosfilt_segments_vjp_launch.restype = i
     lib.sosfilt_rows_vjp_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p,
                                             p, p, p, p, i, i, i, i, i, p]

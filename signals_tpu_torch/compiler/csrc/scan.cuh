@@ -1,6 +1,6 @@
 // The time-sliced scan shared by the kernels of this directory (segments.cu,
-// rows.cu): the pieces that cut a run of rows into slices, one thread per
-// (slice, lane), and give every slice its true start state.
+// rows.cu, adjoint.cu): the pieces that cut a run of rows into slices, one
+// thread per (slice, lane), and give every slice its true start state.
 //
 // One section of cascade.cuh is a complex first-order recurrence: with
 // s = s1 + i*s2 and p = rc + i*rs, a row is s' = p*s + x, an affine map that
@@ -49,17 +49,24 @@ __device__ __forceinline__ void set_state(Cascade<NSEC>& cas, int s, Cplx v) {
 // double-buffered in shared memory buf of 2 * blockDim.x; slice k's lane l
 // is thread k*lt + l).  (a2, e2) after (a1, e1) is (a2*a1, a2*e1 + e2).
 // Slice 0 starts from zero.  Every thread of the block calls it.
+// REV: the mirror for a recurrence run from the last row back (the
+// adjoint's lambda): the maps compose from the last slice down, the last
+// slice starts from zero, and the result is the value after slice k's last
+// row.
+template <bool REV = false>
 __device__ __forceinline__ Cplx slice_start(Cplx a, Cplx e, float4* buf,
                                             int k, int n_slices, int lt) {
     const int t = threadIdx.x, n = blockDim.x;
+    const int j = REV ? n_slices - 1 - k : k;     // position in scan order
+    const int step = REV ? -lt : lt;              // to the previous position
     float4 mine = make_float4(a.re, a.im, e.re, e.im);
     int cur = 0;
     __syncthreads();                  // earlier users of buf are done
     buf[t] = mine;
     __syncthreads();
     for (int d = 1; d < n_slices; d *= 2) {
-        if (k >= d) {
-            const float4 prev = buf[cur * n + t - d * lt];
+        if (j >= d) {
+            const float4 prev = buf[cur * n + t - d * step];
             const Cplx ma{mine.x, mine.y};
             const Cplx na = cmul(ma, Cplx{prev.x, prev.y});
             const Cplx ne = cmul(ma, Cplx{prev.z, prev.w});
@@ -70,8 +77,8 @@ __device__ __forceinline__ Cplx slice_start(Cplx a, Cplx e, float4* buf,
         __syncthreads();
     }
     Cplx s{0.f, 0.f};
-    if (k > 0) {
-        const float4 p = buf[cur * n + t - lt];
+    if (j > 0) {
+        const float4 p = buf[cur * n + t - step];
         s = Cplx{p.z, p.w};
     }
     __syncthreads();                  // buf is free for the next user
@@ -107,18 +114,19 @@ struct Slicing {
 
 // n_units x lanes independent runs of n_rows rows each, a block holding lt
 // lanes x all the slices of one unit's run.  Start from lt = the lanes (a
-// power of two, at most 32) and halve it, which doubles the slices per run,
-// while the launch has fewer than fill_threads() threads and halving still
-// adds slices (at most kMaxThreads threads a block, at least min_slice rows
-// a slice: a run of up to 2 * min_slice - 1 rows is one slice).
+// power of two, at most max_lt <= 32) and halve it, which doubles the
+// slices per run, while the launch has fewer than fill_threads() threads
+// and halving still adds slices (at most kMaxThreads threads a block, at
+// least min_slice rows a slice: a run of up to 2 * min_slice - 1 rows is
+// one slice).
 inline Slicing plan_slices(int n_units, int lanes, int n_rows,
-                           int min_slice = kMinSlice) {
+                           int min_slice = kMinSlice, int max_lt = 32) {
     const int64_t fill = fill_threads();
     const auto slices = [&](int lt) {
         return std::max(1, std::min(kMaxThreads / lt, n_rows / min_slice));
     };
     int lt = 1;
-    while (lt < lanes && lt < 32) lt *= 2;
+    while (lt < lanes && lt < max_lt) lt *= 2;
     while (lt > 1) {
         const int64_t threads = (int64_t)n_units * ((lanes + lt - 1) / lt)
                                 * lt * slices(lt);

@@ -580,13 +580,14 @@ def _batch_run(coeffs, x_t, zi, tail, return_state):
 # (``signals_tpu/compiler/pallas_kernels.py:1574-1869``).  Gradients reach
 # columns 6-10 of the coefficients (``rc rs d0 d1 d2``, what the cascade
 # reads); columns 0-5 get zero.  A backward kernel keeps nothing across
-# calls: it recomputes the forward's states into a scratch buffer it is
-# handed for the call.
+# calls: it recomputes the forward's states — B1 / B2 in registers and
+# shared memory (a time-sliced adjoint scan), B3 into a scratch buffer it
+# is handed for the call.
 
 
 def _scratch(n_lanes: int, n_rows: int, nsec: int, device):
-    """The backward kernels' scratch: per row, lane and section the lagged
-    state (s1, s2), and the input of every section after the first."""
+    """B3's scratch: per row, lane and section the lagged state (s1, s2),
+    and the input of every section after the first."""
     return torch.empty(n_lanes * n_rows * (3 * nsec - 1),
                        dtype=torch.float32, device=device)
 
@@ -718,13 +719,12 @@ def sosfilt_segments_gen_vjp(coeffs, toff, lanef, gy, *, n_segments: int,
     gco = torch.zeros_like(coeffs)
     gsrc = (torch.empty((n_units, n_rows, lanes), dtype=torch.float32,
                         device=coeffs.device) if source_grad else None)
-    scratch = _scratch(n_units * lanes, n_rows, nsec, coeffs.device)
     code = lib.sosfilt_segments_vjp_launch(
         coeffs.data_ptr(), None, 0, 0, toff.data_ptr(), lanef.data_ptr(),
         float(np.float32(1.0 / rate)), osc_code, _SIN_C, 1, gy.data_ptr(),
         None if gsrc is None else gsrc.data_ptr(), gco.data_ptr(),
-        scratch.data_ptr(), n_segments, nsec, lanes, seg_frames, context, m,
-        sum_groups, _stream(coeffs.device))
+        n_segments, nsec, lanes, seg_frames, context, m, sum_groups,
+        _stream(coeffs.device))
     _build.check(code, 'sosfilt_segments_gen_vjp')
     LAUNCHES['segments_gen_vjp'] += 1
     return gco, gsrc
@@ -766,12 +766,11 @@ def sosfilt_segments_vjp(coeffs, x, gy, *, n_segments: int, seg_frames: int,
     gco = torch.zeros_like(coeffs)
     gxw = (torch.empty((n_units, n_rows, lanes), dtype=torch.float32,
                        device=coeffs.device) if input_grad else None)
-    scratch = _scratch(n_units * lanes, n_rows, nsec, coeffs.device)
     code = lib.sosfilt_segments_vjp_launch(
         coeffs.data_ptr(), x.data_ptr(), *x.stride(), None, None, 0.0, 0,
         None, 0, gy.data_ptr(), None if gxw is None else gxw.data_ptr(),
-        gco.data_ptr(), scratch.data_ptr(), n_segments, nsec, lanes,
-        seg_frames, context, m, sum_groups, _stream(coeffs.device))
+        gco.data_ptr(), n_segments, nsec, lanes, seg_frames, context, m,
+        sum_groups, _stream(coeffs.device))
     _build.check(code, 'sosfilt_segments_vjp')
     LAUNCHES['segments_vjp'] += 1
     if gxw is None:

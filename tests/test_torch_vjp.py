@@ -16,11 +16,17 @@ logic).  Held here:
   largest |gradient| (the JAX package holds two of its own lowerings to
   1e-2, ``tests/test_learn.py:204-206``);
 * B2's fold of overlapping windows into the timeline: a context longer than
-  a carry segment, one channel read by many lanes, group sums.
+  a carry segment, one channel read by many lanes, group sums;
+* a numpy float32 model of B1 / B2's time-sliced adjoint scan
+  (:func:`sliced_adjoint_model`) against the plain adjoint within 1e-5 at
+  the edges of the scan (:data:`MODEL_CASES`), and against the JAX
+  package's gradients within 1e-3 at the kernel's own slicing.
 
 The ``cuda`` cases hold each backward kernel (``csrc/adjoint.cu``: B1, B2,
 B3) to its plain adjoint on the card, within 1e-5 of each output's largest
-|value|, and two calls to the same bits; they skip without a GPU.  JAX is
+|value|, and two calls to the same bits — B1 / B2 at the edges of their
+scan (:data:`GEN_VJP_CASES`, :data:`SEG_VJP_CASES`); they skip without a
+GPU.  JAX is
 imported inside the JAX comparisons only, so they run on a machine without
 JAX, from the repository root:
 ``python -m pytest --noconftest -m cuda tests/test_torch_vjp.py``.
@@ -391,6 +397,313 @@ def test_no_grad_calls_save_nothing():
     assert y.grad_fn is None
 
 
+# --- a numpy model of B1 / B2's time-sliced adjoint scan --------------------
+#
+# ``csrc/adjoint.cu``'s ``seg_cascade_vjp`` cuts each carry segment's rows
+# into slices and runs the forward and the adjoint recurrences as scans of
+# affine maps over complex numbers; it runs only on a card.  This model
+# follows it step for step in float32 (as ``tests/test_torch_kernels.py``'s
+# ``slice_scan_model`` follows the forward's scan), so that its algebra is
+# held to the plain adjoint and to the JAX package's gradients here.
+
+
+def _cmul(a, b):
+    """Complex product of (re, im) pairs of f32 arrays, as ``scan.cuh``."""
+    return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
+
+
+def _scan_maps(a, e, reverse=False):
+    """``scan.cuh``'s ``slice_start``: the exclusive Hillis-Steele scan of
+    the slices' maps ``z -> a*z + e`` along axis 0 (``reverse``: from the
+    last slice down, ``slice_start<true>``); the first slice in scan order
+    starts from zero."""
+    if reverse:
+        flip = [c[::-1] for c in a], [c[::-1] for c in e]
+        return tuple(c[::-1] for c in _scan_maps(*flip))
+    n = a[0].shape[0]
+    d = 1
+    while d < n:
+        pa = tuple(np.concatenate([np.zeros_like(c[:d]), c[:-d]]) for c in a)
+        pe = tuple(np.concatenate([np.zeros_like(c[:d]), c[:-d]]) for c in e)
+        na, ne = _cmul(a, pa), _cmul(a, pe)
+        keep = (np.arange(n) >= d)[:, None]
+        a = tuple(np.where(keep, u, c) for u, c in zip(na, a))
+        e = tuple(np.where(keep, u + c, c) for u, c in zip(ne, e))
+        d *= 2
+    return tuple(np.concatenate([np.zeros_like(c[:1]), c[:-1]]) for c in e)
+
+
+def vjp_slice_rows(n_units, lanes, n_rows, fill=132 * 2048 // 4):
+    """Rows per slice as ``seg_cascade_vjp`` cuts a carry segment on an
+    H100 (``scan.cuh``'s ``plan_slices``: slices of 64 rows at least, 512
+    threads a block at most, 132 SMs)."""
+    def slices(lt):
+        return max(1, min(512 // lt, n_rows // 64))
+    lt = 1
+    while lt < lanes and lt < 32:
+        lt *= 2
+    while lt > 1:
+        threads = n_units * -(-lanes // lt) * lt * slices(lt)
+        if threads >= fill or slices(lt // 2) <= slices(lt):
+            break
+        lt //= 2
+    return -(-(-(-n_rows // slices(lt))) // 16) * 16
+
+
+def sliced_adjoint_model(coeffs, xw, gy, *, seg_frames, context,
+                         blocks_per_seg, sum_groups, slice_rows):
+    """``(gxw, gcoeffs)`` as :func:`K._cascade_windows_vjp_plain` returns
+    them, computed as ``seg_cascade_vjp`` does with slices of
+    ``slice_rows`` rows (a multiple of 16): (1) per section, first to last,
+    each slice's forward map from zero state (the transfer per 16-row chunk
+    p^16 where the chunk is one coefficient block, per row elsewhere) and
+    the exclusive scan of the maps, the last pass keeping each chunk's
+    start states and the last section's transfer so far; (2) per section,
+    last to first, each slice's lambda map from zero, its transfer the
+    conjugate of the forward's, and the reversed scan (section s-1's pass
+    replays section s's lambda from its true value); (3) per chunk from the
+    last, the forward rows recomputed from the chunk's start states and
+    each section's adjoint rows back over them, one partial gradient per
+    slice and coefficient block; (4) each block's partials summed in slice
+    order."""
+    f32 = np.float32
+    F, C, m, S = seg_frames, context, blocks_per_seg, slice_rows
+    n_blocks, nsec, lanes, _ = coeffs.shape
+    U, R = n_blocks // m, C + m * F
+    n, n_ch, NL = -(-R // S), S // 16, U * lanes
+    rows = np.arange(n)[:, None] * S + np.arange(S)[None, :]
+    valid = rows < R                                      # (n, S)
+    rr = np.minimum(rows, R - 1)
+    blk = np.where(rr < C + F, 0, np.minimum((rr - C) // F, m - 1))
+    taps = coeffs.reshape(U, m, nsec, lanes, 11)[:, blk]  # (U, n, S, ...)
+    taps = taps.transpose(3, 5, 1, 2, 0, 4).reshape(nsec, 11, n, S, NL)
+    rc, rs, d0, d1, d2 = (taps[:, k] for k in range(6, 11))
+    x = np.where(valid[..., None],
+                 xw.transpose(1, 0, 2).reshape(R, NL)[rr], f32(0))
+    gl = np.repeat(gy, sum_groups, axis=-1) if sum_groups else gy
+    gl = gl.reshape(U, m * F, lanes).transpose(1, 0, 2).reshape(m * F, NL)
+    gl = np.concatenate([np.zeros((C, NL), f32), gl])
+    g_rows = np.where(valid[..., None], gl[rr], f32(0))
+    first = rows[:, ::16]
+    straight = (first + 15 < R) & (blk[:, ::16] == blk[:, 15::16])
+    zero = np.zeros((n, NL), f32)
+    one = np.ones((n, NL), f32)
+
+    def step(s, j, v, st, ok):
+        s1, s2 = st
+        y = d0[s, :, j] * v + d1[s, :, j] * s1 + d2[s, :, j] * s2
+        n1 = rc[s, :, j] * s1 - rs[s, :, j] * s2 + v
+        n2 = rs[s, :, j] * s1 + rc[s, :, j] * s2
+        return y, (np.where(ok, n1, s1), np.where(ok, n2, s2))
+
+    def lam_step(s, j, g, lam, ok):
+        l1, l2 = lam
+        gv = d0[s, :, j] * g + l1
+        n1 = rc[s, :, j] * l1 + rs[s, :, j] * l2 + d1[s, :, j] * g
+        n2 = rc[s, :, j] * l2 - rs[s, :, j] * l1 + d2[s, :, j] * g
+        return gv, (np.where(ok, n1, l1), np.where(ok, n2, l2))
+
+    # 1. the forward states' true starts, section by section
+    st = [(zero, zero)] * nsec
+    starts, trans, ck = [None] * nsec, [None] * nsec, []
+    for sec in range(nsec):
+        state = [starts[s] for s in range(sec)] + [(zero, zero)]
+        a = (one, zero)
+        for c in range(n_ch):
+            if sec == nsec - 1:
+                ck.append(list(state) + [a])
+            j0 = 16 * c
+            p = (rc[sec, :, j0], rs[sec, :, j0])
+            pk = p
+            for _ in range(4):
+                pk = _cmul(pk, pk)
+            for i in range(16):
+                j = j0 + i
+                ok = valid[:, j][:, None]
+                v = x[:, j]
+                for s in range(sec + 1):
+                    v, state[s] = step(s, j, v, state[s], ok)
+                row = _cmul((rc[sec, :, j], rs[sec, :, j]), a)
+                a = tuple(np.where(ok & ~straight[:, c, None], r, q)
+                          for r, q in zip(row, a))
+            a = tuple(np.where(straight[:, c, None], r, q)
+                      for r, q in zip(_cmul(pk, a), a))
+        trans[sec] = a
+        starts[sec] = _scan_maps(a, state[sec])
+
+    # 2. lambda after each slice, section by section from the last
+    lam_end = [None] * nsec
+    for sec in range(nsec - 1, -1, -1):
+        lam = [lam_end[s] if s > sec else (zero, zero) for s in range(nsec)]
+        for j in range(S - 1, -1, -1):
+            ok = valid[:, j][:, None]
+            g = g_rows[:, j]
+            for s in range(nsec - 1, sec - 1, -1):
+                g, lam[s] = lam_step(s, j, g, lam[s], ok)
+        conj = (trans[sec][0], -trans[sec][1])
+        lam_end[sec] = _scan_maps(conj, lam[sec], reverse=True)
+
+    # 3. the replay from the last chunk back, a partial per slice and block
+    lam = list(lam_end)
+    part = np.zeros((nsec, n, m, 5, NL), f32)
+    acc = np.zeros((nsec, 5, n, NL), f32)
+    ab = np.repeat(blk[np.arange(n), np.minimum(S, R - np.arange(n) * S)
+                       - 1][None], nsec, axis=0)
+    gx = np.zeros((n, S, NL), f32)
+    ks = np.arange(n)
+    for c in range(n_ch - 1, -1, -1):
+        cs = list(ck[c][:nsec])
+        fix = _cmul(ck[c][nsec], starts[nsec - 1])
+        cs[-1] = (cs[-1][0] + fix[0], cs[-1][1] + fix[1])
+        cols = range(16 * c, 16 * c + 16)
+        vs = [[x[:, j] for j in cols]]
+        for s in range(nsec - 1):
+            state, out = cs[s], []
+            for j in cols:
+                y, state = step(s, j, vs[s][j - 16 * c], state,
+                                valid[:, j][:, None])
+                out.append(y)
+            vs.append(out)
+        g = [g_rows[:, j] for j in cols]
+        for s in range(nsec - 1, -1, -1):
+            state, lagged = cs[s], []
+            for j in cols:
+                lagged.append(state)
+                _, state = step(s, j, vs[s][j - 16 * c], state,
+                                valid[:, j][:, None])
+            for i in range(15, -1, -1):
+                j = 16 * c + i
+                ok = valid[:, j]
+                moved = ok & (blk[:, j] != ab[s])
+                part[s, ks[moved], ab[s][moved]] = acc[s][:, moved].transpose(
+                    1, 0, 2)
+                acc[s][:, moved] = 0
+                ab[s] = np.where(moved, blk[:, j], ab[s])
+                (s1, s2), l1, l2 = lagged[i], lam[s][0], lam[s][1]
+                terms = (l1 * s1 + l2 * s2, l2 * s1 - l1 * s2,
+                         g[i] * vs[s][i], g[i] * s1, g[i] * s2)
+                for t, term in enumerate(terms):
+                    acc[s][t] = np.where(ok[:, None], acc[s][t] + term,
+                                         acc[s][t])
+                g[i], lam[s] = lam_step(s, j, g[i], lam[s], ok[:, None])
+        for i, j in enumerate(cols):
+            gx[:, j] = g[i]
+    for s in range(nsec):
+        part[s, ks, ab[s]] = acc[s].transpose(1, 0, 2)
+
+    # 4. each block's partials summed in slice order
+    gco = np.zeros((n_blocks, nsec, lanes, 11), f32)
+    for b in range(m):
+        ra = 0 if b == 0 else C + b * F
+        rb = C + (b + 1) * F if b + 1 < m else R
+        total = np.zeros((nsec, 5, NL), f32)
+        for k in range(ra // S, (rb - 1) // S + 1):
+            total = total + part[:, k, b]
+        total = total.reshape(nsec, 5, U, lanes).transpose(2, 0, 3, 1)
+        gco[b::m, :, :, 6:] = total
+    gxw = gx.reshape(n * S, NL)[:R].reshape(R, U, lanes).transpose(1, 0, 2)
+    return gxw, gco
+
+
+#: the model's edges: (sections, lanes, blocks, F, C, m, sum group, slice
+#: rows, LowPass cutoffs or None for a band-pass)
+MODEL_CASES = {
+    # C 40, F 48: the context ends and blocks 1-2 begin inside slices and
+    # inside 16-row chunks
+    'block_and_context_boundaries': (1, 3, 6, 48, 40, 3, 0, 32,
+                                     (500.0, 5000.0)),
+    'one_slice': (1, 4, 4, 32, 40, 2, 0, 112, (500.0, 5000.0)),
+    'ragged_last_slice': (1, 4, 4, 40, 24, 2, 0, 48, (500.0, 5000.0)),
+    'two_sections': (2, 3, 6, 48, 40, 3, 0, 32, None),
+    'groups': (1, 8, 4, 32, 32, 2, 4, 32, (500.0, 5000.0)),
+    # F 12 < 16: chunks that hold two block boundaries, a slice touching
+    # four blocks
+    'short_blocks_two_sections_groups': (2, 6, 8, 12, 20, 4, 3, 48, None),
+    'pole_near_unit_circle': (1, 3, 4, 64, 64, 2, 0, 32, (30.0, 30.0)),
+    'pole_far_from_unit_circle': (1, 3, 4, 64, 64, 2, 0, 32,
+                                  (15000.0, 18000.0)),
+}
+
+
+@pytest.mark.parametrize('case', list(MODEL_CASES))
+def test_sliced_adjoint_model_matches_plain(case):
+    """The f32 algebra of B1 / B2's time-sliced adjoint scan meets the
+    plain adjoint (``_cascade_windows_vjp_plain``) within 1e-5 of each
+    output's largest |value|: slices that straddle a coefficient-block and
+    the context/segment boundary, one slice, a ragged last slice, two
+    sections, group sums, chunks with two block boundaries, and poles near
+    (30 Hz) and far (15-18 kHz) from the unit circle."""
+    nsec, lanes, nb, F, C, m, g, S, cuts = MODEL_CASES[case]
+    rng = np.random.default_rng(90 + list(MODEL_CASES).index(case))
+    co = (bandpass(rng, nb, lanes) if cuts is None
+          else lowpass(rng, nb, lanes, *cuts))
+    R = C + m * F
+    xw = normal(rng, nb // m, R, lanes) + np.float32(0.5)
+    gy = normal(rng, nb, F, lanes // g if g else lanes)
+    kw = dict(seg_frames=F, context=C, blocks_per_seg=m, sum_groups=g)
+    got = sliced_adjoint_model(co, xw, gy, slice_rows=S, **kw)
+    want = K._cascade_windows_vjp_plain(torch.tensor(co), torch.tensor(xw),
+                                        torch.tensor(gy), **kw)
+    for name, a, b in zip(('gxw', 'gcoeffs'), got, want):
+        assert rel_err(a, b.numpy()) <= PLAIN_TOL, name
+    if case == 'one_slice':
+        assert R <= S
+    if case == 'ragged_last_slice':
+        assert -(-R // S) == 3 and R % S
+    if case == 'block_and_context_boundaries':
+        # block 1 starts at row 88 and block 2 at 136, inside slices 2 and 4
+        assert (C + F) % S and (C + 2 * F) % S and C % S
+
+
+@pytest.mark.parametrize('entry', ['segments', 'segments_gen'])
+def test_sliced_adjoint_model_matches_jax(entry):
+    """The model at the kernel's own slicing on an H100 against ``jax.vjp``
+    of the JAX package's segment reference, at the shapes of
+    :func:`test_segments_grads_match_jax` (sum of 8) and the saw over
+    4-block carry segments of :func:`test_segments_gen_grads_match_jax`
+    (the source rows' cotangent taken to ``lanef`` as the entry does)."""
+    import jax.numpy as jnp
+    from signals_tpu.compiler.pallas_kernels import _gen_source_rows
+    rng = np.random.default_rng(5 if entry == 'segments_gen' else 2)
+    if entry == 'segments':
+        ns, sf, C, lanes, m, g = 4, 128, 128, 64, 1, 8
+        co, x = lowpass(rng, ns, lanes), normal(rng, C + ns * sf, lanes)
+        idx = np.arange(ns)[:, None] * sf + np.arange(C + sf)[None, :]
+        xw = x[idx]
+    else:
+        ns, sf, C, lanes, m, g = 4, 256, 256, 16, 4, 8
+        co = lowpass(rng, ns, lanes)
+        toff = np.full((lanes,), -C, np.int32)
+        lanef = np.stack([rng.uniform(100.0, 1000.0, lanes),
+                          rng.uniform(0.0, 0.5, lanes),
+                          np.ones(lanes)]).astype(np.float32)
+        gen = dict(n_segments=ns // m, seg_frames=m * sf, context=C,
+                   osc_code=K.OSC_SAW, rate=RATE)
+        xw = K.gen_source_rows(torch.tensor(toff), torch.tensor(lanef),
+                               **gen).numpy()
+    gy = normal(rng, ns, sf, lanes // g)
+    S = vjp_slice_rows(ns // m, lanes, C + m * sf)
+    assert -(-(C + m * sf) // S) > 1
+    gxw, gco = sliced_adjoint_model(co, xw, gy, seg_frames=sf, context=C,
+                                    blocks_per_seg=m, sum_groups=g,
+                                    slice_rows=S)
+    ref = jax_windows_ref(C, sf, m, g)
+    if entry == 'segments':
+        want = jax_vjp(ref, [co, xw], gy)
+        got = [gco, gxw]
+    else:
+        def jax_fn(c, lf):
+            return ref(c, _gen_source_rows(jnp.asarray(toff), lf, **gen))
+        want = jax_vjp(jax_fn, [co, lanef], gy)
+        kw = dict(gen, n_segments=ns, seg_frames=sf, blocks_per_seg=m)
+        glanef = K._source_lanef_grad(torch.tensor(toff),
+                                      torch.tensor(lanef),
+                                      torch.tensor(gxw), kw)
+        got = [gco, glanef.numpy()]
+    for name, a, b in zip(('coeffs', 'input'), got, want):
+        assert rel_err(a, b) <= JAX_TOL, name
+
+
 # --- the backward kernels on the card ---------------------------------------
 
 @pytest.fixture
@@ -417,15 +730,55 @@ def same_bits(first, second):
             assert torch.equal(a, b)
 
 
+def card_coeffs(rng, nb, lanes, nsec, cuts, device):
+    """Per-block coefficients on the card: a LowPass over ``cuts`` (Hz) at
+    one section, a band-pass at two."""
+    co = bandpass(rng, nb, lanes) if nsec == 2 else lowpass(rng, nb, lanes,
+                                                             *cuts)
+    return torch.tensor(co, device=device)
+
+
+#: B1 / B2 on the card: (oscillator or None for B2's timeline, lanes,
+#: blocks, F, C, m, sum group, sections, LowPass cutoffs); the edges of the
+#: time-sliced adjoint scan as :data:`MODEL_CASES` has them, at the
+#: kernel's own slicing
+GEN_VJP_CASES = {
+    'saw_m8_sum64': (K.OSC_SAW, 64, 16, 256, 128, 8, 64, 1),
+    'saw_m8': (K.OSC_SAW, 64, 16, 256, 128, 8, 0, 1),
+    'sine_two_sections': (K.OSC_SINE, 64, 16, 256, 128, 1, 0, 2),
+    'triangle_m2_sum16': (K.OSC_TRIANGLE, 64, 16, 256, 128, 2, 16, 1),
+    'square_two_sections_sum32': (K.OSC_SQUARE, 64, 16, 256, 128, 1, 32, 2),
+    'one_segment_sum64': (K.OSC_SAW, 64, 8, 1024, 512, 8, 64, 1),
+    'C300_lanes5_sum5': (K.OSC_SAW, 5, 8, 256, 300, 4, 5, 1),
+    'two_sections_C300_lanes48_sum48': (K.OSC_SAW, 48, 8, 256, 300, 4, 48,
+                                        2),
+    'F24_m8': (K.OSC_SAW, 64, 16, 24, 40, 8, 0, 1),
+    'lowpass30_sum64': (K.OSC_SAW, 64, 16, 256, 128, 8, 64, 1, (30.0, 30.0)),
+    'far_poles': (K.OSC_SAW, 64, 16, 256, 128, 8, 0, 1, (15000.0, 18000.0)),
+    # 128 carry segments of 8704 rows: the checkpoints of 32 lanes a block
+    # overflow shared memory, so the launch halves its lanes a block
+    'flagship_1024_blocks_sum64': (K.OSC_SAW, 64, 1024, 1024, 512, 8, 64, 1),
+}
+SEG_VJP_CASES = {
+    'C1024_sum64': (64, 8, 256, 1024, 1, 64, False, 1),
+    'C256_m8_one_channel_sum64': (64, 8, 256, 256, 8, 64, True, 1),
+    'C512_m2_two_sections': (64, 8, 256, 512, 2, 0, False, 2),
+    'C96_one_channel': (64, 8, 256, 96, 1, 0, True, 1),
+    'C300_lanes5': (5, 8, 256, 300, 4, 0, False, 1),
+    'F24_m8_two_sections': (48, 16, 24, 40, 8, 0, False, 2),
+    'one_segment_one_channel_sum64': (64, 8, 1024, 256, 8, 64, True, 1),
+    'lowpass30_m8': (64, 8, 256, 512, 8, 0, False, 1, (30.0, 30.0)),
+    'far_poles': (64, 8, 256, 128, 2, 0, False, 1, (15000.0, 18000.0)),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('osc,m,g,nsec', [
-    (K.OSC_SAW, 8, 64, 1), (K.OSC_SAW, 8, 0, 1), (K.OSC_SINE, 1, 0, 2),
-    (K.OSC_TRIANGLE, 2, 16, 1), (K.OSC_SQUARE, 1, 32, 2)])
-def test_cuda_segments_gen_vjp_matches_plain(gpu, osc, m, g, nsec):
-    rng = np.random.default_rng(osc + 4 * m)
-    nb, F, C, lanes = 16, 256, 128, 64
-    co = torch.tensor((lowpass if nsec == 1 else bandpass)(rng, nb, lanes),
-                      device=gpu)
+@pytest.mark.parametrize('case', list(GEN_VJP_CASES))
+def test_cuda_segments_gen_vjp_matches_plain(gpu, case):
+    osc, lanes, nb, F, C, m, g, nsec, *cuts = GEN_VJP_CASES[case]
+    rng = np.random.default_rng(list(GEN_VJP_CASES).index(case))
+    co = card_coeffs(rng, nb, lanes, nsec, cuts[0] if cuts else
+                     (500.0, 5000.0), gpu)
     toff = torch.full((lanes,), -C, dtype=torch.int32, device=gpu)
     lanef = torch.tensor(np.stack([rng.uniform(100.0, 1000.0, lanes),
                                    rng.uniform(0.0, 0.5, lanes),
@@ -446,14 +799,12 @@ def test_cuda_segments_gen_vjp_matches_plain(gpu, osc, m, g, nsec):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('C,m,g,one_channel,nsec', [
-    (1024, 1, 64, False, 1), (256, 8, 64, True, 1), (512, 2, 0, False, 2),
-    (96, 1, 0, True, 1)])
-def test_cuda_segments_vjp_matches_plain(gpu, C, m, g, one_channel, nsec):
-    rng = np.random.default_rng(C + m)
-    nb, F, lanes = 8, 256, 64
-    co = torch.tensor((lowpass if nsec == 1 else bandpass)(rng, nb, lanes),
-                      device=gpu)
+@pytest.mark.parametrize('case', list(SEG_VJP_CASES))
+def test_cuda_segments_vjp_matches_plain(gpu, case):
+    lanes, nb, F, C, m, g, one_channel, nsec, *cuts = SEG_VJP_CASES[case]
+    rng = np.random.default_rng(C + m + list(SEG_VJP_CASES).index(case))
+    co = card_coeffs(rng, nb, lanes, nsec, cuts[0] if cuts else
+                     (500.0, 5000.0), gpu)
     x = torch.tensor(normal(rng, C + nb * F, 1 if one_channel else lanes),
                      device=gpu)
     kw = dict(n_segments=nb, seg_frames=F, context=C, sum_groups=g,
