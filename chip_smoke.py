@@ -8,7 +8,8 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Seven phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
-   ``nvcc`` per source, all at once) and print the toolchain and the card.
+   ``nvcc`` per source, all at once) and print the toolchain, the card and
+   ``ptxas``' report (B3's registers and spills at each section count).
 2. **Each kernel against its plain PyTorch version** on the card, at the
    shapes the main paths give it: the segment kernels at the flagship's
    (64 lanes, F=1024, C=512, 8-block carry segments) over 256 blocks and
@@ -101,10 +102,14 @@ Seven phases; any failure raises and exits non-zero:
    (517 blocks, C 1024) and the noise voice's (one channel under 64
    lanes), both at the edges of their time-sliced scan (``VJP_EDGES``:
    block starts inside a chunk, 5 lanes, two sections, F 24, 30 Hz and
-   15-18 kHz poles, 1024 blocks), B3 at the render-ahead, step and
-   carried-state shapes — and its device time at the c8, c9 and
-   flagship-fit shapes beside its bound and beside commit bef113c's (the
-   serial walk, which B3 still is), and B2's peak memory at c9;
+   15-18 kHz poles, 1024 blocks), B3 at ``B3_SHAPES`` (the render-ahead,
+   step and carried-state shapes, the streaming fit's (8192, 16), the
+   echo's segment (16384, 1) and 2^20 rows at two sections, whose
+   checkpoints outgrow shared memory: held to a float64 reference,
+   :func:`exact_rows_vjp`) — and its device time beside its bound and
+   beside commit bef113c's (the serial walk through a scratch buffer; B1
+   at the flagship fit and c8, B2 at c9, B3 at every shape), B2's peak
+   memory at c9 and B3's memory over its inputs at each shape;
    (b) c8 (``bench.py:449-546``: 64 saws -> LowPass with a trainable
    ``Fixed`` cutoff -> gain 1/64, 43 blocks): one loss-and-gradient call
    whose cutoff gradient is within 1e-4 of the same call on the plain
@@ -128,6 +133,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -523,16 +529,38 @@ def phase_build():
     import torch
     from signals_tpu_torch.compiler import _build
     t0 = time.perf_counter()
-    path, out = _build.build(verbose=True)
+    path, out = _build.build()
     print(f'[build] {path.name} in {time.perf_counter() - t0:.1f} s')
     for line in out.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             print(f'[build] ptxas: {line.strip()}')
+    for nsec, (regs, spills) in sorted(b3_ptxas(out).items()):
+        print(f'[build] B3 rows_cascade_vjp<{nsec}>: {regs} registers, '
+              f'{spills}')
     release = [ln for ln in run([_build.nvcc_path(), '--version']).splitlines()
                if 'release' in ln]
     print(f'[build] torch {torch.__version__} cuda {torch.version.cuda}; '
           f'nvcc: {release[0].strip() if release else "?"}')
     print(f'[build] card: {card_line()}')
+
+
+def b3_ptxas(out: str) -> dict:
+    """``{sections: (registers, spills)}`` of each ``rows_cascade_vjp``
+    instance from ``nvcc -Xptxas -v``'s report (an entry's 'Compiling
+    entry function' line, then its stack and spill line and its 'Used N
+    registers' line)."""
+    found, nsec = {}, None
+    for line in out.splitlines():
+        if 'Compiling entry function' in line:
+            m = re.search(r'rows_cascade_vjpILi(\d)E', line)
+            nsec = int(m.group(1)) if m else None
+        elif nsec is not None and 'spill stores' in line:
+            found[nsec] = (None, line.strip())
+        elif nsec is not None and 'registers' in line:
+            m = re.search(r'Used (\d+) registers', line)
+            found[nsec] = (int(m.group(1)), found.get(nsec, (0, '?'))[1])
+            nsec = None
+    return found
 
 
 def card_line() -> str:
@@ -1514,11 +1542,30 @@ VJP_KERNELS = {'segments_gen_vjp': ('seg_cascade_vjp',),
                'segments_vjp': ('seg_cascade_vjp',),
                'rows_vjp': ('rows_cascade_vjp',)}
 # The backward kernels' device ms at the timed shapes at commit bef113c
-# (one thread per (segment or window, lane) walking its rows through a
-# scratch buffer, as B3 still does; PERF.md section 6, on an H100 80GB
-# HBM3 at 700 W), printed beside this run's
+# (one thread per (segment or window, lane) walking its rows forward into a
+# scratch buffer and back), printed beside this run's: PERF.md section 6,
+# phase 7 and scripts/torch_vjp_variants.py on an H100 80GB HBM3 at 700 W
+# (the streaming fit's: 2.113-2.122 in the fit's profile, 1.916 alone)
 VJP_BEFORE_MS = {'flagship fit': '3.308-3.380', 'c8': '1.094-1.107',
-                 'c9': '2.031-2.115', 'render-ahead': '0.2735-0.2798'}
+                 'c9': '2.031-2.115', 'render-ahead': '0.2735-0.2798',
+                 'step': '0.2636', 'carried state': '0.2353',
+                 'streaming fit': '1.916-2.122', 'echo segment': '1.847',
+                 'past shared memory': '285.2'}
+# B3's shapes (b3_calls' arguments): the static voice's render-ahead batch
+# (8 windows of one timeline read in place), its step's timeline and its
+# carried state, the streaming fit's window (one stream over 8 blocks), the
+# echo's segment, and a window whose checkpoints outgrow shared memory
+B3_SHAPES = {
+    'render-ahead': ('batch', 1, AHEAD, STATIC_CH, STATIC_C + F, F, False,
+                     (1000.0, 3000.0), 'unfold'),
+    'step': ('timeline', 1, 1, STATIC_CH, STATIC_C + F, STATIC_C + F, False),
+    'carried state': ('stream', 1, 1, STATIC_CH, F, F, True),
+    'streaming fit': ('stream', 1, 1, STATIC_CH, AHEAD * F, AHEAD * F, True),
+    'echo segment': ('stream', 1, 1, 1, ECHO_BLOCKS * F, ECHO_BLOCKS * F,
+                     True),
+    'past shared memory': ('stream', 2, 1, 1, 1 << 20, 1 << 20, True),
+}
+B3_PLAIN_ROWS = 20000     # longer windows: exact_rows_vjp, not the plain loop
 # The edges of B1 / B2's time-sliced adjoint scan (tests/test_torch_vjp.py
 # GEN_VJP_CASES, SEG_VJP_CASES): oscillator (None: B2 on a noise timeline),
 # lanes, blocks, F, C, m, sum group, sections, LowPass cutoffs (None: a
@@ -1623,10 +1670,153 @@ def rel_max(got, want):
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
 
 
-def vjp_case(name, call, plain, *, bits=True):
-    """A backward kernel's call against its plain adjoint on the card:
-    every output within TOL of its largest |value|, and two calls the same
-    bits.  Returns the largest error and the plain call's ms."""
+def exact_rows_vjp(coeffs, x_t, gy, tail, zi=None, gzf=None):
+    """``kernels.sosfilt_batch_vjp``'s ``(gcoeffs, gx, gzi)`` in float64 on
+    ``x_t``'s device, for windows too long for the plain adjoint's frame
+    loop (~0.3 ms a row on the card): per lane and section the forward
+    state and the adjoint's lambda are complex first-order recurrences,
+    s_t = p s_{t-1} + v_t and lambda_{t-1} = conj(p) lambda_t + (d1 + i
+    d2) ybar_t with p = rc + i rs, run by ``scipy.signal.lfilter``, and the
+    gradients are float64 sums over the rows."""
+    from scipy.signal import lfilter
+    co = coeffs.detach().double().cpu().numpy()
+    x = x_t.detach().double().cpu().numpy()
+    L, B, ch = x.shape
+    nsec = co.shape[1]
+    g = np.zeros((L, B, ch))
+    g[L - tail:] = gy.detach().double().cpu().numpy()
+
+    def states(z):
+        if z is None:
+            return np.zeros((B, nsec, ch), complex)
+        z = z.detach().double().cpu().numpy()
+        return z[:, :, 0] + 1j * z[:, :, 1]
+
+    z0, zf = states(zi), states(gzf)
+    gco = np.zeros((B, nsec, ch, 11))
+    gx = np.zeros((L, B, ch))
+    gzi = np.zeros((B, nsec, ch), complex)
+    for b in range(B):
+        for c in range(ch):
+            rc, rs, d0, d1, d2 = co[b, :, c, 6:11].T
+            v, lagged = [x[:, b, c]], []
+            for s in range(nsec):
+                p = rc[s] + 1j * rs[s]
+                after = lfilter([1.0], [1.0, -p], v[s],
+                                zi=[p * z0[b, s, c]])[0]
+                sp = np.concatenate([[z0[b, s, c]], after[:-1]])
+                lagged.append(sp)
+                v.append(d0[s] * v[s] + d1[s] * sp.real + d2[s] * sp.imag)
+            yb = g[:, b, c]
+            for s in range(nsec - 1, -1, -1):
+                p, sp = rc[s] + 1j * rs[s], lagged[s]
+                w = (d1[s] + 1j * d2[s]) * yb
+                lam = lfilter([1.0], [1.0, -np.conj(p)],
+                              np.concatenate([[zf[b, s, c]], w[:0:-1]]))[::-1]
+                gco[b, s, c, 6:] = (
+                    np.sum(lam.real * sp.real + lam.imag * sp.imag),
+                    np.sum(lam.imag * sp.real - lam.real * sp.imag),
+                    np.sum(yb * v[s]), np.sum(yb * sp.real),
+                    np.sum(yb * sp.imag))
+                gzi[b, s, c] = np.conj(p) * lam[0] + w[0]
+                yb = d0[s] * yb + lam.real
+            gx[:, b, c] = yb
+    import torch
+    out = [torch.from_numpy(gco), torch.from_numpy(gx),
+           None if zi is None else torch.from_numpy(
+               np.stack([gzi.real, gzi.imag], axis=2))]
+    return tuple(None if t is None else t.to(x_t.device) for t in out)
+
+
+def b3_inputs(rng, dev, nsec, B, ch, L, tail, state, cuts=(500.0, 5000.0),
+              layout='dense'):
+    """B3's inputs at one shape, ``(coeffs (B, nsec, ch, 11), x_t (L, B,
+    ch), gy (tail, B, ch), zi, gzf, flops, bytes)``.  Per window and lane a
+    LowPass a section, its cutoff drawn from ``cuts``; ``layout``
+    ``'unfold'``: windows of one timeline ``tail`` rows apart, read in
+    place; ``'broadcast'``: one channel under every lane; ``state``: a
+    start state and the end state's cotangent (else None).  Bytes: x (its
+    distinct elements), gy and gx once, the coefficients read and their
+    gradient written, and the states; operations: ``VJP_FLOP`` a
+    section-row."""
+    import torch
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
+
+    def randn(*shape):
+        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                               device=dev)
+
+    cut = torch.as_tensor(rng.uniform(*cuts, (1, nsec * B * ch)).astype(
+        np.float32), device=dev)
+    co = design_coupled(TorchXP(dev), 'lp', (cut,), np.float32(RATE / 2))
+    co = co.reshape(nsec, B, ch, 11).permute(1, 0, 2, 3).contiguous()
+    if layout == 'unfold':
+        xt = randn(L - tail + B * tail, ch)
+        x = xt.unfold(0, L, tail)[:B].permute(2, 0, 1)
+    else:
+        xt = randn(L, B, 1 if layout == 'broadcast' else ch)
+        x = xt.expand(L, B, ch)
+    gy = randn(tail, B, ch)
+    zi = 0.5 * randn(B, nsec, 2, ch) if state else None
+    gzf = randn(B, nsec, 2, ch) if state else None
+    flops = L * B * ch * nsec * VJP_FLOP
+    nbytes = 4 * (xt.numel() + gy.numel() + L * B * ch + 2 * co.numel()
+                  + (3 * zi.numel() if state else 0))
+    return co, x, gy, zi, gzf, flops, nbytes
+
+
+def b3_calls(rng, dev, entry, nsec, B, ch, L, tail, state, *args):
+    """B3 through the ``entry``'s backward (``'batch'``, ``'timeline'`` or
+    ``'stream'``) on :func:`b3_inputs` (the other arguments): ``(kernel
+    call, reference call, flops, bytes)``.  The reference is the entry's
+    plain adjoint, or past ``B3_PLAIN_ROWS`` rows :func:`exact_rows_vjp`."""
+    from signals_tpu_torch.compiler import kernels as K
+    co, x, gy, zi, gzf, flops, nbytes = b3_inputs(rng, dev, nsec, B, ch, L,
+                                                  tail, state, *args)
+    if entry == 'batch':
+        call = lambda: K.sosfilt_batch_vjp(            # noqa: E731
+            co, x, gy, tail=tail, zi=zi, gzf=gzf)
+        plain = lambda: K.sosfilt_batch_vjp_plain(     # noqa: E731
+            co, x, gy, tail=tail, zi=zi, gzf=gzf)
+    elif entry == 'timeline':
+        call = lambda: K.sosfilt_timeline_vjp(         # noqa: E731
+            co[0], x[:, 0], gy[:, 0])
+        plain = lambda: K.sosfilt_timeline_vjp_plain(  # noqa: E731
+            co[0], x[:, 0], gy[:, 0])
+    else:
+        call = lambda: K.sosfilt_stream_vjp(           # noqa: E731
+            co[0], x[:, 0], zi[0], gy[:, 0], gzf[0])
+        plain = lambda: K.sosfilt_stream_vjp_plain(    # noqa: E731
+            co[0], x[:, 0], zi[0], gy[:, 0], gzf[0])
+    if L <= B3_PLAIN_ROWS:
+        return call, plain, flops, nbytes
+
+    def exact():
+        gco, gx, gzi = exact_rows_vjp(co, x, gy, tail, zi, gzf)
+        if entry == 'batch':
+            return gco, gx, gzi
+        return (gco[0], gx[:, 0]) + (() if entry == 'timeline'
+                                     else (gzi[0],))
+    return call, exact, flops, nbytes
+
+
+def memory_over_inputs(call) -> int:
+    """Bytes a call allocates at its peak over what was held before it."""
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
+def vjp_case(name, call, plain, *, bits=True, ref='the plain adjoint'):
+    """A backward kernel's call against ``plain`` (its plain adjoint, or
+    the reference named by ``ref``) on the card: every output within TOL of
+    its largest |value|, and two calls the same bits.  Returns the largest
+    error and the reference call's ms."""
     import torch
     got = call()
     again = call() if bits else None
@@ -1644,8 +1834,8 @@ def vjp_case(name, call, plain, *, bits=True):
         err = max(err, rel_max(a, b))
         if bits:
             assert torch.equal(a, again[i]), (name, i, 'bits differ')
-    print(f'[fit] {name}: vs the plain adjoint max abs / max {err!r} (tol '
-          f'{TOL}){", the same bits twice" if bits else ""}; plain adjoint '
+    print(f'[fit] {name}: vs {ref} max abs / max {err!r} (tol {TOL})'
+          f'{", the same bits twice" if bits else ""}; {ref} '
           f'{plain_ms:.1f} ms')
     assert err <= TOL, (name, err)
     return err, plain_ms
@@ -1658,10 +1848,9 @@ def vjp_time(name, call, kernels, flops, nbytes, card, before):
     b_ms, b_by = bound(flops, nbytes)
     dtxt = 'not measured' if dms is None else f'{dms:.4f} ms'
     share = 'not measured' if dms is None else f'{b_ms / dms:.4f}'
-    print(f'[fit] {name}: device {dtxt} (profiler), bound {b_ms:.4f} ms '
-          f'({b_by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.1f} MB), '
-          f'share {share}; bef113c: {VJP_BEFORE_MS[before]} ms  '
-          f'[{card}]')
+    print(f'[fit] {name}: device {dtxt} (profiler), bound {b_ms:.5f} ms '
+          f'({b_by}: {flops / 1e9:.4f} GFLOP, {nbytes / 1e6:.2f} MB), '
+          f'share {share}; bef113c: {VJP_BEFORE_MS[before]} ms  [{card}]')
     return dms, b_ms, b_by
 
 
@@ -1833,14 +2022,10 @@ def vjp_kernels(card):
                                VJP_KERNELS['segments_vjp'], fl, nb_, card,
                                'c9')
     ms = cuda_ms(call, 3)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    call()
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
-    print(f'[fit] B2 at c9: peak memory {peak / 2**20:.1f} MiB, '
-          f'{(peak - held) / 2**20:.1f} MiB over the {held / 2**20:.1f} MiB '
+    over = memory_over_inputs(call)
+    print(f'[fit] B2 at c9: peak memory {(held + over) / 2**20:.1f} MiB, '
+          f'{over / 2**20:.1f} MiB over the {held / 2**20:.1f} MiB '
           f'held before the call (its inputs)  [{card}]')
     del co, x, gy
     torch.cuda.empty_cache()
@@ -1867,36 +2052,30 @@ def vjp_kernels(card):
         out[name]['err'] = max(out[name]['err'], err)
     torch.cuda.empty_cache()
 
-    # B3: the render-ahead batch, the step's timeline, the carried state
-    L, nw = STATIC_C + F, AHEAD
-    co = lowpass(np.linspace(1000.0, 3000.0, nw * STATIC_CH)).reshape(
-        1, nw, STATIC_CH, 11).permute(1, 0, 2, 3).contiguous()
-    xt = randn(STATIC_C + nw * F, STATIC_CH)
-    xw = xt.unfold(0, L, F)[:nw].permute(2, 0, 1)
-    gy = randn(F, nw, STATIC_CH)
-    call = lambda: K.sosfilt_batch_vjp(co, xw, gy, tail=F)   # noqa: E731
-    e1, plain_b3 = vjp_case(
-        f'B3 batch_vjp, render-ahead shape (L {L}, {nw} windows, '
-        f'{STATIC_CH} lanes, tail {F})', call,
-        lambda: K.sosfilt_batch_vjp_plain(co, xw, gy, tail=F))
-    rows = nw * STATIC_CH * L
-    fl = rows * VJP_FLOP
-    nb_ = (2 * co.numel() + gy.numel() + xt.numel() + L * nw * STATIC_CH) * 4
-    dms, b_ms, b_by = vjp_time('B3 at the render-ahead shape', call,
-                               VJP_KERNELS['rows_vjp'], fl, nb_, card,
-                               'render-ahead')
-    ms = cuda_ms(call, 20)
-    c1, x1, gy1 = co[0], xt[:L], randn(L, STATIC_CH)
-    e2, _ = vjp_case(f'B3 timeline_vjp, step shape ({L}, {STATIC_CH})',
-                     lambda: K.sosfilt_timeline_vjp(c1, x1, gy1),
-                     lambda: K.sosfilt_timeline_vjp_plain(c1, x1, gy1))
-    zi, gzf = 0.5 * randn(1, 2, STATIC_CH), randn(1, 2, STATIC_CH)
-    e3, _ = vjp_case(
-        f'B3 stream_vjp ({F}, {STATIC_CH}) from a non-zero start state',
-        lambda: K.sosfilt_stream_vjp(c1, x1[:F], zi, gy1[:F], gzf),
-        lambda: K.sosfilt_stream_vjp_plain(c1, x1[:F], zi, gy1[:F], gzf))
-    out['rows_vjp'] = dict(err=max(e1, e2, e3), ms=ms, plain_ms=plain_b3,
-                           device_ms=dms, bound_ms=b_ms, bound_by=b_by)
+    # B3 at B3_SHAPES: each held to its reference and timed beside its
+    # bound and the serial walk of commit bef113c; the render-ahead shape
+    # gives the kernels line's numbers
+    errs, b3 = [], {}
+    for name, shape in B3_SHAPES.items():
+        entry, nsec, nw, ch, L, tail = shape[:6]
+        call, ref, fl, nb_ = b3_calls(rng, dev, *shape)
+        err, pms = vjp_case(
+            f'B3 {entry}_vjp, {name} shape ({L} rows, {nw} x {ch} lanes, '
+            f'{nsec} section{"s" if nsec > 1 else ""}, tail {tail})', call,
+            ref, ref=('the float64 reference' if L > B3_PLAIN_ROWS
+                      else 'the plain adjoint'))
+        dms, b_ms, b_by = vjp_time(f'B3 at the {name} shape', call,
+                                   VJP_KERNELS['rows_vjp'], fl, nb_, card,
+                                   name)
+        print(f'[fit] B3 at the {name} shape: '
+              f'{memory_over_inputs(call) / 2**20:.2f} MiB over its inputs '
+              f'(outputs and checkpoint buffer)')
+        errs.append(err)
+        b3[name] = (call, pms, dms, b_ms, b_by)
+    call, plain_b3, dms, b_ms, b_by = b3['render-ahead']
+    out['rows_vjp'] = dict(err=max(errs), ms=cuda_ms(call, 20),
+                           plain_ms=plain_b3, device_ms=dms, bound_ms=b_ms,
+                           bound_by=b_by)
     return out
 
 

@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""B1 / B2 (``csrc/adjoint.cu``'s ``seg_cascade_vjp``) against the serial
-walk they replaced, on one NVIDIA GPU, in one process.
+"""The backward kernels (``csrc/adjoint.cu``: B1 / B2 ``seg_cascade_vjp``,
+B3 ``rows_cascade_vjp``) against the serial walk they replaced, on one
+NVIDIA GPU, in one process.
 
-Builds the ``adjoint.cu`` of commit bef113c (one thread per (carry segment,
-lane) walking its rows forward into a scratch buffer in global memory and
-back) with the current headers (``cascade.cuh`` and ``synth.cuh`` have not
-changed since) beside the current sources, into ``build/vjp_bef113c/``.
-At the fits' shapes — B1 at the flagship fit (64 blocks, m 8, C 512, sum of
-64, no source cotangent) and at c8 (43 blocks, C 1024, per lane), B2 at c9
-(517 blocks, C 1024, 64 lanes, with the input's cotangent) — it holds the
+Builds the ``adjoint.cu`` of commit bef113c (one thread per (carry segment
+or window, lane) walking its rows forward into a scratch buffer in global
+memory and back) with the current headers beside the current sources, into
+``build/vjp_bef113c/``.  At the fits' shapes — B1 at the flagship fit (64
+blocks, m 8, C 512, sum of 64, no source cotangent) and at c8 (43 blocks, C
+1024, per lane), B2 at c9 (517 blocks, C 1024, 64 lanes, with the input's
+cotangent) — and at ``chip_smoke.B3_SHAPES`` (B3 at the static voice's
+render-ahead, step and carried-state shapes, the streaming fit's (8192,
+16), the echo's (16384, 1) and 2^20 rows at two sections) it holds the
 current kernel's outputs to the old one's (``chip_smoke.TOL`` of each
 output's largest |value|), times both by the profiler's device time, old
 and new taking turns (old, new, new, old) in each of the rounds, and
-prints the medians; then, at c9, each call's memory over its inputs
+prints the medians; then, at c9 and at B3's (8192, 16) and 2^20-row
+shapes, each call's memory over its inputs
 (``torch.cuda.max_memory_allocated`` after a reset: the old one's scratch
 buffer is in it).
 
@@ -49,7 +53,8 @@ OLD_COMMIT = 'bef113c'
 OLD_DIR = ROOT / 'build' / f'vjp_{OLD_COMMIT}'
 ROUNDS = 3
 REPS = 3
-KERNELS = ('seg_cascade_vjp',)
+KERNELS = ('seg_cascade_vjp', 'rows_cascade_vjp')
+MEMORY = ('B2 at c9', 'B3 at the streaming fit', 'B3 at the past shared')
 
 
 def old_source() -> str:
@@ -86,7 +91,17 @@ def build_old() -> ctypes.CDLL:
                                                 i, p, p, p, p, i, i, i, i, i,
                                                 i, i, p]
     lib.sosfilt_segments_vjp_launch.restype = i
+    lib.sosfilt_rows_vjp_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p,
+                                            p, p, p, p, i, i, i, i, i, p]
+    lib.sosfilt_rows_vjp_launch.restype = i
     return lib
+
+
+def old_scratch(n_lanes, n_rows, nsec, device):
+    """The old kernels' scratch: per row, lane and section the lagged
+    state (s1, s2), and the input of every section after the first."""
+    return torch.empty(n_lanes * n_rows * (3 * nsec - 1),
+                       dtype=torch.float32, device=device)
 
 
 def old_gen_vjp(lib, co, toff, lanef, gy, *, n_segments, seg_frames,
@@ -99,7 +114,7 @@ def old_gen_vjp(lib, co, toff, lanef, gy, *, n_segments, seg_frames,
     gco = torch.zeros_like(co)
     gsrc = (torch.empty((n_units, n_rows, lanes), dtype=torch.float32,
                         device=co.device) if source_grad else None)
-    scratch = K._scratch(n_units * lanes, n_rows, nsec, co.device)
+    scratch = old_scratch(n_units * lanes, n_rows, nsec, co.device)
     code = lib.sosfilt_segments_vjp_launch(
         co.data_ptr(), None, 0, 0, toff.data_ptr(), lanef.data_ptr(),
         float(np.float32(1.0 / rate)), osc_code, K._SIN_C, 1, gy.data_ptr(),
@@ -119,7 +134,7 @@ def old_seg_vjp(lib, co, x, gy, *, n_segments, seg_frames, context,
     gco = torch.zeros_like(co)
     gxw = torch.empty((n_units, n_rows, lanes), dtype=torch.float32,
                       device=co.device)
-    scratch = K._scratch(n_units * lanes, n_rows, nsec, co.device)
+    scratch = old_scratch(n_units * lanes, n_rows, nsec, co.device)
     code = lib.sosfilt_segments_vjp_launch(
         co.data_ptr(), x.data_ptr(), *x.stride(), None, None, 0.0, 0, None,
         0, gy.data_ptr(), gxw.data_ptr(), gco.data_ptr(), scratch.data_ptr(),
@@ -127,6 +142,29 @@ def old_seg_vjp(lib, co, x, gy, *, n_segments, seg_frames, context,
         K._stream(co.device))
     assert code == 0, code
     return gco, K._fold_windows(gxw, x.shape[0], m * seg_frames)
+
+
+def old_rows_vjp(lib, co, x_t, gy, tail, zi, gzf):
+    """bef113c's ``kernels._rows_vjp`` on the old build: ``(gcoeffs, gx,
+    gzi)`` of windows ``x_t`` ``(L, B, ch)``."""
+    L, B, ch = x_t.shape
+    nsec = co.shape[1]
+    gco = torch.zeros((B, nsec, ch, 11), dtype=torch.float32,
+                      device=co.device)
+    gx = torch.empty((L, B, ch), dtype=torch.float32, device=co.device)
+    gzi = None if zi is None else torch.empty_like(zi)
+    scratch = old_scratch(B * ch, L, nsec, co.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    code = lib.sosfilt_rows_vjp_launch(
+        co.data_ptr(), *co.stride()[:3], x_t.data_ptr(), *x_t.stride(),
+        ptr(zi), gy.data_ptr(), ptr(gzf), gx.data_ptr(), gco.data_ptr(),
+        ptr(gzi), scratch.data_ptr(), nsec, B, ch, L, tail,
+        K._stream(co.device))
+    assert code == 0, code
+    return gco, gx, gzi
 
 
 def shapes(lib, dev):
@@ -166,6 +204,17 @@ def shapes(lib, dev):
     c9_x = randn(cs.C9_C + nb9 * F, V)
     c9_gy = randn(nb9, F, V)
     c9 = dict(n_segments=nb9, seg_frames=F, context=cs.C9_C)
+    b3 = {}
+    for name, (entry, nsec, B, ch, L, tail, *rest) in cs.B3_SHAPES.items():
+        co, x, gy, zi, gzf, _, _ = cs.b3_inputs(rng, dev, nsec, B, ch, L,
+                                                tail, *rest)
+        kw = dict(tail=tail, zi=zi, gzf=gzf)
+        b3[f'B3 at the {name} shape ({L} rows, {B} x {ch} lanes, {nsec} '
+           f'section{"s" if nsec > 1 else ""})'] = (
+            lambda co=co, x=x, gy=gy, kw=kw: K.sosfilt_batch_vjp(co, x, gy,
+                                                                 **kw),
+            lambda co=co, x=x, gy=gy, kw=kw: old_rows_vjp(lib, co, x, gy,
+                                                          **kw))
     return {
         f'B1 at the flagship fit ({nb} blocks, m {cs.M}, C {cs.C}, sum of '
         f'{V})': (
@@ -180,17 +229,8 @@ def shapes(lib, dev):
         f'B2 at c9 ({nb9} blocks, C {cs.C9_C}, {V} lanes)': (
             lambda: K.sosfilt_segments_vjp(c9_co, c9_x, c9_gy, **c9),
             lambda: old_seg_vjp(lib, c9_co, c9_x, c9_gy, **c9)),
+        **b3,
     }
-
-
-def memory_over_inputs(call) -> int:
-    """Bytes a call allocates at its peak over what was held before it."""
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    held = torch.cuda.memory_allocated()
-    call()
-    torch.cuda.synchronize()
-    return torch.cuda.max_memory_allocated() - held
 
 
 def main() -> int:
@@ -217,15 +257,15 @@ def main() -> int:
                 if ms is not None:      # a trace that lost kernel events
                     times[which].append(ms)
         med = {k: statistics.median(v) for k, v in times.items()}
-        print(f'[vjp] {name}: new {med["new"]:.4f} ms, old {med["old"]:.4f} '
+        print(f'[vjp] {name}: new {med["new"]:.5f} ms, old {med["old"]:.4f} '
               f'ms device (medians of {len(times["new"])} / '
               f'{len(times["old"])} x {REPS} calls, profiler; new min '
-              f'{min(times["new"]):.4f} max {max(times["new"]):.4f}), '
+              f'{min(times["new"]):.5f} max {max(times["new"]):.5f}), '
               f'{med["old"] / med["new"]:.1f}x; new vs old max abs / max '
               f'{err!r}  [{card}]')
-        if name.startswith('B2'):
-            mem = {'new': memory_over_inputs(new),
-                   'old': memory_over_inputs(old)}
+        if name.startswith(MEMORY):
+            mem = {'new': cs.memory_over_inputs(new),
+                   'old': cs.memory_over_inputs(old)}
             print(f'[vjp] {name}: memory over its inputs new '
                   f'{mem["new"] / 2**20:.1f} MiB, old '
                   f'{mem["old"] / 2**20:.1f} MiB  [{card}]')

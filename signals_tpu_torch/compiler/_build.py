@@ -75,27 +75,30 @@ def _run_all(cmds: list[list[str]]) -> str:
     return ''.join(outs)
 
 
-def build(*, verbose: bool = False) -> tuple[pathlib.Path, str]:
+def build() -> tuple[pathlib.Path, str]:
     """Compile the sources (if this exact build is not there yet) and
-    return ``(library path, compiler output)``.  ``verbose`` adds
-    ``-Xptxas -v``, whose per-kernel register and spill report is part of
-    the returned output (the binary is the same either way)."""
+    return ``(library path, compiler output)``.  The output holds ``ptxas
+    -v``'s per-kernel register and spill report (the flag changes no
+    binary); it is kept beside the library and returned for a build made
+    earlier too."""
     digest = _digest()
     target = BUILD_DIR / f'libsignals_kernels_{digest}.so'
+    log = target.with_suffix('.log')
     if target.is_file():
-        return target, ''
+        return target, log.read_text() if log.is_file() else ''
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     tag = f'{digest}.{os.getpid()}'
     objs = [BUILD_DIR / f'{src.stem}_{tag}.o' for src in _sources()]
-    extra = ('-Xptxas', '-v') if verbose else ()
-    out = _run_all([[nvcc, *COMPILE_FLAGS, *extra, '-o', str(obj), str(src)]
-                    for src, obj in zip(_sources(), objs)])
+    out = _run_all([[nvcc, *COMPILE_FLAGS, '-Xptxas', '-v', '-o', str(obj),
+                     str(src)] for src, obj in zip(_sources(), objs)])
     tmp = target.with_suffix(f'.{os.getpid()}.tmp')
     out += _run_all([[nvcc, *LINK_FLAGS, '-o', str(tmp),
                       *map(str, objs)]])
     for obj in objs:
         obj.unlink()
+    log.with_suffix(f'.{os.getpid()}.log').write_text(out)
+    os.replace(log.with_suffix(f'.{os.getpid()}.log'), log)
     os.replace(tmp, target)
     return target, out
 
@@ -121,8 +124,10 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
                                                 i, p, p, p, i, i, i, i, i, i,
                                                 i, p]
     lib.sosfilt_segments_vjp_launch.restype = i
+    lib.sosfilt_rows_vjp_buffer.argtypes = [i, i, i, i]
+    lib.sosfilt_rows_vjp_buffer.restype = q
     lib.sosfilt_rows_vjp_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p,
-                                            p, p, p, p, i, i, i, i, i, p]
+                                            p, p, p, p, q, i, i, i, i, i, p]
     lib.sosfilt_rows_vjp_launch.restype = i
     lib.signals_partial_width.argtypes = [i, i, i, i, i, i]
     lib.signals_partial_width.restype = i

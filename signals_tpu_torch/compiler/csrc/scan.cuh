@@ -116,14 +116,15 @@ struct Slicing {
 // lanes x all the slices of one unit's run.  Start from lt = the lanes (a
 // power of two, at most max_lt <= 32) and halve it, which doubles the
 // slices per run, while the launch has fewer than fill_threads() threads
-// and halving still adds slices (at most kMaxThreads threads a block, at
+// and halving still adds slices (at most max_threads threads a block, at
 // least min_slice rows a slice: a run of up to 2 * min_slice - 1 rows is
 // one slice).
 inline Slicing plan_slices(int n_units, int lanes, int n_rows,
-                           int min_slice = kMinSlice, int max_lt = 32) {
+                           int min_slice = kMinSlice, int max_lt = 32,
+                           int max_threads = kMaxThreads) {
     const int64_t fill = fill_threads();
     const auto slices = [&](int lt) {
-        return std::max(1, std::min(kMaxThreads / lt, n_rows / min_slice));
+        return std::max(1, std::min(max_threads / lt, n_rows / min_slice));
     };
     int lt = 1;
     while (lt < lanes && lt < max_lt) lt *= 2;

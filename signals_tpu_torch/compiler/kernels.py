@@ -580,16 +580,11 @@ def _batch_run(coeffs, x_t, zi, tail, return_state):
 # (``signals_tpu/compiler/pallas_kernels.py:1574-1869``).  Gradients reach
 # columns 6-10 of the coefficients (``rc rs d0 d1 d2``, what the cascade
 # reads); columns 0-5 get zero.  A backward kernel keeps nothing across
-# calls: it recomputes the forward's states — B1 / B2 in registers and
-# shared memory (a time-sliced adjoint scan), B3 into a scratch buffer it
-# is handed for the call.
-
-
-def _scratch(n_lanes: int, n_rows: int, nsec: int, device):
-    """B3's scratch: per row, lane and section the lagged state (s1, s2),
-    and the input of every section after the first."""
-    return torch.empty(n_lanes * n_rows * (3 * nsec - 1),
-                       dtype=torch.float32, device=device)
+# calls: each recomputes the forward's states as a time-sliced adjoint scan
+# (the slices' start states in registers, per-chunk checkpoints in shared
+# memory).  Only B3 over a window too long for those checkpoints takes a
+# buffer for the call (``sosfilt_rows_vjp_buffer``: (NSEC + 1) complex
+# numbers per 16-row chunk and thread, 1/16 of a row's state).
 
 
 def _lane_cotangent(gy, sum_groups: int):
@@ -823,7 +818,9 @@ def _rows_vjp(coeffs, x_t, gy, tail, zi, gzf, what: str):
     gzi = None if zi is None else torch.empty_like(zi)
     if B * ch == 0 or L == 0:
         return gco, gx.zero_(), None if gzi is None else gzi.zero_()
-    scratch = _scratch(B * ch, L, nsec, dev)
+    n_ck = lib.sosfilt_rows_vjp_buffer(nsec, B, ch, L)
+    ck = (torch.empty(n_ck, dtype=torch.float32, device=dev) if n_ck
+          else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -831,7 +828,7 @@ def _rows_vjp(coeffs, x_t, gy, tail, zi, gzf, what: str):
     code = lib.sosfilt_rows_vjp_launch(
         coeffs.data_ptr(), *coeffs.stride()[:3], x_t.data_ptr(),
         *x_t.stride(), ptr(zi), gy.data_ptr(), ptr(gzf), gx.data_ptr(),
-        gco.data_ptr(), ptr(gzi), scratch.data_ptr(), nsec, B, ch, L, tail,
+        gco.data_ptr(), ptr(gzi), ptr(ck), n_ck, nsec, B, ch, L, tail,
         _stream(dev))
     _build.check(code, what)
     LAUNCHES[what.replace('sosfilt_', '')] += 1

@@ -18,15 +18,20 @@ logic).  Held here:
 * B2's fold of overlapping windows into the timeline: a context longer than
   a carry segment, one channel read by many lanes, group sums;
 * a numpy float32 model of B1 / B2's time-sliced adjoint scan
-  (:func:`sliced_adjoint_model`) against the plain adjoint within 1e-5 at
-  the edges of the scan (:data:`MODEL_CASES`), and against the JAX
-  package's gradients within 1e-3 at the kernel's own slicing.
+  (:func:`sliced_adjoint_model`) and one of B3's
+  (:func:`rows_adjoint_model`) against the plain adjoint within 1e-5 at
+  the edges of each scan (:data:`MODEL_CASES`, :data:`ROWS_MODEL_CASES`),
+  and against the JAX package's gradients within 1e-3 at the kernels' own
+  slicing;
+* ``chip_smoke.exact_rows_vjp``, the float64 reference B3 is held to on
+  the card where a window is too long for the plain adjoint, against the
+  plain adjoint.
 
 The ``cuda`` cases hold each backward kernel (``csrc/adjoint.cu``: B1, B2,
 B3) to its plain adjoint on the card, within 1e-5 of each output's largest
-|value|, and two calls to the same bits — B1 / B2 at the edges of their
-scan (:data:`GEN_VJP_CASES`, :data:`SEG_VJP_CASES`); they skip without a
-GPU.  JAX is
+|value|, and two calls to the same bits — at the edges of their scans
+(:data:`GEN_VJP_CASES`, :data:`SEG_VJP_CASES`, :data:`ROWS_VJP_CASES`);
+they skip without a GPU.  JAX is
 imported inside the JAX comparisons only, so they run on a machine without
 JAX, from the repository root:
 ``python -m pytest --noconftest -m cuda tests/test_torch_vjp.py``.
@@ -412,6 +417,15 @@ def _cmul(a, b):
     return a[0] * b[0] - a[1] * b[1], a[0] * b[1] + a[1] * b[0]
 
 
+def _pow16(p):
+    """``adjoint.cu``'s ``pow_rows_rn``: p^16 by squaring in float64,
+    rounded once."""
+    re, im = p[0].astype(np.float64), p[1].astype(np.float64)
+    for _ in range(4):
+        re, im = re * re - im * im, 2.0 * re * im
+    return re.astype(np.float32), im.astype(np.float32)
+
+
 def _scan_maps(a, e, reverse=False):
     """``scan.cuh``'s ``slice_start``: the exclusive Hillis-Steele scan of
     the slices' maps ``z -> a*z + e`` along axis 0 (``reverse``: from the
@@ -433,12 +447,15 @@ def _scan_maps(a, e, reverse=False):
     return tuple(np.concatenate([np.zeros_like(c[:1]), c[:-1]]) for c in e)
 
 
-def vjp_slice_rows(n_units, lanes, n_rows, fill=132 * 2048 // 4):
-    """Rows per slice as ``seg_cascade_vjp`` cuts a carry segment on an
-    H100 (``scan.cuh``'s ``plan_slices``: slices of 64 rows at least, 512
-    threads a block at most, 132 SMs)."""
+def vjp_slice_rows(n_units, lanes, n_rows, min_slice=64, most=512,
+                   fill=132 * 2048 // 4):
+    """Rows per slice as ``scan.cuh``'s ``plan_slices`` cuts ``n_units``
+    runs on an H100 (132 SMs): ``seg_cascade_vjp``'s carry segments with
+    the defaults (slices of 64 rows at least, 512 threads a block at most),
+    ``rows_cascade_vjp``'s windows with ``min_slice=16`` and ``most`` its
+    threads a block (256 at 3-4 sections)."""
     def slices(lt):
-        return max(1, min(512 // lt, n_rows // 64))
+        return max(1, min(most // lt, n_rows // min_slice))
     lt = 1
     while lt < lanes and lt < 32:
         lt *= 2
@@ -513,10 +530,7 @@ def sliced_adjoint_model(coeffs, xw, gy, *, seg_frames, context,
             if sec == nsec - 1:
                 ck.append(list(state) + [a])
             j0 = 16 * c
-            p = (rc[sec, :, j0], rs[sec, :, j0])
-            pk = p
-            for _ in range(4):
-                pk = _cmul(pk, pk)
+            pk = _pow16((rc[sec, :, j0], rs[sec, :, j0]))
             for i in range(16):
                 j = j0 + i
                 ok = valid[:, j][:, None]
@@ -704,6 +718,345 @@ def test_sliced_adjoint_model_matches_jax(entry):
         assert rel_err(a, b) <= JAX_TOL, name
 
 
+# --- a numpy model of B3's time-sliced adjoint scan --------------------------
+#
+# ``csrc/adjoint.cu``'s ``rows_cascade_vjp`` cuts each window's L rows into
+# slices as ``csrc/rows.cu`` does and runs the same scans as B1 / B2 under
+# one coefficient set a window, with the window's first slice starting from
+# ``zi`` and its last slice's lambda from ``gzf``.  This model follows it
+# step for step in float32.
+
+
+def rows_adjoint_model(coeffs, x_t, gy, *, tail, zi, gzf, slice_rows):
+    """``(gcoeffs, gx, gzi)`` as :func:`K.sosfilt_batch_vjp_plain` returns
+    them, computed as ``rows_cascade_vjp`` does with slices of
+    ``slice_rows`` rows (a multiple of 16) over windows ``x_t`` ``(L, B,
+    ch)`` under ``coeffs`` ``(B, nsec, ch, 11)``: (1) per section, first to
+    last, each slice's forward map from zero state (the first slice from
+    ``zi``; the transfer p^16 a 16-row chunk, per row in a ragged last
+    chunk) and the exclusive scan, the last pass keeping each chunk's start
+    states and the last section's transfer so far where a slice holds more
+    than one chunk; (2) per section, last to first, each slice's lambda map
+    from zero (the last slice from ``gzf``), its transfer the conjugate of
+    the forward's, through the warmup rows too, and the reversed scan; (3)
+    per chunk from the last, the forward rows recomputed from the
+    checkpoints (one chunk a slice: the true starts) and each section's
+    adjoint rows back over them, ``gzi`` lambda before the first row; (4)
+    one partial gradient per slice, summed in slice order."""
+    f32 = np.float32
+    L, B, ch = x_t.shape
+    nsec, NL, S = coeffs.shape[1], B * ch, slice_rows
+    n, n_ch = -(-L // S), S // 16
+    rows = np.arange(n)[:, None] * S + np.arange(S)[None, :]
+    valid = rows < L                                       # (n, S)
+    rr = np.minimum(rows, L - 1)
+    taps = coeffs.transpose(1, 3, 0, 2).reshape(nsec, 11, NL)
+    rc, rs, d0, d1, d2 = (taps[:, k] for k in range(6, 11))
+    x = np.where(valid[..., None], x_t.reshape(L, NL)[rr], f32(0))
+    gl = np.concatenate([np.zeros((L - tail, NL), f32),
+                         gy.reshape(tail, NL)])
+    g_rows = np.where(valid[..., None], gl[rr], f32(0))
+    straight = rows[:, ::16] + 15 < L                      # (n, n_ch)
+    zero = np.zeros((n, NL), f32)
+    ks = np.arange(n)[:, None]
+
+    def edge(z, k):
+        """Section states of z at slice k only: zi (k = 0), gzf (last)."""
+        if z is None:
+            return [(zero, zero)] * nsec
+        z = z.transpose(1, 2, 0, 3).reshape(nsec, 2, NL)
+        return [tuple(np.where(ks == k, z[s, j][None], f32(0))
+                      for j in (0, 1)) for s in range(nsec)]
+
+    def step(s, v, st, ok):
+        s1, s2 = st
+        y = d0[s] * v + d1[s] * s1 + d2[s] * s2
+        n1 = rc[s] * s1 - rs[s] * s2 + v
+        n2 = rs[s] * s1 + rc[s] * s2
+        return y, (np.where(ok, n1, s1), np.where(ok, n2, s2))
+
+    def lam_step(s, g, lam, ok):
+        l1, l2 = lam
+        gv = d0[s] * g + l1
+        n1 = rc[s] * l1 + rs[s] * l2 + d1[s] * g
+        n2 = rc[s] * l2 - rs[s] * l1 + d2[s] * g
+        return gv, (np.where(ok, n1, l1), np.where(ok, n2, l2))
+
+    def add(u, w):
+        return u[0] + w[0], u[1] + w[1]
+
+    # 1. the forward states' true starts, section by section
+    init, ginit = edge(zi, 0), edge(gzf, n - 1)
+    start, trans, ck, last = [None] * nsec, [None] * nsec, [], None
+    for sec in range(nsec):
+        state = [start[s] for s in range(sec)] + [init[sec]]
+        p = (rc[sec], rs[sec])
+        pk = _pow16(p)
+        a = (np.ones((n, NL), f32), zero)
+        for c in range(n_ch):
+            if sec == nsec - 1 and n_ch > 1:
+                ck.append(list(state) + [a])
+            for i in range(16):
+                j = 16 * c + i
+                ok = valid[:, j][:, None]
+                v = x[:, j]
+                for s in range(sec + 1):
+                    v, state[s] = step(s, v, state[s], ok)
+                row = _cmul(p, a)
+                a = tuple(np.where(ok & ~straight[:, c, None], r, q)
+                          for r, q in zip(row, a))
+            a = tuple(np.where(straight[:, c, None], r, q)
+                      for r, q in zip(_cmul(pk, a), a))
+        trans[sec] = a
+        last = _scan_maps(a, state[sec])
+        start[sec] = add(last, init[sec])
+
+    # 2. lambda after each slice, section by section from the last
+    lam_end = [None] * nsec
+    for sec in range(nsec - 1, -1, -1):
+        lam = [lam_end[s] if s > sec else ginit[s] if s == sec
+               else (zero, zero) for s in range(nsec)]
+        for j in range(S - 1, -1, -1):
+            ok = valid[:, j][:, None]
+            g = g_rows[:, j]
+            for s in range(nsec - 1, sec - 1, -1):
+                g, lam[s] = lam_step(s, g, lam[s], ok)
+        conj = (trans[sec][0], -trans[sec][1])
+        lam_end[sec] = add(_scan_maps(conj, lam[sec], reverse=True),
+                           ginit[sec])
+
+    # 3. the replay from the last chunk back, one partial per slice
+    lam = list(lam_end)
+    acc = np.zeros((nsec, 5, n, NL), f32)
+    gx = np.zeros((n, S, NL), f32)
+    for c in range(n_ch - 1, -1, -1):
+        if n_ch == 1:
+            cs = list(start)
+        else:
+            cs = list(ck[c][:nsec])
+            cs[-1] = add(cs[-1], _cmul(ck[c][nsec], last))
+        cols = range(16 * c, 16 * c + 16)
+        vs = [[x[:, j] for j in cols]]
+        for s in range(nsec - 1):
+            state, out = cs[s], []
+            for j in cols:
+                y, state = step(s, vs[s][j - 16 * c], state,
+                                valid[:, j][:, None])
+                out.append(y)
+            vs.append(out)
+        g = [g_rows[:, j] for j in cols]
+        for s in range(nsec - 1, -1, -1):
+            state, lagged = cs[s], []
+            for j in cols:
+                lagged.append(state)
+                _, state = step(s, vs[s][j - 16 * c], state,
+                                valid[:, j][:, None])
+            for i in range(15, -1, -1):
+                ok = valid[:, 16 * c + i][:, None]
+                (s1, s2), (l1, l2) = lagged[i], lam[s]
+                terms = (l1 * s1 + l2 * s2, l2 * s1 - l1 * s2,
+                         g[i] * vs[s][i], g[i] * s1, g[i] * s2)
+                for t, term in enumerate(terms):
+                    acc[s, t] = np.where(ok, acc[s, t] + term, acc[s, t])
+                g[i], lam[s] = lam_step(s, g[i], lam[s], ok)
+        for i, j in enumerate(cols):
+            gx[:, j] = g[i]
+
+    # 4. each gradient's partials summed in slice order
+    total = np.zeros((nsec, 5, NL), f32)
+    for k in range(n):
+        total = total + acc[:, :, k]
+    gco = np.zeros((B, nsec, ch, 11), f32)
+    gco[..., 6:] = total.reshape(nsec, 5, B, ch).transpose(2, 0, 3, 1)
+    gzi = None
+    if zi is not None:
+        gzi = np.stack([np.stack([lam[s][0][0], lam[s][1][0]])
+                        for s in range(nsec)])
+        gzi = gzi.reshape(nsec, 2, B, ch).transpose(2, 0, 1, 3)
+    return gco, gx.reshape(n * S, NL)[:L].reshape(L, B, ch), gzi
+
+
+#: the model's edges: (sections, windows, channels, rows L, tail, zi, gzf,
+#: LowPass cutoffs (Hz) of every section, layout ('unfold': windows of one
+#: timeline tail rows apart; 'broadcast': one channel under every lane),
+#: slice rows)
+ROWS_MODEL_CASES = {
+    # one 16-row chunk a slice: the starts stay in registers
+    'slices_16_render_ahead': (1, 3, 4, 1152, 1024, False, False,
+                               (500.0, 5000.0), 'unfold', 16),
+    'slices_16_zi_gzf_two_sections': (2, 2, 3, 400, 400, True, True,
+                                      (500.0, 5000.0), 'dense', 16),
+    # slices of 3 and 5 chunks: the checkpoints and their fix-up
+    'slices_48_checkpoints': (2, 2, 3, 1152, 1024, True, True,
+                              (500.0, 5000.0), 'dense', 48),
+    'slices_80_checkpoints_L1157': (1, 1, 4, 1157, 1157, True, True,
+                                    (500.0, 5000.0), 'dense', 80),
+    'L1157_three_sections': (3, 1, 3, 1157, 1157, True, True,
+                             (500.0, 5000.0), 'dense', 16),
+    # fewer than 32 rows: one slice (of two chunks), no scan
+    'one_slice_L20': (2, 2, 3, 20, 20, True, True, (500.0, 5000.0), 'dense',
+                      32),
+    'one_slice_L9_tail4': (1, 3, 2, 9, 4, True, True, (500.0, 5000.0),
+                           'dense', 16),
+    # slices wholly in the warmup (rows before L - tail)
+    'warmup_slices_tail100': (1, 2, 3, 400, 100, True, True, (500.0, 1000.0),
+                              'dense', 48),
+    'warmup_tail1_checkpoints': (2, 2, 3, 300, 1, False, True,
+                                 (500.0, 1000.0), 'dense', 32),
+    'zi_only': (1, 2, 3, 300, 300, True, False, (500.0, 5000.0), 'dense',
+                16),
+    'gzf_only': (1, 2, 3, 300, 300, False, True, (500.0, 5000.0), 'dense',
+                 48),
+    'four_sections': (4, 1, 3, 600, 600, True, True, (500.0, 5000.0),
+                      'dense', 16),
+    'four_sections_checkpoints': (4, 1, 2, 600, 500, True, True,
+                                  (500.0, 5000.0), 'dense', 64),
+    'poles_30Hz': (2, 1, 3, 2000, 2000, True, True, (30.0, 30.0), 'dense',
+                   80),
+    'poles_18kHz': (1, 2, 3, 600, 600, True, True, (15000.0, 18000.0),
+                    'dense', 48),
+    'overlapping_windows': (1, 4, 3, 320, 64, False, False, (500.0, 5000.0),
+                            'unfold', 32),
+    'broadcast_channel': (1, 3, 4, 300, 300, False, True, (500.0, 5000.0),
+                          'broadcast', 16),
+}
+
+
+def rows_model_inputs(case):
+    """The numpy inputs of a :data:`ROWS_MODEL_CASES` case: ``(coeffs
+    (B, nsec, ch, 11), x_t (L, B, ch), gy (tail, B, ch), zi, gzf)``."""
+    nsec, B, ch, L, tail, z, g, cuts, layout, _ = ROWS_MODEL_CASES[case]
+    rng = np.random.default_rng(60 + list(ROWS_MODEL_CASES).index(case))
+    co = np.concatenate([lowpass(rng, B, ch, *cuts) for _ in range(nsec)],
+                        axis=1)
+    if layout == 'unfold':
+        xt = normal(rng, L - tail + B * tail, ch)
+        x = np.stack([xt[b * tail:b * tail + L] for b in range(B)], axis=1)
+    else:
+        x = normal(rng, L, B, 1 if layout == 'broadcast' else ch)
+        x = np.ascontiguousarray(np.broadcast_to(x, (L, B, ch)))
+    gy = normal(rng, tail, B, ch)
+    zi = 0.5 * normal(rng, B, nsec, 2, ch) if z else None
+    gzf = normal(rng, B, nsec, 2, ch) if g else None
+    return co, x, gy, zi, gzf
+
+
+@pytest.mark.parametrize('case', list(ROWS_MODEL_CASES))
+def test_rows_adjoint_model_matches_plain(case):
+    """The f32 algebra of B3's time-sliced adjoint scan meets the plain
+    adjoint within 1e-5 of each output's largest |value|: 16-row slices
+    (no checkpoints) and 32-80-row ones (checkpoints), L = 1157, fewer than
+    32 rows, slices wholly in the warmup, ``zi`` / ``gzf`` zero and not,
+    1-4 sections, 30 Hz and 15-18 kHz poles, overlapping windows and a
+    broadcast channel; one-window cases through
+    ``sosfilt_stream_vjp_plain``."""
+    co, x, gy, zi, gzf = rows_model_inputs(case)
+    L, B, ch = x.shape
+    tail = gy.shape[0]
+    S = ROWS_MODEL_CASES[case][-1]
+    got = rows_adjoint_model(co, x, gy, tail=tail, zi=zi, gzf=gzf,
+                             slice_rows=S)
+    if B == 1 and zi is not None and gzf is not None and tail == L:
+        want = sosfilt_stream_vjp_plain(
+            torch.tensor(co[0]), torch.tensor(x[:, 0]), torch.tensor(zi[0]),
+            torch.tensor(gy[:, 0]), torch.tensor(gzf[0]))
+        want = (want[0][None], want[1][:, None], want[2][None])
+    else:
+        want = K.sosfilt_batch_vjp_plain(
+            *(None if a is None else torch.tensor(a)
+              for a in (co, x, gy)), tail=tail,
+            zi=None if zi is None else torch.tensor(zi),
+            gzf=None if gzf is None else torch.tensor(gzf))
+    for name, a, b in zip(('gcoeffs', 'gx', 'gzi'), got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert rel_err(a, b.numpy()) <= PLAIN_TOL, name
+    n = -(-L // S)
+    if case.startswith('one_slice'):
+        assert n == 1
+    if 'checkpoints' in case:
+        assert S > 16 and n > 1
+    if case.startswith('warmup'):
+        assert (L - tail) // S >= 1
+
+
+@pytest.mark.parametrize('entry', ['batch', 'timeline', 'stream'])
+def test_rows_adjoint_model_matches_jax(entry):
+    """The model at the kernel's own slicing on an H100 against
+    ``jax.vjp`` of the JAX references that :func:`test_batch_grads_match_jax`,
+    :func:`test_timeline_grads_match_jax` and
+    :func:`test_stream_grads_match_jax` take: a vmap of ``sosfilt_scan``
+    (``sosfilt_batch``'s), ``sosfilt_scan`` (``sosfilt_pallas``'s) and the
+    JAX package's ``filters.sosfilt_stream`` from a start state with the end
+    state's cotangent."""
+    import jax
+    from signals_tpu.compiler import filters as JF
+    from signals_tpu.compiler.filters import sosfilt_scan
+    if entry == 'batch':
+        rng = np.random.default_rng(0)
+        B, L, ch, tail = 3, 64, 4, 32
+        co, x = lowpass(rng, B, ch), normal(rng, L, B, ch)
+        gy = normal(rng, tail, B, ch)
+        want = jax_vjp(lambda c, xx: jax.vmap(sosfilt_scan, in_axes=(0, 1),
+                                              out_axes=1)(c, xx)[L - tail:],
+                       [co, x], gy)
+        zi = gzf = None
+    elif entry == 'timeline':
+        rng = np.random.default_rng(1)
+        co, x = bandpass(rng, 1, 6), normal(rng, 200, 1, 6)
+        gy = normal(rng, 200, 1, 6)
+        want = jax_vjp(sosfilt_scan, [co[0], x[:, 0]], gy[:, 0])
+        want = [want[0][None], want[1][:, None]]
+        zi = gzf = None
+    else:
+        rng = np.random.default_rng(6)
+        co = bandpass(rng, 1, 4)
+        x, zi = normal(rng, 160, 1, 4), 0.5 * normal(rng, 1, 2, 2, 4)
+        gy, gzf = normal(rng, 160, 1, 4), normal(rng, 1, 2, 2, 4)
+        want = jax_vjp(JF.sosfilt_stream, [co[0], x[:, 0], zi[0]],
+                       (gy[:, 0], gzf[0]))
+        want = [want[0][None], want[1][:, None], want[2][None]]
+    L, B, ch = x.shape
+    S = vjp_slice_rows(1, B * ch, L, min_slice=16,
+                       most=512 if co.shape[1] <= 2 else 256)
+    assert -(-L // S) > 1
+    got = rows_adjoint_model(co, x, gy, tail=gy.shape[0], zi=zi, gzf=gzf,
+                             slice_rows=S)
+    for name, a, b in zip(('coeffs', 'x', 'zi'), got, want):
+        assert rel_err(a, b) <= JAX_TOL, name
+
+
+@pytest.mark.parametrize('nsec,tail,state', [(1, 300, True), (2, 100, True),
+                                              (3, 300, False)])
+def test_exact_rows_vjp_matches_plain(nsec, tail, state):
+    """``chip_smoke.exact_rows_vjp`` (the float64 reference B3 is held to
+    on the card where a window is too long for the plain adjoint's frame
+    loop) against the plain adjoint on float64 inputs: within 1e-6 of each
+    output's largest |value| (the plain adjoint keeps its gradient sums in
+    float32)."""
+    import chip_smoke
+    rng = np.random.default_rng(40 + nsec)
+    B, ch, L = 2, 3, 300
+    co = torch.tensor(np.concatenate([lowpass(rng, B, ch)] * nsec, axis=1))
+    x, gy = torch.tensor(normal(rng, L, B, ch)), torch.tensor(
+        normal(rng, tail, B, ch))
+    zi = torch.tensor(normal(rng, B, nsec, 2, ch)) if state else None
+    gzf = torch.tensor(normal(rng, B, nsec, 2, ch)) if state else None
+
+    def f64(t):
+        return None if t is None else t.double()
+
+    got = chip_smoke.exact_rows_vjp(co, x, gy, tail, zi, gzf)
+    want = K.sosfilt_batch_vjp_plain(f64(co), f64(x), f64(gy), tail=tail,
+                                     zi=f64(zi), gzf=f64(gzf))
+    for name, a, b in zip(('gcoeffs', 'gx', 'gzi'), got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == torch.float64 and rel_err(a, b) <= 1e-6, name
+
+
 # --- the backward kernels on the card ---------------------------------------
 
 @pytest.fixture
@@ -819,33 +1172,70 @@ def test_cuda_segments_vjp_matches_plain(gpu, case):
     same_bits(got, again)
 
 
+#: B3 on the card: (entry, sections, windows, channels, rows L, tail, zi
+#: and gzf given, LowPass cutoffs (Hz) of every section, layout: 'unfold'
+#: windows of one timeline tail rows apart, 'dense', or 'broadcast' one
+#: channel under every lane); the old render-ahead, step and carried-state
+#: shapes at 1-4 sections, then the edges of the time-sliced adjoint scan
+#: as :data:`ROWS_MODEL_CASES` has them, at the kernel's own slicing
+ROWS_VJP_CASES = {
+    **{f'render_ahead_{n}sec': ('batch', n, 8, 16, 1152, 1024, False,
+                                (500.0, 5000.0), 'unfold')
+       for n in (1, 2, 3, 4)},
+    **{f'step_timeline_{n}sec': ('timeline', n, 1, 16, 1152, 1152, False,
+                                 (500.0, 5000.0), 'dense')
+       for n in (1, 2, 3, 4)},
+    **{f'stream_zi_gzf_{n}sec': ('stream', n, 1, 16, 1024, 1024, True,
+                                 (500.0, 5000.0), 'dense')
+       for n in (1, 2, 3, 4)},
+    'L1157_zi_gzf_2sec': ('batch', 2, 3, 5, 1157, 1157, True,
+                          (500.0, 5000.0), 'dense'),
+    'L20_one_slice_3sec': ('batch', 3, 4, 6, 20, 20, True, (500.0, 5000.0),
+                           'dense'),
+    'L9_tail4': ('batch', 1, 3, 2, 9, 4, True, (500.0, 5000.0), 'dense'),
+    # slices wholly in the warmup, at the sampled filter's tail 1 too
+    'warmup_tail100_zi_gzf': ('batch', 1, 4, 8, 400, 100, True,
+                              (500.0, 1000.0), 'dense'),
+    'sampled_tail1': ('batch', 1, 8, 16, 129, 1, False, (500.0, 5000.0),
+                      'unfold'),
+    'poles30_2sec': ('stream', 2, 1, 16, 4096, 4096, True, (30.0, 30.0),
+                     'dense'),
+    'poles18k_4sec': ('batch', 4, 2, 8, 3000, 3000, True,
+                      (15000.0, 18000.0), 'dense'),
+    'broadcast_channel': ('batch', 1, 8, 16, 1152, 1024, False,
+                          (500.0, 5000.0), 'broadcast'),
+    # the streaming fit's window and the echo's segment
+    'stream_8192x16': ('stream', 1, 1, 16, 8192, 8192, True,
+                       (500.0, 5000.0), 'dense'),
+    'stream_16384x1': ('stream', 1, 1, 1, 16384, 16384, True,
+                       (500.0, 5000.0), 'dense'),
+    # 2048-row slices: the checkpoints outgrow shared memory and go to the
+    # call's buffer; held to chip_smoke.exact_rows_vjp (float64): the plain
+    # adjoint's frame loop would take minutes (chip_smoke.b3_calls)
+    'stream_2pow20_2sec': ('stream', 2, 1, 1, 1 << 20, 1 << 20, True,
+                           (500.0, 5000.0), 'dense'),
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize('nsec', [1, 2, 3, 4])
-def test_cuda_rows_vjp_matches_plain(gpu, nsec):
-    """B3 behind the three row entries: the render-ahead batch (windows of
-    one timeline read in place, tail F), the step's timeline, and the
-    carried-state entry from a start state with the end state's
-    cotangent."""
-    rng = np.random.default_rng(20 + nsec)
-    co = np.concatenate([lowpass(rng, 8, 16)] * nsec, axis=1)
-    co = torch.tensor(co, device=gpu)
-    F_, C_, nb, ch = 1024, 128, 8, 16
-    x = torch.tensor(normal(rng, C_ + nb * F_, ch), device=gpu)
-    xw = x.unfold(0, C_ + F_, F_)[:nb].permute(2, 0, 1)
-    gy = torch.tensor(normal(rng, F_, nb, ch), device=gpu)
-    got = K.sosfilt_batch_vjp(co, xw, gy, tail=F_)
-    held_on_card(got, K.sosfilt_batch_vjp_plain(co, xw, gy, tail=F_))
-    same_bits(got, K.sosfilt_batch_vjp(co, xw, gy, tail=F_))
-    c1, x1 = co[0], x[:C_ + F_]
-    gy1 = torch.tensor(normal(rng, C_ + F_, ch), device=gpu)
-    held_on_card(K.sosfilt_timeline_vjp(c1, x1, gy1),
-                 K.sosfilt_timeline_vjp_plain(c1, x1, gy1))
-    zi = torch.tensor(0.5 * normal(rng, nsec, 2, ch), device=gpu)
-    gzf = torch.tensor(normal(rng, nsec, 2, ch), device=gpu)
-    xs, gys = x[:F_], gy1[:F_]
-    got = K.sosfilt_stream_vjp(c1, xs, zi, gys, gzf)
-    held_on_card(got, K.sosfilt_stream_vjp_plain(c1, xs, zi, gys, gzf))
-    same_bits(got, K.sosfilt_stream_vjp(c1, xs, zi, gys, gzf))
+@pytest.mark.parametrize('case', list(ROWS_VJP_CASES))
+def test_cuda_rows_vjp_matches_plain(gpu, case):
+    """B3 behind the three row entries — the render-ahead batch (windows of
+    one timeline read in place, tail F), the step's timeline, the
+    carried-state entry from a start state with the end state's cotangent,
+    at 1-4 sections — and at the edges of its time-sliced scan: a ragged
+    last slice, one slice, slices wholly in the warmup, 30 Hz and 15-18 kHz
+    poles, a broadcast channel, the streaming fit's (8192, 16), the echo's
+    (16384, 1) and 2^20 rows at two sections (checkpoints in the call's
+    buffer); each output within 1e-5 of its largest, two calls the same
+    bits."""
+    import chip_smoke
+    rng = np.random.default_rng(20 + list(ROWS_VJP_CASES).index(case))
+    call, plain, _, _ = chip_smoke.b3_calls(rng, gpu, *ROWS_VJP_CASES[case])
+    got, again = call(), call()
+    torch.cuda.synchronize()
+    held_on_card(got, plain())
+    same_bits(got, again)
 
 
 @pytest.mark.cuda
