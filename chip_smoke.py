@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Seven phases; any failure raises and exits non-zero:
+Eight phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
@@ -124,6 +124,29 @@ Seven phases; any failure raises and exits non-zero:
    replay (``{K3: 4, B3: 4}``) and as a streaming filter
    (``{sosfilt_stream: 4, B3: 4}``).
 
+8. **Host inputs and the EQ family** (``[files]`` lines), each render
+   with its launch counts reset just before it and checked just after:
+   (a) the offline bounce of a 60 s stereo pcm16 WAV made from a seed
+   (``FileReader`` -> LowShelf 120 Hz +3 dB -> Peak 1 kHz -4 dB Q 1.4 ->
+   Notch 60 Hz Q 4 -> HighShelf 8 kHz +2 dB -> ``FileWriter`` pcm16), 2584
+   blocks on the per-block plan (``{K4: 10 a block}``): 32 blocks from 0
+   and 32 from block 3 within 1e-5 of the oracle with the design in
+   float64 (:func:`exact_design`; the error against the oracle's
+   float32 b/a coefficients printed beside it), the written file valid
+   while open and byte for byte the returned audio under the pcm16
+   encoder, its wall time and, over 256 profiled blocks, its device time
+   and busy share; (b) the same patch under the ``Transport`` in 8-block
+   batches: four against the oracle, then the p50 per block of 20; (c) a
+   48 kHz file with ``conform_rate`` -> streaming LowPass -> swept LowPass
+   (fault C1) -> ``Pan`` -> ``FileWriter`` float32 (``{sosfilt_stream: 1,
+   K2: 1}`` a block): 32 blocks from 0 and 16 from block 3 continuing the
+   carry of blocks 0-2 within 1e-5, then 60 s timed; (d) the flagship
+   with a swept ``Peak`` in place of its LowPass on the mix plan
+   (``{K1: 1}``, 64 x 1e-5 over 32 blocks); (e) K1-K4 and the
+   carried-state entry on RBJ coefficients (a 30 Hz low shelf, a Q 16
+   peak) against their plain versions at phase 2's shapes, within phase
+   2's budgets, the same bits twice.
+
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -200,10 +223,12 @@ def envelope(filtered, gain):
     return out
 
 
-def build_subtractive_voice(gain=1.0 / V):
+def build_subtractive_voice(gain=1.0 / V, peak=False):
     """Saw -> LowPass (cutoff 2000 + 900*Sine(0.5 Hz)/2 via Gain/Mix) ->
-    RingMod with an ADSR gated by a 2 Hz Square -> Gain ``gain``."""
-    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix
+    RingMod with an ADSR gated by a 2 Hz Square -> Gain ``gain``.  With
+    ``peak`` a Peak (+6 dB, Q 1, its freq that same 1000 ± 450 Hz sweep) in
+    place of the LowPass (phase 8)."""
+    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix, Peak
     from signals_tpu_torch.nodes.osc import Sawtooth, Sine
 
     hz = fixed(110.0)
@@ -218,9 +243,15 @@ def build_subtractive_voice(gain=1.0 / V):
     cutoff.left = depth
     cutoff.right = fixed(2000.0)
     cutoff.mix = fixed(0.5)
-    lp = LowPass()
+    if peak:
+        lp = Peak()
+        lp.freq = cutoff
+        lp.gain = fixed(6.0)
+        lp.q = fixed(1.0)
+    else:
+        lp = LowPass()
+        lp.cutoff = cutoff
     lp.input = saw
-    lp.cutoff = cutoff
     lp.get_state().context = LowPass.context_for(550.0, RATE)
     return envelope(lp, gain), hz
 
@@ -1005,11 +1036,11 @@ def n_blocks_60s():
     return int(np.ceil(SECONDS * RATE / F / M)) * M
 
 
-def oracle_mix(n_blocks):
+def oracle_mix(n_blocks, peak=False):
     """The numpy pull oracle: the V-wide voice patch rendered per block and
     summed over voices."""
     from signals_tpu_torch.core import BlockLoc, Request, Shape
-    root, hz = build_subtractive_voice()
+    root, hz = build_subtractive_voice(peak=peak)
     hz.get_state().value = poly_freqs(V).reshape(1, V)
     blocks = []
     for i in range(n_blocks):
@@ -1019,9 +1050,9 @@ def oracle_mix(n_blocks):
     return np.concatenate(blocks).sum(axis=1, keepdims=True)
 
 
-def make_poly(**kw):
+def make_poly(peak=False, **kw):
     from signals_tpu_torch.parallel import PolyPatch
-    root, hz = build_subtractive_voice()
+    root, hz = build_subtractive_voice(peak=peak)
     return PolyPatch(root, n_voices=V, overrides={(hz, 'value'): poly_freqs(V)},
                      block_frames=F, rate=RATE, layout='channels',
                      device='cuda', **kw)
@@ -1043,6 +1074,29 @@ def plain_kernels():
     finally:
         for n, fn in saved.items():
             setattr(K, n, fn)
+
+
+@contextlib.contextmanager
+def exact_design():
+    """Within this block the numpy filter design is not rounded to float32:
+    the pull oracle filters with the float64 coefficients as designed.  The
+    oracle's context windows otherwise run scipy on the float32-rounded b/a
+    form, whose rounding moves poles near the unit circle (a 60 Hz notch)
+    far more than the coupled form's the kernels run on (phase 8)."""
+    from signals_tpu_torch.compiler import filters
+    design = filters.design_coupled
+
+    def unrounded(xp, btype, crits, nyquist):
+        if xp.is_torch:
+            return design(xp, btype, crits, nyquist)
+        return filters.coupled64(xp, filters._design64(xp, btype, crits,
+                                                       nyquist))
+
+    filters.design_coupled = unrounded
+    try:
+        yield
+    finally:
+        filters.design_coupled = design
 
 
 def phase_render():
@@ -1110,12 +1164,13 @@ def phase_render():
                          variants[2][0])}
 
 
-def pull_oracle(root, n_blocks, channels):
-    """The port's numpy pull oracle: blocks 0 .. n_blocks-1 of ``root`` in
-    order (the ADSR's pull evaluation is block-monotonic)."""
+def pull_oracle(root, n_blocks, channels, start=0):
+    """The port's numpy pull oracle: blocks ``start`` .. ``start + n_blocks
+    - 1`` of ``root`` in order (the ADSR's pull evaluation is
+    block-monotonic)."""
     from signals_tpu_torch.core import BlockLoc, Request, Shape
     out = []
-    for i in range(n_blocks):
+    for i in range(start, start + n_blocks):
         loc = BlockLoc(position=i * F, rate=RATE, shape=Shape(F, channels))
         b = root.respond(Request(requestor=None, port='oracle', loc=loc))
         out.append(np.broadcast_to(b, (F, channels)))
@@ -2263,6 +2318,379 @@ def phase_fit():
     return kern, launches
 
 
+# --- phase 8: host inputs and the EQ family -----------------------------------
+
+TRACK_SEED = 8
+#: the bounce's EQ chain: (node, freq Hz, q or None: the default, gain dB)
+EQ_CHAIN = (('LowShelf', 120.0, None, 3.0), ('Peak', 1000.0, 1.4, -4.0),
+            ('Notch', 60.0, 4.0, None), ('HighShelf', 8000.0, None, 2.0))
+#: K4 launches a block of the bounce: each EQ is replayed over its own
+#: window and over the context windows of the EQs after it (context 1024 =
+#: one block): 4 + 3 + 2 + 1
+BOUNCE_TIMELINE = 10
+SRC_RATE = 48000     # the resampled file of (c)
+
+
+def work_dir():
+    """``build/chip_smoke/`` beside this script (git-ignored): phase 8's
+    sound files."""
+    import pathlib
+    d = pathlib.Path(__file__).resolve().parent / 'build' / 'chip_smoke'
+    d.mkdir(parents=True, exist_ok=True)
+    return d
+
+
+def seeded_track(n_frames, channels, seed, rate):
+    """A test track made from ``seed``: a 55 Hz and a 1 kHz sine, their
+    pitch differing per channel, under white noise, peak below 0.9."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(n_frames, dtype=np.float64)[:, None] / rate
+    ch = 1.0 + 0.01 * np.arange(channels)
+    x = (0.35 * np.sin(2 * np.pi * 55.0 * ch * t)
+         + 0.25 * np.sin(2 * np.pi * 1000.0 * ch * t)
+         + 0.08 * rng.standard_normal((n_frames, channels)))
+    return x.astype(np.float32)
+
+
+def write_track(path, data, rate, subtype):
+    from signals_tpu_torch.runtime import sndfile
+    w = sndfile.open_writer(path, rate=rate, channels=data.shape[1],
+                            subtype=subtype)
+    w.write(data)
+    w.close()
+
+
+def build_bounce(src, out=None):
+    """The offline bounce: ``FileReader(src)`` -> LowShelf 120 Hz +3 dB ->
+    Peak 1 kHz -4 dB Q 1.4 -> Notch 60 Hz Q 4 -> HighShelf 8 kHz +2 dB (the
+    nodes' default context, 1024 frames) -> with ``out`` a pcm16
+    ``FileWriter``."""
+    from signals_tpu_torch.nodes import fx
+    from signals_tpu_torch.nodes.files import FileReader, FileWriter
+    node = FileReader()
+    node.get_state().path = str(src)
+    for kind, freq, q, gain in EQ_CHAIN:
+        eq = getattr(fx, kind)()
+        eq.input = node
+        eq.freq = fixed(freq)
+        if q is not None:
+            eq.q = fixed(q)
+        if gain is not None:
+            eq.gain = fixed(gain)
+        node = eq
+    if out is None:
+        return node
+    wr = FileWriter()
+    wr.get_state().path = str(out)
+    wr.get_state().subtype = 'pcm16'
+    wr.input = node
+    return wr
+
+
+def build_swept_chain(src, out=None):
+    """Fault C1 and resampling: ``FileReader(src)`` at 48 kHz with
+    ``conform_rate`` -> a streaming LowPass 3 kHz -> a LowPass swept by the
+    flagship's 0.5 Hz LFO (1000 ± 450 Hz, context 512, 8-block carry
+    segments) -> Pan 0.3 -> with ``out`` a float32 ``FileWriter``."""
+    from signals_tpu_torch.nodes.files import FileReader, FileWriter
+    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix, Pan
+    from signals_tpu_torch.nodes.osc import Sine
+    rd = FileReader()
+    rd.get_state().path = str(src)
+    rd.get_state().conform_rate = True
+    exact = LowPass()
+    exact.input = rd
+    exact.cutoff = fixed(3000.0)
+    exact.get_state().streaming = True
+    lfo = Sine()
+    lfo.hertz = fixed(0.5)
+    depth = Gain()
+    depth.left = lfo
+    depth.right = fixed(900.0)
+    cutoff = Mix()
+    cutoff.left = depth
+    cutoff.right = fixed(2000.0)
+    cutoff.mix = fixed(0.5)
+    swept = LowPass()
+    swept.input = exact
+    swept.cutoff = cutoff
+    swept.get_state().context = C
+    pan = Pan()
+    pan.input = swept
+    pan.position = fixed(0.3)
+    if out is None:
+        return pan
+    wr = FileWriter()
+    wr.get_state().path = str(out)
+    wr.input = pan
+    return wr
+
+
+def rbj_kernels(rng, card, results):
+    """(e) K1-K4 and the carried-state entry on RBJ coefficients — a 30 Hz
+    low shelf (+6 dB, default Q) and a Q 16 peak (+6 dB at 800-1200 Hz),
+    each lane and block its own frequency — against their plain versions
+    on the card at phase 2's shapes (the segment kernels at the flagship's
+    geometry over N_BLOCKS blocks, per lane and summed over V; K3 at the
+    render-ahead shape; K4 at the step's and the mono step's; the
+    carried-state entry at (1024, 16) from a non-zero state), within phase
+    2's budgets, the same bits twice.  Joins each kernel's error into
+    ``results``."""
+    import torch
+    from signals_tpu_torch.compiler import filters as FI
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.core.xp import TorchXP
+    dev = torch.device('cuda')
+    xp = TorchXP(dev)
+    nyq = np.float32(RATE / 2)
+
+    def design(btype, n):
+        lo, hi, gain, q = ((27.0, 33.0, 6.0, 0.0) if btype == FI.LOWSHELF
+                           else (800.0, 1200.0, 6.0, 16.0))
+        freq = torch.as_tensor(rng.uniform(lo, hi, (1, n)).astype(
+            np.float32), device=dev)
+        return FI.design_coupled(xp, btype, (
+            freq, torch.full_like(freq, gain), torch.full_like(freq, q)),
+            nyq)
+
+    def check(what, name, call, plain, tol_rel=False, state=False):
+        got, want = call(), plain()
+        again = call()
+        if state:
+            (y, zf), (wy, wzf), (y2, zf2) = got, want, again
+            same = torch.equal(y, y2) and torch.equal(zf, zf2)
+            err = max(float((y - wy).abs().max()),
+                      float((zf - wzf).abs().max())
+                      / max(1.0, float(wzf.abs().max())))
+        else:
+            same = torch.equal(got, again)
+            err = float((got - want).abs().max())
+            if tol_rel:
+                err /= float(want.abs().max())
+            assert torch.isfinite(got).all(), what
+        print(f'[files] (e) {name} {what} vs plain: '
+              f'{"max abs / max" if tol_rel else "max abs"} {err!r} (tol '
+              f'{TOL}); same bits twice: {same}  [{card}]')
+        assert err <= TOL and same, (what, name, err, same)
+        results[name]['err'] = max(err, results[name]['err'])
+
+    geo = dict(n_segments=N_BLOCKS, seg_frames=F, context=C,
+               blocks_per_seg=M)
+    toff = torch.full((V,), -C, dtype=torch.int32, device=dev)
+    lanef = torch.as_tensor(np.stack([poly_freqs(V), np.zeros(V, np.float32),
+                                      np.ones(V, np.float32)]), device=dev)
+    gen = dict(geo, osc_code=K.OSC_SAW, rate=RATE)
+    x = K.gen_source_rows(toff, lanef, n_segments=1, seg_frames=N_BLOCKS * F,
+                          context=C, osc_code=K.OSC_SAW, rate=RATE)[0]
+    L = STATIC_C + F
+    xt = torch.as_tensor(rng.standard_normal((L + (AHEAD - 1) * F, STATIC_CH))
+                         .astype(np.float32), device=dev)
+    x3 = xt.unfold(0, L, F).permute(2, 0, 1)
+    x4 = xt[:L].contiguous()
+    for btype, what in ((FI.LOWSHELF, '30 Hz low shelf'),
+                        (FI.PEAK, 'Q 16 peak')):
+        co = design(btype, N_BLOCKS * V).reshape(1, N_BLOCKS, V, 11).permute(
+            1, 0, 2, 3).contiguous()
+        for g in (0, V):
+            check(f'{what}, {N_BLOCKS} blocks, sum_groups={g}',
+                  'segments_gen',
+                  lambda: K.sosfilt_segments_gen(co, toff, lanef, **gen,
+                                                 sum_groups=g),
+                  lambda: K.sosfilt_segments_gen_plain(co, toff, lanef, **gen,
+                                                       sum_groups=g),
+                  tol_rel=bool(g))
+            check(f'{what}, {N_BLOCKS} blocks, sum_groups={g}', 'segments',
+                  lambda: K.sosfilt_segments(co, x, **geo, sum_groups=g),
+                  lambda: K.sosfilt_segments_plain(co, x, **geo,
+                                                   sum_groups=g),
+                  tol_rel=bool(g))
+        co3 = design(btype, AHEAD * STATIC_CH).reshape(
+            1, AHEAD, STATIC_CH, 11).permute(1, 0, 2, 3).contiguous()
+        check(f'{what}, render-ahead (L {L}, {AHEAD} x {STATIC_CH})',
+              'batch', lambda: K.sosfilt_batch(co3, x3, tail=F),
+              lambda: K.sosfilt_batch_plain(co3, x3, tail=F))
+        co4 = co3[0]
+        check(f'{what}, step ({L}, {STATIC_CH})', 'timeline',
+              lambda: K.sosfilt_timeline(co4, x4),
+              lambda: K.sosfilt_timeline_plain(co4, x4))
+        co1, x1 = co4[:, :1].contiguous(), x4[:, :1].contiguous()
+        check(f'{what}, mono step ({L}, 1)', 'timeline',
+              lambda: K.sosfilt_timeline(co1, x1),
+              lambda: K.sosfilt_timeline_plain(co1, x1))
+        zi = torch.as_tensor(rng.standard_normal((1, 2, STATIC_CH)).astype(
+            np.float32), device=dev)
+        check(f'{what}, ({F}, {STATIC_CH}) from a non-zero state',
+              'stream', lambda: K.sosfilt_stream(co4, x4[:F], zi),
+              lambda: K.sosfilt_stream_plain(co4, x4[:F], zi), state=True)
+    torch.cuda.synchronize()
+
+
+def phase_files(results):
+    """Host inputs and the EQ family through the port's entry points.
+    Returns, per kernel, ``(launches, what launched it)``."""
+    import torch
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.runtime import Transport, sndfile
+    from signals_tpu_torch.utils import LatencyStats
+    card = card_line()
+    total = collections.Counter()
+    n60 = n_blocks_60s()
+    audio_s = n60 * F / RATE
+    t_phase = time.perf_counter()
+    d = work_dir()
+
+    def within(name, got, want, tol):
+        got = np.asarray(got)
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        err = float(np.abs(got - want).max())
+        print(f'[files] {name}: vs oracle max abs {err!r} (tol {tol:g}, '
+              f'peak {float(np.abs(want).max())!r})')
+        assert err <= tol, (name, err)
+
+    def timed(name, fn, n_blocks):
+        wall, dev_ms, events = profiled(fn)
+        secs = n_blocks * F / RATE
+        print(f'[files] {name}: wall {wall:.1f} ms = '
+              f'{secs / (wall / 1e3):.2f}x realtime, device {dev_ms:.3f} ms '
+              f'in {events} kernels and copies ({events / n_blocks:.1f} a '
+              f'block), busy share {dev_ms / wall:.3f}  [{card}]')
+
+    # (a) the 60 s stereo bounce: FileReader -> four EQs -> FileWriter pcm16
+    src = d / 'track.wav'
+    write_track(src, seeded_track(int(SECONDS * RATE), 2, TRACK_SEED, RATE),
+                RATE, 'pcm16')
+    out = d / 'bounce.wav'
+    bounce = compile_node(build_bounce(src, out), block_frames=F, rate=RATE,
+                          channels=2, device='cuda')
+    assert bounce.plan(n60) == 'blocks', bounce.plan(n60)
+    print(f'[files] bounce: {len(bounce._host_spec)} staged windows '
+          f'{[k for *_, k in bounce._host_spec]}, plan blocks')
+    t0 = time.perf_counter()
+    got = launched(f'bounce, {n60} blocks', lambda: bounce.render(
+        n_blocks=n60)[0].cpu().numpy(), {'timeline': BOUNCE_TIMELINE * n60},
+        total)
+    first = time.perf_counter() - t0
+    reader = sndfile.open_reader(out)              # the writer is still open
+    assert (reader.frames, reader.channels, reader.rate) == (n60 * F, 2,
+                                                             RATE)
+    err = float(np.abs(reader.read(0, n60 * F) - got).max())
+    reader.close()
+    assert err <= 6e-5, err
+    bounce.root._close()
+    ref = d / 'reference.wav'
+    write_track(ref, got, RATE, 'pcm16')
+    same = out.read_bytes() == ref.read_bytes()
+    print(f'[files] bounce, {n60} blocks ({audio_s:.3f} s): wall {first:.2f} '
+          f's = {audio_s / first:.2f}x realtime, {first / n60 * 1e3:.3f} ms '
+          f'a block (host clock; the staging, the copy off the card and the '
+          f'file included)  [{card}]')
+    print(f'[files] bounce: the file read while open within {err:.2e} of the '
+          f'audio; byte for byte the audio under the pcm16 encoder: {same}')
+    assert same
+    # the oracle with the float64 design (exact_design): the one the port's
+    # rows are held to; beside it the oracle's float32 b/a coefficients
+    t0 = time.perf_counter()
+    with exact_design():
+        want = pull_oracle(build_bounce(src), ORACLE_BLOCKS, 2)
+        want3 = pull_oracle(build_bounce(src), ORACLE_BLOCKS, 2, start=3)
+    print(f'[files] bounce oracles, 2 x {ORACLE_BLOCKS} blocks: '
+          f'{time.perf_counter() - t0:.1f} s')
+    rounded = pull_oracle(build_bounce(src), ORACLE_BLOCKS, 2)
+    print(f'[files] bounce, first {ORACLE_BLOCKS} blocks: vs the oracle on '
+          f'float32 b/a coefficients max abs '
+          f'{float(np.abs(got[:ORACLE_BLOCKS * F] - rounded).max())!r}; that '
+          f'oracle vs its float64 design '
+          f'{float(np.abs(rounded - want).max())!r}')
+    within(f'bounce, {n60} blocks, first {ORACLE_BLOCKS}',
+           got[:ORACLE_BLOCKS * F], want, TOL)
+    part = launched(f'bounce, {ORACLE_BLOCKS} blocks from block 3',
+                    lambda: bounce.render(position=3 * F,
+                                          n_blocks=ORACLE_BLOCKS)[0],
+                    {'timeline': BOUNCE_TIMELINE * ORACLE_BLOCKS}, total)
+    within(f'bounce, {ORACLE_BLOCKS} blocks from block 3',
+           part.cpu().numpy(), want3, TOL)
+    del got, part
+    timed(f'bounce, {N_BLOCKS} blocks (profiled)',
+          lambda: bounce.render(n_blocks=N_BLOCKS)[0].cpu(), N_BLOCKS)
+
+    # (b) the same patch under the Transport in 8-block batches
+    tr = Transport(bounce, consumer=None, blocks_per_call=AHEAD)
+    batches = [launched(f'bounce Transport batch at block {i * AHEAD}',
+                        lambda: tr.render(AHEAD),
+                        {'timeline': BOUNCE_TIMELINE * AHEAD}, total)
+               for i in range(ORACLE_BLOCKS // AHEAD)]
+    within(f'bounce, {ORACLE_BLOCKS // AHEAD} Transport batches',
+           np.concatenate(batches), want, TOL)
+    tr.stats = LatencyStats()
+    for _ in range(20):
+        tr.render(AHEAD)
+    print(f'[files] bounce render-ahead, p50 per block of 20 {AHEAD}-block '
+          f'batches: {tr.stats.p50 * 1e3:.3f} ms against the '
+          f'{F / RATE * 1e3:.1f} ms block ({tr.stats.headroom(F, RATE):.2f}x '
+          f'realtime)  [{card}]')
+    bounce.root._close()
+
+    # (c) fault C1 and resampling: 48 kHz -> streaming -> swept -> Pan
+    src48 = d / 'track48.wav'
+    write_track(src48, seeded_track(int(SECONDS * SRC_RATE), 1,
+                                    TRACK_SEED + 1, SRC_RATE),
+                SRC_RATE, 'float32')
+    chain = compile_node(build_swept_chain(src48, d / 'swept.wav'),
+                         block_frames=F, rate=RATE, channels=2,
+                         device='cuda')
+    assert chain.plan(n60) == 'blocks' and chain.carry_seg_align == M
+    want = pull_oracle(build_swept_chain(src48), ORACLE_BLOCKS, 2)
+    got = launched(f'swept chain, {ORACLE_BLOCKS} blocks', lambda: chain.render(
+        n_blocks=ORACLE_BLOCKS)[0], {'stream': ORACLE_BLOCKS,
+                                     'segments': ORACLE_BLOCKS}, total)
+    within(f'swept chain, {ORACLE_BLOCKS} blocks', got.cpu().numpy(), want,
+           TOL)
+    # a render that starts off the carry grid continues the carry of blocks
+    # 0-2: the swept filter's segment from block 0 is served from the
+    # streaming filter's history ring
+    _, carry = launched('swept chain, blocks 0-2', lambda: chain.render(
+        n_blocks=3), {'stream': 3, 'segments': 3}, total)
+    part = launched('swept chain, 16 blocks from block 3 with the carry '
+                    '(off the carry grid)',
+                    lambda: chain.render(position=3 * F, n_blocks=16,
+                                         carry=carry)[0],
+                    {'stream': 16, 'segments': 16}, total)
+    within('swept chain, 16 blocks from block 3', part.cpu().numpy(),
+           want[3 * F:19 * F], TOL)
+    t0 = time.perf_counter()
+    launched(f'swept chain, {n60} blocks', lambda: chain.render(
+        n_blocks=n60)[0].cpu(), {'stream': n60, 'segments': n60}, total)
+    wall = time.perf_counter() - t0
+    print(f'[files] swept chain, {n60} blocks: wall {wall:.2f} s = '
+          f'{audio_s / wall:.2f}x realtime (host clock, the resampling and '
+          f'the file included)  [{card}]')
+    timed(f'swept chain, {N_BLOCKS} blocks (profiled)',
+          lambda: chain.render(n_blocks=N_BLOCKS)[0].cpu(), N_BLOCKS)
+    chain.root._close()
+
+    # (d) the flagship with a swept Peak in place of its LowPass, mix plan
+    poly = make_poly(peak=True)
+    assert poly.compiled.mega_mix(N_BLOCKS) is not None
+    mix = launched(f'flagship with a Peak, {N_BLOCKS} blocks, mix plan',
+                   lambda: poly.render(n_blocks=N_BLOCKS)[0],
+                   {'segments_gen': 1}, total)
+    within(f'flagship with a Peak, first {ORACLE_BLOCKS}',
+           mix[:ORACLE_BLOCKS * F].cpu().numpy(),
+           oracle_mix(ORACLE_BLOCKS, peak=True), V * TOL)
+    timed(f'flagship with a Peak, {n60} blocks, mix plan',
+          lambda: poly.render(n_blocks=n60)[0], n60)
+
+    # (e) the kernels on RBJ coefficients against their plain versions
+    rbj_kernels(np.random.default_rng(TRACK_SEED), card, results)
+    print(f'[files] phase 8: {time.perf_counter() - t_phase:.1f} s')
+    return {'timeline': (total['timeline'], 'file bounce: 10 a block '
+                         '(whole, from block 3, Transport batches)'),
+            'stream': (total['stream'], 'swept chain after a 48 kHz file'),
+            'segments': (total['segments'], 'swept chain after a 48 kHz '
+                         'file (fault C1)'),
+            'segments_gen': (total['segments_gen'], 'flagship with a Peak')}
+
+
 def kernel_ms(k):
     """``(ms, how)``: a kernel's own time, beside its bound — its device
     time by the profiler or by a CUDA graph of calls
@@ -2294,6 +2722,7 @@ def main() -> int:
     phases = [phase_state(), phase_checks()]
     vjp, fit_launches = phase_fit()
     kern.update(vjp)
+    phases.append(phase_files(kern))
     for found in phases + [fit_launches]:
         for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths

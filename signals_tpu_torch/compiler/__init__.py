@@ -22,7 +22,11 @@ per-block step (:meth:`CompiledPatch.step`) lowers one block the same way.
   of ``m`` blocks aligned to absolute multiples of ``m`` blocks; a window
   that starts inside a segment is widened back to the segment's start by
   the filter itself (:meth:`~signals_tpu_torch.nodes.fx.CritFilter.
-  _family_compute`), so a render may start at any block.
+  _family_compute`), so a render may start at any block.  The filter
+  reads its input and crits over one fixed window reaching ``m - 1``
+  blocks (plus its context) behind the window it renders, and ending
+  where that window ends: the collect pass registers it, so history rings
+  and host inputs serve it whatever the start's phase in its segment.
 
 * **Carried state.**  Stateful nodes (delay lines, streaming filters)
   thread a carry — a plain dict ``uid -> name -> tensor`` on the patch's
@@ -39,14 +43,22 @@ delay_mega_core`), the segmented feedback scan (:meth:`CompiledPatch.
 segment_scan_core`), the per-block loop; and, for carry-free polyphony, the
 mix-epilogue plan (:meth:`CompiledPatch.mega_mix`).
 
-* **Taps.**  Visualization nodes (``SignalFlags.VIS``) lower as
-  pass-throughs and register their output over the main window as an extra
-  render output: every plan returns ``taps`` (``uid -> (n_blocks, F, ch)``
-  on the device), :meth:`CompiledPatch.render` hands each enabled tap its
-  blocks on the host, :meth:`CompiledPatch.render_vis` reduces them to
-  display summaries on the device and copies only those.
+* **Taps.**  Visualization nodes (``SignalFlags.VIS``) and recorders
+  (``SignalFlags.RECORDER``: a ``FileWriter``) lower as pass-throughs and
+  register their output over the main window as an extra render output:
+  every plan returns ``taps`` (``uid -> (n_blocks, F, ch)`` on the device),
+  :meth:`CompiledPatch.render` hands each enabled tap its blocks on the
+  host, :meth:`CompiledPatch.render_vis` reduces them to display summaries
+  on the device and copies only those.
 
-Not ported yet: host sources, lane packing.
+* **Host inputs.**  A host source (a ``FileReader``) is not lowered: every
+  window the collect pass saw requested of it is a staged input
+  (:meth:`CompiledPatch.stage_host`), read on the host as numpy ``(n_blocks,
+  frames, ch)`` per window once per render, copied to the device in one
+  transfer and sliced per block there.  A host-fed patch renders per block
+  (``plan() == 'blocks'``), as in the JAX package.
+
+Not ported: lane packing.
 """
 
 from __future__ import annotations
@@ -126,20 +138,12 @@ def _is_host_source(node) -> bool:
     return getattr(node, 'is_host_source', False)
 
 
-def _reads_carried_state(node) -> bool:
-    """Whether ``node``'s upstream closure (itself included) holds a delay
-    or a stateful node that is lowered with a carry."""
-    seen: set = set()
-    stack = [node]
-    while stack:
-        n = stack.pop()
-        if n is None or id(n) in seen:
-            continue
-        seen.add(id(n))
-        if _is_delay(n) or (_is_stateful(n) and not _is_grid_stateless(n)):
-            return True
-        stack.extend(p.sig for p in getattr(n, '_ports', {}).values())
-    return False
+def _host_key(uid: str, w: Window) -> str:
+    """Stable name of a host-staged input window (stride disambiguates a
+    strided control-grid window from a contiguous one at the same span) —
+    the JAX package's key."""
+    suffix = f',{w.stride}' if w.stride != 1 else ''
+    return f'{uid}@{w.offset},{w.frames}{suffix}'
 
 
 def check_device(device) -> torch.device:
@@ -525,6 +529,9 @@ class _Compiler:
         self._stateful_done: set[int] = set()
         #: uid -> a tap node's output over the main window ``(frames, ch)``
         self.taps: dict[str, typing.Any] = {}
+        #: host key -> this lowering's staged host input ``(frames, ch)``
+        #: on the device (:func:`_host_key`)
+        self.host: dict[str, torch.Tensor] = {}
         #: id(delay) -> full input timeline ``cat(buf, u)`` covering
         #: frames [-B, total) — set by the delay solver
         #: (CompiledPatch.delay_mega_core); _lower_delay serves windows
@@ -551,7 +558,7 @@ class _Compiler:
                 f'window {window} of {node.cls_name()} extends past the '
                 f'block end')
         if _is_host_source(node):
-            raise CompileError(f'{node.cls_name()} is not ported yet')
+            return                      # staged: CompiledPatch.stage_host
         if _is_delay(node):
             # delay output comes from history; its input is pulled at the
             # main window each step
@@ -578,15 +585,34 @@ class _Compiler:
                                     block_frames=self.block_frames)
             node.step(ctx, carry)
             return
+        m = self.carry_seg_blocks(node)
+        F = self.block_frames
+        if m > 1 and window.offset % F == 0 and window.frames % F == 0:
+            self._collect_swept(node, window, m)
+            return
         node.kernel(_CollectCtx(self, node, window))
-        if (self.carry_seg_blocks(node) > 1
-                and _reads_carried_state(node._ports['input'].sig)):
-            # a swept filter widens its window back to its carry segment's
-            # start and past the window's end, which history cannot serve
-            raise CompileError(
-                f'{node.cls_name()}: a swept cutoff with carry segments '
-                f'downstream of a delay or a streaming node is not ported '
-                f'yet (carry=1 gives per-block replay)')
+
+    def _collect_swept(self, node, window: Window, m: int) -> None:
+        """The windows a swept filter with ``m``-block carry segments reads
+        at a window of whole blocks (:meth:`~signals_tpu_torch.nodes.fx.
+        CritFilter._family_compute`): its input from ``m - 1`` blocks and
+        its context before the window up to the window's end, its crits on
+        the block grid over the same blocks.  The lookback sizes the
+        history a delay or a stateful producer keeps; a host source is
+        staged at exactly these windows."""
+        F = self.block_frames
+        back = (m - 1) * F
+        w0 = window.offset - back
+        C = node.context_frames()
+        inp = node._ports['input'].sig
+        if inp is not None:
+            self.collect(inp, Window(w0 - C, C))
+            self.collect(inp, Window(w0, back + window.frames))
+        nb = (back + window.frames) // F
+        for pname in node.port_names():
+            sig = node._ports[pname].sig
+            if pname != 'input' and sig is not None:
+                self.collect(sig, Window(w0, nb, stride=F))
 
     def carry_seg_blocks(self, node) -> int:
         """Blocks per carry segment ``node`` engages at this block size (1:
@@ -669,7 +695,13 @@ class _Compiler:
         const = self.node_const.get(id(node))
         if const is not None:
             return self._const(const)
-        if _is_delay(node):
+        if _is_host_source(node):
+            # a disabled reader is silent, as in the pull oracle
+            result = torch.where(
+                self.node_param(node, 'enabled'),
+                self.host[_host_key(self.index.info(node).uid, window)],
+                self._zero())
+        elif _is_delay(node):
             result = self._lower_delay(node, window)
         elif _is_grid_stateless(node):
             ctx = LowerCtx(self, node, window)
@@ -856,16 +888,88 @@ class CompiledPatch:
         compiler.collect(root, Window(0, block_frames))
         #: the initial carried state, ``uid -> name -> tensor``
         self.carry0: dict = compiler.init_carry()
-        #: uid -> tap node (visualization), in graph order
+        #: ``(node, window, key)`` of every host-staged input
+        self._host_spec = self._collect_host_spec()
+        #: uid -> tap node (visualization, recorder), in graph order
         self.tap_nodes: dict[str, Emitter] = {
             self.index.info(n).uid: n for n in self.index.order
             if _is_tap(n)}
         self._render_cache: dict[int, typing.Any] = {}
 
+    def _collect_host_spec(self) -> list[tuple]:
+        """``(node, window, key)`` for every host-fed input window the
+        collect pass discovered, in graph order."""
+        spec = []
+        for node in self.index.order:
+            if _is_host_source(node):
+                uid = self.index.info(node).uid
+                spec.extend((node, w, _host_key(uid, w))
+                            for w in sorted(self.index.info(node).windows))
+        return spec
+
     # -- public API -----------------------------------------------------------
 
     def params(self) -> dict:
         return _Compiler.extract_params(self.index)
+
+    def stage_host(self, position: int, n_blocks: int = 1) -> dict:
+        """Read every host-fed input for ``n_blocks`` blocks from
+        ``position`` on the host: ``key -> (n_blocks, frames, ch)`` float32
+        numpy arrays (the JAX package's staging, as it does it)."""
+        F = self.block_frames
+        out = {}
+        for node, w, key in self._host_spec:
+            if w.stride == 1:
+                out[key] = np.stack(
+                    [node.host_read(position + i * F + w.offset, w.frames,
+                                    self.rate) for i in range(n_blocks)],
+                    axis=0)
+                continue
+            # strided control-grid window: one frame per grid step.
+            # Consecutive blocks share all but `step` grid points, so read
+            # each unique point once and assemble the blocks by slicing.
+            step, rem = divmod(F, w.stride)
+            if rem == 0:
+                base0 = position + w.offset
+                n_uniq = w.frames + (n_blocks - 1) * step
+                uniq = np.concatenate(
+                    [node.host_read(base0 + j * w.stride, 1, self.rate)
+                     for j in range(n_uniq)], axis=0)
+                out[key] = np.stack(
+                    [uniq[i * step:i * step + w.frames]
+                     for i in range(n_blocks)], axis=0)
+                continue
+            out[key] = np.stack(
+                [np.concatenate(
+                    [node.host_read(position + i * F + w.offset
+                                    + k * w.stride, 1, self.rate)
+                     for k in range(w.frames)], axis=0)
+                 for i in range(n_blocks)], axis=0)
+        return out
+
+    def host_inputs(self, position: int, n_blocks: int = 1) -> dict:
+        """:meth:`stage_host` on the patch's device: ``key -> (n_blocks,
+        frames, ch)`` tensors, copied in ONE host-to-device transfer (from
+        pinned memory, not blocking the host, on a GPU); ``{}`` for a patch
+        without host inputs."""
+        staged = self.stage_host(position, n_blocks)
+        if not staged:
+            return {}
+        flat = np.concatenate([np.asarray(a, dtype=F32).reshape(-1)
+                               for a in staged.values()])
+        buf = torch.from_numpy(flat)
+        if self.device.type == 'cuda':
+            buf = buf.pin_memory().to(self.device, non_blocking=True)
+        out, at = {}, 0
+        for key, a in staged.items():
+            out[key] = buf[at:at + a.size].reshape(a.shape)
+            at += a.size
+        return out
+
+    @staticmethod
+    def _host_slice(host: dict, i: int) -> dict:
+        """Block ``i``'s host inputs ``key -> (frames, ch)`` (views)."""
+        return {k: v[i] for k, v in host.items()}
 
     @property
     def carry_seg_align(self) -> int:
@@ -888,22 +992,25 @@ class CompiledPatch:
         return m
 
     def _compiler(self, params, position: int, carry=None,
-                  n_blocks: int = 1) -> _Compiler:
-        """A lowering of ``n_blocks`` blocks from ``position``."""
+                  n_blocks: int = 1, host=None) -> _Compiler:
+        """A lowering of ``n_blocks`` blocks from ``position``; ``host`` is
+        its staged host inputs ``key -> (frames, ch)`` (one block)."""
         comp = _Compiler(self.index)
         comp.params = params
         comp.position = position
         comp.carry_in = {} if carry is None else carry
         comp.main = Window(0, n_blocks * self.block_frames)
+        comp.host = {} if host is None else host
         return comp
 
-    def _window(self, params, carry, position: int, n_blocks: int):
+    def _window(self, params, carry, position: int, n_blocks: int,
+                host=None):
         """Lower ``n_blocks`` blocks from ``position`` as one window whose
         delay reads all come from the carry: ``(blocks (n, F, ch), carry',
         taps)``.  The body of :meth:`step`, :meth:`mega_core` and the
         segments of :meth:`segment_scan_core`."""
         F = self.block_frames
-        comp = self._compiler(params, position, carry, n_blocks)
+        comp = self._compiler(params, position, carry, n_blocks, host)
         block = comp.lower(self.root, comp.main)
         block = torch.broadcast_to(block, (n_blocks * F, self.channels))
         comp.finalize_delays()
@@ -916,29 +1023,35 @@ class CompiledPatch:
         return {uid: t.reshape(n_blocks, self.block_frames, -1)
                 for uid, t in comp.taps.items()}
 
-    def step(self, params, carry, position: int):
+    def step(self, params, carry, position: int, host=None):
         """One block at ``position`` (any block multiple), lowered at
         ``Window(0, F)``: returns ``(block (F, ch), carry')`` on the
         patch's device (pass ``carry0``, or ``{}`` for a carry-free patch,
-        to start).  Filters take their per-block paths: zero-state replay
-        of each block's context (:func:`~signals_tpu_torch.compiler.
-        kernels.sosfilt_timeline`); for swept cutoffs, one segment-kernel
-        call over the block's carry segment up to it; for streaming
-        filters, the carried-state kernel
+        to start).  ``host`` is the block's host inputs, ``key -> (F', ch)``
+        tensors on the device (``host_inputs(position)`` sliced at block
+        0); None stages them here.  Filters take their per-block paths:
+        zero-state replay of each block's context (:func:`~signals_tpu_torch.
+        compiler.kernels.sosfilt_timeline`); for swept cutoffs, one
+        segment-kernel call over the block's carry segment up to it; for
+        streaming filters, the carried-state kernel
         (:func:`~signals_tpu_torch.compiler.kernels.sosfilt_stream`)."""
-        blocks, carry2, _taps = self._window(params, carry, position, 1)
+        if host is None:
+            host = self._host_slice(self.host_inputs(position), 0)
+        blocks, carry2, _taps = self._window(params, carry, position, 1,
+                                             host)
         return blocks[0], carry2
 
     @property
     def mega_compatible(self) -> bool:
         """Whether the patch can render a whole batch as one window: no
-        delays (feedback is sequential), and any stateful node offers
+        delays (feedback is sequential), no host sources (their inputs are
+        staged per block), and any stateful node offers
         either a carry-free grid lowering or a whole-window ``mega_step``
         (streaming filters).  Consumers may read a mega-stepped node at any
         non-future window: the collect pass sizes a ``hist`` carry ring and
         :meth:`_Compiler._serve_history` serves those windows."""
         for node in self.index.order:
-            if _is_delay(node):
+            if _is_delay(node) or _is_host_source(node):
                 return False
             if _is_stateful(node) and not _is_grid_stateless(node):
                 if not getattr(node, 'supports_mega_step', False):
@@ -1125,7 +1238,8 @@ class CompiledPatch:
         package's ``packed_mega_mix`` with the stream count at 1 — or
         ``None`` when ineligible.
 
-        Eligible when the patch carries no state, holds no tap (the plan
+        Eligible when the patch carries no state, reads no host input,
+        holds no tap (the plan
         lowers no node of the filter's downstream at full width, so it has
         no tap feed to return: such a patch takes the plain plan, which
         delivers its taps) and has exactly one ``CritFilter``, V voices
@@ -1150,7 +1264,8 @@ class CompiledPatch:
         from signals_tpu_torch.nodes.fx import CritFilter
         V = self.channels
         filters = [n for n in self.index.order if isinstance(n, CritFilter)]
-        if V < 2 or len(filters) != 1 or self.carry0 or self.tap_nodes:
+        if (V < 2 or len(filters) != 1 or self.carry0 or self.tap_nodes
+                or self._host_spec):
             return None
         f = filters[0]
         if f.channels != V or not _voice_linear_to_root(f, self.root):
@@ -1202,28 +1317,38 @@ class CompiledPatch:
         return 'blocks'
 
     def render_core(self, n_blocks: int):
-        """``(params, carry, position0) -> (blocks (n, F, ch), carry',
-        taps)`` on the plan :meth:`plan` names (cached per batch size)."""
+        """``(params, carry, position0, host=None) -> (blocks (n, F, ch),
+        carry', taps)`` on the plan :meth:`plan` names (cached per batch
+        size).  ``host`` is the render's staged host inputs on the device
+        (:meth:`host_inputs` at ``position0`` for ``n_blocks``); None
+        stages them in the call.  Only the per-block plan reads them: a
+        host source keeps a patch off the others."""
         if n_blocks in self._render_cache:
             return self._render_cache[n_blocks]
         plan = self.plan(n_blocks)
         if plan == 'mega':
-            many = self.mega_core(n_blocks)
+            core = self.mega_core(n_blocks)
         elif plan == 'delay_mega':
-            many = self.delay_mega_core(n_blocks, self.delay_mega_plan())
+            core = self.delay_mega_core(n_blocks, self.delay_mega_plan())
         elif plan == 'segment_scan':
-            many = self.segment_scan_core(n_blocks)
+            core = self.segment_scan_core(n_blocks)
         else:
-            F = self.block_frames
+            core = None
+        F = self.block_frames
 
-            def many(params, carry, position0: int):
-                out, tap_parts = [], []
-                for i in range(n_blocks):
-                    blocks, carry, taps = self._window(
-                        params, carry, position0 + i * F, 1)
-                    out.append(blocks)
-                    tap_parts.append(taps)
-                return torch.cat(out), carry, _cat_taps(tap_parts)
+        def many(params, carry, position0: int, host=None):
+            if core is not None:
+                return core(params, carry, position0)
+            if host is None:
+                host = self.host_inputs(position0, n_blocks)
+            out, tap_parts = [], []
+            for i in range(n_blocks):
+                blocks, carry, taps = self._window(
+                    params, carry, position0 + i * F, 1,
+                    self._host_slice(host, i))
+                out.append(blocks)
+                tap_parts.append(taps)
+            return torch.cat(out), carry, _cat_taps(tap_parts)
 
         self._render_cache[n_blocks] = many
         return many

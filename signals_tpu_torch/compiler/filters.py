@@ -1,4 +1,4 @@
-"""Butterworth filter design and the coupled-form cascade
+"""Filter design and the coupled-form cascade
 (``signals_tpu.compiler.filters``).
 
 The cutoff is a *signal* sampled per block, so coefficients are designed
@@ -6,7 +6,8 @@ inside the render from the lowered cutoff values:
 
 * :func:`design_coupled` — closed-form bilinear-transform Butterworth
   design (order-2 low/high-pass, order-4 band-pass/band-stop as two
-  sections), written against an array namespace
+  sections) and the RBJ audio-EQ-cookbook biquads (peak, shelves, notch,
+  allpass: :func:`_design_eq`), written against an array namespace
   (:data:`~signals_tpu_torch.core.xp.NP` or a
   :class:`~signals_tpu_torch.core.xp.TorchXP`).  The design math runs in
   **float64** in both engines and rounds to float32 once, so the
@@ -31,12 +32,28 @@ import torch
 
 F32 = np.float32
 
-#: filter type codes (reference ``fx.py:124-163``); the port designs the
-#: Butterworth family (the RBJ EQ types are not ported yet)
+#: filter type codes — Butterworth (reference ``fx.py:124-163``) ...
 LOWPASS, HIGHPASS, BANDPASS, BANDSTOP = 'lp', 'hp', 'bp', 'bs'
+#: ... and the RBJ cookbook EQ biquads (no reference counterpart): peaking
+#: EQ, notch, allpass, low/high shelf.  Same SOS/coupled-form contract as
+#: the Butterworth codes, so every execution path runs them unchanged.
+PEAK, NOTCH, ALLPASS, LOWSHELF, HIGHSHELF = 'pk', 'nt', 'ap', 'ls', 'hs'
+
+#: EQ types taking a gain crit (freq, gain_db, q); the others take (freq, q)
+_EQ_GAIN_TYPES = (PEAK, LOWSHELF, HIGHSHELF)
+_EQ_TYPES = _EQ_GAIN_TYPES + (NOTCH, ALLPASS)
 
 _WN_MIN = 1e-5
 _WN_MAX = 1.0 - 1e-5
+
+#: EQ parameter domains.  ``q <= 0`` (e.g. an unconnected ``q`` port, which
+#: reads as zero) means "default Q" = 1/sqrt(2), the Butterworth-slope
+#: choice.  Gain is clipped to ±40 dB (A in [0.1, 10] at the ``10^(g/40)``
+#: convention).
+_Q_DEFAULT = 0.7071067811865476
+_Q_MIN = 0.05
+_Q_MAX = 40.0
+_GAIN_DB_MAX = 40.0
 
 #: generator-fed cascade: when a filter's input is a plain oscillator
 #: (Sine/Saw/Square/Triangle) driven by ``Fixed`` controls, synthesize it
@@ -167,11 +184,78 @@ def _design_band(xp, btype, w1, w2):
     return xp.stack(sections, axis=0)  # (2, ch, 6)
 
 
+def _design_eq(xp, btype, wn, gain_db, q):
+    """RBJ audio-EQ-cookbook biquads in float64, vectorized over channels
+    (the JAX package's op sequence).
+
+    ``wn`` is the center/corner frequency normalized by Nyquist (already
+    clipped to the open interval), ``gain_db`` the boost/cut in dB
+    (``10^(g/40)`` convention; ignored for notch/allpass), ``q`` the
+    quality factor (shelves use the Q parameterization of the shelf
+    slope; ``q = _Q_DEFAULT`` gives the classic slope-1 shelf).
+
+    **Coupled-form domain clip:** the cascade kernels factor each biquad
+    into a scaled rotation, which requires a *complex* pole pair.  RBJ
+    responses with very low Q (a peaking cut needs ``2·Q·A > 1``, the
+    others ``Q > 0.5``) have real poles; those denominators are clipped to
+    the nearest complex-pair denominator (``a2`` in ``[1e-12, 1 - 1e-9]``,
+    ``|a1| <= 2·sqrt(a2)·(1 - 1e-10)``) — the numerator is kept, so the
+    response stays finite and stable.  Musical settings never hit the
+    clip.
+    """
+    w0 = math.pi * wn
+    cw = xp.cos(w0)
+    sw = xp.sin(w0)
+    alpha = sw / (2.0 * q)
+    one = xp.ones_like(cw)
+    if btype == PEAK:
+        A = 10.0 ** (gain_db / 40.0)
+        b0, b1, b2 = 1.0 + alpha * A, -2.0 * cw, 1.0 - alpha * A
+        a0, a1, a2 = 1.0 + alpha / A, -2.0 * cw, 1.0 - alpha / A
+    elif btype == NOTCH:
+        b0, b1, b2 = one, -2.0 * cw, one
+        a0, a1, a2 = 1.0 + alpha, -2.0 * cw, 1.0 - alpha
+    elif btype == ALLPASS:
+        b0, b1, b2 = 1.0 - alpha, -2.0 * cw, 1.0 + alpha
+        a0, a1, a2 = 1.0 + alpha, -2.0 * cw, 1.0 - alpha
+    else:
+        A = 10.0 ** (gain_db / 40.0)
+        sqA = xp.sqrt(A)
+        t = 2.0 * sqA * alpha
+        if btype == LOWSHELF:
+            b0 = A * ((A + 1.0) - (A - 1.0) * cw + t)
+            b1 = 2.0 * A * ((A - 1.0) - (A + 1.0) * cw)
+            b2 = A * ((A + 1.0) - (A - 1.0) * cw - t)
+            a0 = (A + 1.0) + (A - 1.0) * cw + t
+            a1 = -2.0 * ((A - 1.0) + (A + 1.0) * cw)
+            a2 = (A + 1.0) + (A - 1.0) * cw - t
+        elif btype == HIGHSHELF:
+            b0 = A * ((A + 1.0) + (A - 1.0) * cw + t)
+            b1 = -2.0 * A * ((A - 1.0) + (A + 1.0) * cw)
+            b2 = A * ((A + 1.0) + (A - 1.0) * cw - t)
+            a0 = (A + 1.0) - (A - 1.0) * cw + t
+            a1 = 2.0 * ((A - 1.0) - (A + 1.0) * cw)
+            a2 = (A + 1.0) - (A - 1.0) * cw - t
+        else:
+            raise ValueError(btype)
+    b0, b1, b2 = b0 / a0, b1 / a0, b2 / a0
+    a1, a2 = a1 / a0, a2 / a0
+    # complex-pole-pair domain: a2 = pole radius² in (0, 1), |a1| <
+    # 2·sqrt(a2) with a relative margin far below sin²(w0_min), so valid
+    # designs — near-DC shelves included — never bind
+    a2 = xp.clip(a2, 1e-12, 1.0 - 1e-9)
+    bound = 2.0 * xp.sqrt(a2) * (1.0 - 1e-10)
+    a1 = xp.clip(a1, -bound, bound)
+    return xp.stack([b0, b1, b2, one, a1, a2], axis=-1)[None]  # (1, ch, 6)
+
+
 def _design64(xp, btype: str, crits, nyquist):
     """Crit normalization + per-type dispatch in float64: SOS
     ``(nsec, ch, 6)``.  Cutoffs clip to the open interval (0, 1) of
     Nyquist (the reference clips to the closed one and then crashes in
-    scipy); band crits broadcast to a common channel count."""
+    scipy); crits broadcast to a common channel count.  EQ types take
+    ``crits`` = (freq_hz, gain_db, q), or (freq_hz, q) for notch and
+    allpass."""
     f64 = xp.float64
     crits64 = [xp.astype(xp.asarray(c), f64).reshape(-1) for c in crits]
     if len(crits64) > 1:
@@ -186,19 +270,39 @@ def _design64(xp, btype: str, crits, nyquist):
         return _design_band(xp, btype,
                             xp.clip(c1 / nyq, _WN_MIN, _WN_MAX),
                             xp.clip(c2 / nyq, _WN_MIN, _WN_MAX))
-    raise NotImplementedError(f'filter type {btype!r} is not ported yet')
+    if btype in _EQ_TYPES:
+        if btype in _EQ_GAIN_TYPES:
+            freq, gain_db, q = crits64
+            gain_db = xp.clip(gain_db, -_GAIN_DB_MAX, _GAIN_DB_MAX)
+        else:
+            freq, q = crits64
+            gain_db = xp.zeros_like(freq)
+        wn = xp.clip(freq / nyq, _WN_MIN, _WN_MAX)
+        # q <= 0 (an unconnected port reads as zero) means "default Q"
+        q = xp.where(q <= 0.0, _Q_DEFAULT, q)
+        q = xp.clip(q, _Q_MIN, _Q_MAX)
+        return _design_eq(xp, btype, wn, gain_db, q)
+    raise ValueError(btype)
 
 
 def design_coupled(xp, btype: str, crits, nyquist):
-    """Design order-2 Butterworth sections, vectorized over channels.
+    """Design order-2 sections, vectorized over channels.
 
     ``crits``: one (lp/hp) or two (bp/bs) cutoff arrays in hertz, each
-    ``(1, ch)``; ``nyquist``: rate/2.
+    ``(1, ch)``, or an EQ type's (freq, gain_db, q) / (freq, q);
+    ``nyquist``: rate/2.
     Returns float32 ``(nsec, ch, 11)``: ``[b0 b1 b2 1 a1 a2 | rc rs d0 d1
     d2]`` — the b/a form for reference implementations plus the
     **coupled-form** parameters the cascade kernels run on.
     """
-    sos = _design64(xp, btype, crits, nyquist)
+    return xp.astype(coupled64(xp, _design64(xp, btype, crits, nyquist)),
+                     xp.float32)
+
+
+def coupled64(xp, sos):
+    """The 11-column rows of :func:`design_coupled` from float64 SOS
+    ``(nsec, ch, 6)``, still in float64 (the coupled taps' cancellation is
+    taken there); :func:`design_coupled` rounds them to float32 once."""
     b0, b1, b2 = sos[..., 0], sos[..., 1], sos[..., 2]
     a1, a2 = sos[..., 4], sos[..., 5]
     rc = -0.5 * a1
@@ -206,9 +310,8 @@ def design_coupled(xp, btype: str, crits, nyquist):
     d0 = b0
     d1 = b1 - a1 * b0
     d2 = (b2 - a2 * b0 + rc * d1) / rs
-    out = xp.concatenate(
+    return xp.concatenate(
         [sos, xp.stack([rc, rs, d0, d1, d2], axis=-1)], axis=-1)
-    return xp.astype(out, xp.float32)
 
 
 def _coupled_params(coeffs, s):

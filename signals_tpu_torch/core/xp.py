@@ -151,12 +151,27 @@ class TorchXP:
         return torch.exp(x)
 
     @staticmethod
+    def log(x):
+        return torch.log(x)
+
+    @staticmethod
+    def argmin(x, axis):
+        """numpy's ``argmin``: the FIRST index of the minimum along
+        ``axis`` (ties included), written out so it holds on any device."""
+        lo = torch.amin(x, dim=axis, keepdim=True)
+        n = x.shape[axis]
+        idx = torch.arange(n, device=x.device).reshape(
+            [n if d == axis % x.dim() else 1 for d in range(x.dim())])
+        return torch.amin(torch.where(x == lo, idx, n), dim=axis)
+
+    @staticmethod
     def sum(x, axis=None):
         return torch.sum(x) if axis is None else torch.sum(x, dim=axis)
 
     @staticmethod
-    def mean(x, axis=None):
-        return torch.mean(x) if axis is None else torch.mean(x, dim=axis)
+    def mean(x, axis=None, keepdims=False):
+        return (torch.mean(x) if axis is None
+                else torch.mean(x, dim=axis, keepdim=keepdims))
 
     @staticmethod
     def min(x, axis=None):

@@ -171,6 +171,12 @@ class KernelCtx(abc.ABC):
         """Input block at the current window (reference ``forward``,
         ``chain/__init__.py:302-303``).  Broadcastable shape."""
 
+    def in_full(self, name: PortName):
+        """Input at the current window, requested at the *input's* own
+        channel count (the reference's ``loc.reslice`` pattern) — for nodes
+        whose own channel count differs from their inputs' (``Pan``)."""
+        return self.in_(name)
+
     @abc.abstractmethod
     def in_block_rate(self, name: PortName):
         """Input sampled once at the window start — how control inputs are
@@ -648,6 +654,12 @@ class PullCtx(KernelCtx):
 
     def in_(self, name: PortName) -> np.ndarray:
         return self._port(name).forward(self.request)
+
+    def in_full(self, name: PortName) -> np.ndarray:
+        port_ = self._port(name)
+        if not port_:
+            return Emitter.empty_result()
+        return port_.request(self.request.loc.reslice(port_.channels))
 
     def in_block_rate(self, name: PortName) -> np.ndarray:
         return self._port(name).forward_at_block_rate(self.request)

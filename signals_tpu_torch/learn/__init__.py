@@ -126,19 +126,23 @@ class FitResult(typing.NamedTuple):
 def make_loss_core(compiled: CompiledPatch, n_blocks: int, *,
                    position: int = 0,
                    loss: typing.Callable = None):
-    """``loss_fn(params, target) -> scalar tensor`` rendering the patch for
-    ``n_blocks`` blocks from ``position`` on the plan :meth:`~signals_tpu_
-    torch.compiler.CompiledPatch.render_core` picks (the same as a render:
-    an echo patch differentiates through its segments, not ``n_blocks``
-    steps), from the patch's initial carry."""
+    """``loss_fn(params, target, host=None) -> scalar tensor`` rendering
+    the patch for ``n_blocks`` blocks from ``position`` on the plan
+    :meth:`~signals_tpu_torch.compiler.CompiledPatch.render_core` picks
+    (the same as a render: an echo patch differentiates through its
+    segments, not ``n_blocks`` steps), from the patch's initial carry.
+    ``host`` is the render's staged host inputs on the device
+    (:meth:`~signals_tpu_torch.compiler.CompiledPatch.host_inputs`), an
+    argument as in the JAX package so that one staging serves every step;
+    None stages them in the call."""
     F = compiled.block_frames
     loss = spectral_loss if loss is None else loss
     compiled.check_position(position, n_blocks)
     many = compiled.render_core(n_blocks)
     carry0 = compiled.carry0
 
-    def loss_fn(params, target):
-        blocks, _, _ = many(params, carry0, position)
+    def loss_fn(params, target, host=None):
+        blocks, _, _ = many(params, carry0, position, host)
         audio = blocks.reshape(n_blocks * F, compiled.channels)
         return loss(audio, target)
 
@@ -165,11 +169,12 @@ def _conform_target(target, F: int, device):
 def make_loss_fn(compiled: CompiledPatch, target, *, position: int = 0,
                  loss: typing.Callable = None):
     """``loss_fn(params) -> scalar tensor`` rendering the patch over the
-    target's duration."""
+    target's duration (host inputs staged once, here)."""
     target, n_blocks = _conform_target(target, compiled.block_frames,
                                        compiled.device)
     core = make_loss_core(compiled, n_blocks, position=position, loss=loss)
-    return lambda params: core(params, target)
+    host = compiled.host_inputs(position, n_blocks)
+    return lambda params: core(params, target, host)
 
 
 def resolve_steps_per_dispatch(steps: int,
@@ -311,12 +316,15 @@ def fit(root: Emitter,
                   for node, pname in trainable}
     train = _split_train(params, train_keys)
 
-    def loss_train(tp, target, full_params):
-        return core(_merge_train(full_params, tp), target)
+    def loss_train(tp, target, host, full_params):
+        return core(_merge_train(full_params, tp), target, host)
 
+    # host-fed inputs are staged and copied to the device once per fit
+    host = compiled.host_inputs(0, n_blocks)
     train, losses = fused_descent(
         loss_train, train, steps=steps, learning_rate=learning_rate,
-        steps_per_dispatch=steps_per_dispatch, loss_args=(target, params),
+        steps_per_dispatch=steps_per_dispatch,
+        loss_args=(target, host, params),
         lr_scale=_relative_scale(train) if relative_lr else None)
 
     final = _merge_train(params, train)

@@ -1,9 +1,9 @@
 """Effects and filters (``signals_tpu.nodes.fx``).
 
-Elementwise effects (Mix/RingMod/Gain/Amp/Drive) lower to eager tensor ops.
-The
-critically-tuned Butterworth filters (LowPass, HighPass, BandPass,
-BandStop) keep the reference's *stateless
+Elementwise effects (Mix/RingMod/Gain/Amp/Drive/Pan/Quantize) lower to
+eager tensor ops.  The critically-tuned Butterworth filters (LowPass,
+HighPass, BandPass, BandStop) and the RBJ EQ family (Peak, LowShelf,
+HighShelf, Notch, Allpass) keep the reference's *stateless
 context-window* semantics — re-pull context frames, filter from zero
 initial state, return the tail — with coefficients designed per block from
 the cutoff signal.  Swept (non-``Fixed``) cutoffs additionally carry state
@@ -108,6 +108,45 @@ class Drive(Effect):
         x = ctx.in_('input')
         d = xp.maximum(ctx.in_block_rate('drive'), F32(1e-3))
         return tanh_exact(xp, x * d) / tanh_exact(xp, d)
+
+
+@register('signals_tpu.nodes.fx.Pan')
+class Pan(Effect):
+    """Equal-power stereo panner: mono in, two channels out.  ``position``
+    (block rate) in [-1, 1], left to right; a wider input is averaged to
+    mono first."""
+
+    input: Receiver.BoundPort = port('input')
+    position: Receiver.BoundPort = port('position')
+
+    @property
+    def channels(self) -> int:
+        return 2
+
+    def kernel(self, ctx: KernelCtx):
+        xp = ctx.xp
+        x = ctx.in_full('input')
+        mono = (x if x.shape[1] == 1
+                else xp.mean(x, axis=1, keepdims=True))
+        p = xp.clip(ctx.in_block_rate('position'), F32(-1.0), F32(1.0))
+        theta = (p[:, :1] + F32(1.0)) * F32(np.pi / 4)
+        left = mono * xp.cos(theta)
+        right = mono * xp.sin(theta)
+        return xp.concatenate(
+            [xp.broadcast_to(left, (ctx.nframes, 1)),
+             xp.broadcast_to(right, (ctx.nframes, 1))], axis=1)
+
+
+def _pad_rows(x, n: int, edge: bool = False):
+    """``x`` ``(k, ch)`` extended to ``n`` rows: with zeros, or with
+    copies of its last row (``edge``)."""
+    k = x.shape[0]
+    if k == n:
+        return x
+    tail = (torch.broadcast_to(x[-1:], (n - k, x.shape[1])) if edge
+            else torch.zeros((n - k, x.shape[1]), dtype=x.dtype,
+                             device=x.device))
+    return torch.cat([x, tail])
 
 
 def _rotation_scan(m):
@@ -477,11 +516,13 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
             m -= 1
         return m
 
-    def _block_coeffs(self, ctx, nb: int, nyquist):
+    def _block_coeffs(self, ctx, nb: int, nyquist, grids=None):
         """Coefficients of the window's ``nb`` blocks from per-block crit
-        samples: ``(nb, nsec, chs, 11)``."""
+        samples (``grids``, each ``(nb, ch_i)``; None: the window's own):
+        ``(nb, nsec, chs, 11)``."""
         xp = ctx.xp
-        grids = self._crits_grid(ctx)                      # each (nb, ch_i)
+        if grids is None:
+            grids = self._crits_grid(ctx)                  # each (nb, ch_i)
         chs = max(g.shape[1] for g in grids)
         crits = tuple(xp.broadcast_to(g, (nb, chs)).reshape(1, -1)
                       for g in grids)                      # (1, nb*chs)
@@ -498,10 +539,16 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
           to the absolute carry-segment boundary at or before its start
           (the segment phase is a host integer) and runs ONE segment-kernel
           call — the segment up to the window if it is shorter than a
-          segment, else whole segments, the last one's trailing blocks the
-          timeline's causal continuation; the leading and trailing blocks
-          are dropped.  This is what the JAX package's per-block prefix and
-          ``_tv_carry_kernel`` compute, at one launch.
+          segment, else whole segments; the leading and trailing blocks
+          are dropped.  The input and the crits are read over a FIXED
+          window, ``m - 1`` blocks (and the context) back from the window
+          up to its end, whatever the phase (what the collect pass
+          registered: :meth:`~signals_tpu_torch.compiler._Compiler.
+          _collect_swept`), so a delay line, a stateful producer's history
+          ring or a host input serves them; the rows past the window's end
+          are zero (the filter is causal: they cannot change the rows
+          kept).  This is what the JAX package's per-block prefix,
+          ``_tv_carry_kernel`` and ``sosfilt_tv`` compute, at one launch.
         * Otherwise (static crits, ``carry = 1``, another block size): the
           segment kernels when :meth:`_segment_gate` passes, else the
           batched per-block replay."""
@@ -520,29 +567,45 @@ class CritFilter(StatefulEmitter, ImplicitChannels, abc.ABC):
         span = lead + nb
         per_seg = min(m, span)
         nbp = -(-span // per_seg) * per_seg
+        back = (m - 1) * F_
+        fixed = (ctx.at_window(ctx.window.offset - back, back + nb * F_),
+                 m - 1 - lead)
         wctx = ctx.at_window(ctx.window.offset - lead * F_, nbp * F_)
         y = self._segments_compute(wctx, (F_, nbp), nyquist, chx, per_seg,
-                                   sum_groups)
+                                   sum_groups, fixed)
         return y[lead:lead + nb]
 
-    def _segments_compute(self, ctx, grid, nyquist, chx, m, sum_groups):
+    def _segments_compute(self, ctx, grid, nyquist, chx, m, sum_groups,
+                          fixed=None):
         """Per-block coefficients for the window's blocks, then ONE segment
         kernel call with ``m`` blocks per carry segment (the window starts
         on a segment boundary): the generator-fed kernel when the input is
         an eligible oscillator (and the compile-time ``SEG_SOURCE_GEN``
         snapshot is on), else the timeline kernel over the lowered input
-        with its context."""
+        with its context.  ``fixed = (fctx, skip)``: read the crits and the
+        input over ``fctx``'s window instead, dropping its first ``skip``
+        blocks, the blocks past its end padded (the crits with their last
+        block's, the input with zeros)."""
         from signals_tpu_torch.compiler.kernels import sosfilt_segments
         F_, nb = grid
         C = self.context_frames()
-        co = self._block_coeffs(ctx, nb, nyquist)
+        grids = None
+        if fixed is not None:
+            fctx, skip = fixed
+            grids = tuple(_pad_rows(g[skip:], nb, edge=True)
+                          for g in self._crits_grid(fctx))
+        co = self._block_coeffs(ctx, nb, nyquist, grids)
         co = torch.broadcast_to(co, (nb, co.shape[1], chx, 11))
         gen = (self._gen_input_spec(chx) if ctx.compiler.index.seg_source_gen
                else None)
         if gen is not None:
             return self._family_gen(ctx, gen, co, F_, nb, C, chx, m,
                                     sum_groups)
-        x = ctx.in_context('input', C)                     # (C + nb*F, ch)
+        if fixed is None:
+            x = ctx.in_context('input', C)                 # (C + nb*F, ch)
+        else:
+            x = _pad_rows(fctx.in_context('input', C)[skip * F_:],
+                          C + nb * F_)
         if m == 1:
             mc = self._carry_blocks(ctx, nb)
             y = sosfilt_segments(co[::mc], x, n_segments=nb // mc,
@@ -698,3 +761,138 @@ class BandStop(DoubleCritFilter):
 
     def type_code(self) -> str:
         return _filters.BANDSTOP
+
+
+class ParametricFilter(CritFilter, abc.ABC):
+    """RBJ audio-EQ-cookbook biquads (peaking EQ, shelves, notch,
+    allpass) — the parametric-EQ family the reference lacks.
+
+    The same :class:`CritFilter` contract as the Butterworth nodes: the
+    center/corner frequency, Q and gain are *signals* sampled at block rate
+    (an LFO on ``freq`` is a sweepable EQ), coefficients are designed in
+    float64 on the device (:func:`~signals_tpu_torch.compiler.filters.
+    _design_eq`) and rounded once, and every path (context windows,
+    ``streaming``, swept carry, the mix plan) runs them unchanged.
+
+    Port conventions: an unconnected ``q`` reads as 0 and means "default
+    Q" (1/√2); an unconnected ``gain`` means 0 dB.  Resonance amplifies the
+    f32 recurrence's rounding, so agreement with the float64 pull oracle
+    scales with Q: 1e-5 up to Q ~4, 1e-4 at Q 8, 2.5e-4 at Q 16
+    (``tests/test_torch_eq.py``).
+    """
+
+    freq: Receiver.BoundPort = port('freq')
+    q: Receiver.BoundPort = port('q')
+
+
+class GainParametricFilter(ParametricFilter, abc.ABC):
+    """Parametric types with a boost/cut amount: crits (freq, gain, q)."""
+
+    gain: Receiver.BoundPort = port('gain')
+
+    def _crits(self, ctx: KernelCtx) -> tuple:
+        return (ctx.in_block_rate('freq'), ctx.in_block_rate('gain'),
+                ctx.in_block_rate('q'))
+
+    def _crits_grid(self, ctx) -> tuple:
+        return (ctx.in_block_rate_grid('freq'),
+                ctx.in_block_rate_grid('gain'),
+                ctx.in_block_rate_grid('q'))
+
+
+class GainlessParametricFilter(ParametricFilter, abc.ABC):
+    """Parametric types without a gain: crits (freq, q)."""
+
+    def _crits(self, ctx: KernelCtx) -> tuple:
+        return (ctx.in_block_rate('freq'), ctx.in_block_rate('q'))
+
+    def _crits_grid(self, ctx) -> tuple:
+        return (ctx.in_block_rate_grid('freq'),
+                ctx.in_block_rate_grid('q'))
+
+
+@register('signals_tpu.nodes.fx.Peak')
+class Peak(GainParametricFilter):
+    """Peaking (bell) EQ: boost/cut of ``gain`` dB around ``freq``,
+    bandwidth set by ``q``; unity far from the center."""
+
+    def type_code(self) -> str:
+        return _filters.PEAK
+
+
+@register('signals_tpu.nodes.fx.LowShelf')
+class LowShelf(GainParametricFilter):
+    """Low shelf: ``gain`` dB below the corner, unity above."""
+
+    def type_code(self) -> str:
+        return _filters.LOWSHELF
+
+
+@register('signals_tpu.nodes.fx.HighShelf')
+class HighShelf(GainParametricFilter):
+    """High shelf: ``gain`` dB above the corner, unity below."""
+
+    def type_code(self) -> str:
+        return _filters.HIGHSHELF
+
+
+@register('signals_tpu.nodes.fx.Notch')
+class Notch(GainlessParametricFilter):
+    """Notch: kills a narrow band around ``freq``, unity elsewhere."""
+
+    def type_code(self) -> str:
+        return _filters.NOTCH
+
+
+@register('signals_tpu.nodes.fx.Allpass')
+class Allpass(GainlessParametricFilter):
+    """Second-order allpass: unit magnitude everywhere, phase rotation
+    around ``freq``."""
+
+    def type_code(self) -> str:
+        return _filters.ALLPASS
+
+
+@register('signals_tpu.nodes.fx.Quantize')
+class Quantize(Effect):
+    """Pitch quantizer: snap a control signal in Hz to the nearest tone of
+    an equal-temperament scale (semitone pitch classes in ``scale``,
+    relative to ``root`` Hz).  Stateless and elementwise.
+
+    The output is Hz-valued through log/pow, so engines agree to ~2e-5
+    *relative*, not to the absolute audio tolerance.  Of two equally near
+    candidates the first (the lower, in ``scale`` order) wins in every
+    engine.
+    """
+
+    input: Receiver.BoundPort = port('input')
+
+    class State(Effect.State):
+        #: semitone pitch classes of the scale (e.g. major =
+        #: [[0,2,4,5,7,9,11]]); traced: re-scale without recompiling
+        scale: np.ndarray = Param(
+            lambda: np.arange(12, dtype=np.float32).reshape(1, -1),
+            validate=lambda v: None if (isinstance(v, np.ndarray)
+                                        and v.ndim == 2 and v.size > 0)
+            else 'must be a non-empty 2D array',
+            convert=lambda v: np.asarray(v, dtype=np.float32)
+            if isinstance(v, (np.ndarray, list, tuple)) else v,
+            traced=True)
+        #: reference frequency of pitch class 0
+        root: float = Param(261.6256, validate=ge(1.0), traced=True)
+
+    def kernel(self, ctx: KernelCtx):
+        xp = ctx.xp
+        hz = xp.maximum(ctx.in_('input'), F32(1e-3))    # (F, C)
+        root = xp.astype(ctx.param('root'), xp.float32).reshape(())
+        scale = ctx.param('scale').reshape(-1)           # (K,)
+        semis = F32(12.0) * (xp.log(hz / root)
+                             * F32(1.0 / np.log(2.0)))   # (F, C)
+        octave = xp.floor(semis * F32(1.0 / 12.0)) * F32(12.0)
+        pc = semis - octave                              # [0, 12)
+        # candidate tones: scale degrees in this octave and both neighbors
+        cands = xp.concatenate([scale - F32(12.0), scale,
+                                scale + F32(12.0)])      # (3K,)
+        dist = xp.abs(pc[:, :, None] - cands)            # (F, C, 3K)
+        tone = cands[xp.argmin(dist, axis=2)]            # (F, C)
+        return root * F32(2.0) ** ((octave + tone) * F32(1.0 / 12.0))

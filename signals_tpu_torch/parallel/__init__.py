@@ -154,11 +154,15 @@ class PolyPatch:
         return self.compiled.params(), None
 
     def render_fn(self, n_blocks: int):
-        """``(params, carry, position0) -> (mix (n_blocks, F, out_ch),
-        carry')`` on the mix-epilogue plan when enabled and eligible (a
-        carry-free patch: the carry passes through), else the plan
-        :meth:`~signals_tpu_torch.compiler.CompiledPatch.render_core`
-        picks, summed over the voices (cached per batch size)."""
+        """``(params, carry, position0, host=None) -> (mix (n_blocks, F,
+        out_ch), carry')`` on the mix-epilogue plan when enabled and
+        eligible (a carry-free patch without host inputs: the carry passes
+        through), else the plan :meth:`~signals_tpu_torch.compiler.
+        CompiledPatch.render_core` picks, summed over the voices (cached
+        per batch size).  ``host``: the render's staged host inputs
+        (:meth:`~signals_tpu_torch.compiler.CompiledPatch.host_inputs`).
+        Taps are neither returned nor delivered, as in the JAX package's
+        ``PolyPatch``."""
         if n_blocks in self._render_cache:
             return self._render_cache[n_blocks]
         compiled = self.compiled
@@ -166,14 +170,15 @@ class PolyPatch:
         out_ch = self._out_channels
         mixplan = compiled.mega_mix(n_blocks) if self._mix_epilogue else None
         if mixplan is not None:
-            def render(params, carry, position0):
+            def render(params, carry, position0, host=None):
                 mix = mixplan(params, position0)            # (n, F, 1)
                 return torch.broadcast_to(mix, (n_blocks, F, out_ch)), carry
         else:
             whole = compiled.render_core(n_blocks)
 
-            def render(params, carry, position0):
-                blocks, carry2, _taps = whole(params, carry, position0)
+            def render(params, carry, position0, host=None):
+                blocks, carry2, _taps = whole(params, carry, position0,
+                                              host)
                 mix = blocks.sum(dim=2, keepdim=True)
                 return (torch.broadcast_to(mix, (n_blocks, F, out_ch)),
                         carry2)
@@ -195,7 +200,8 @@ class PolyPatch:
             params, _ = self.params()
         if carry is None:
             carry = self.compiled.carry0
-        mix, carry2 = self.render_fn(n_blocks)(params, carry, position)
+        host = self.compiled.host_inputs(position, n_blocks)
+        mix, carry2 = self.render_fn(n_blocks)(params, carry, position, host)
         F = self.compiled.block_frames
         return mix.reshape(n_blocks * F, self._out_channels), carry2
 
@@ -230,15 +236,17 @@ class PolyPatch:
         train = learn._split_train(params, {(index.info(node).uid, pname)
                                             for node, pname in trainable})
 
-        def loss_fn(tp, target, full_params):
+        def loss_fn(tp, target, host, full_params):
             mix, _ = render(learn._merge_train(full_params, tp), carry0,
-                            position)
+                            position, host)
             return loss(mix.reshape(n_blocks * F, self._out_channels),
                         target)
 
+        host = compiled.host_inputs(position, n_blocks)
         train, losses = learn.fused_descent(
             loss_fn, train, steps=steps, learning_rate=learning_rate,
-            steps_per_dispatch=steps_per_dispatch, loss_args=(target, params),
+            steps_per_dispatch=steps_per_dispatch,
+            loss_args=(target, host, params),
             lr_scale=learn._relative_scale(train) if relative_lr else None)
 
         final = learn._merge_train(params, train)

@@ -103,6 +103,7 @@ _NODE_MODULES = (
     'signals_tpu_torch.nodes.dyn',
     'signals_tpu_torch.nodes.vis',
     'signals_tpu_torch.nodes.wavetable',
+    'signals_tpu_torch.nodes.files',
 )
 
 _loaded = False

@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of ``signals_tpu_torch``
-(the node library and ``learn`` included) pulls in neither ``jax``,
-``optax`` nor the JAX package nor matplotlib, builds no kernel, and leaves
-TF32 off."""
+(the node library, ``learn`` and the sound-file modules included) pulls in
+neither ``jax``, ``optax`` nor the JAX package nor matplotlib nor
+``soundfile``, builds no kernel, and leaves TF32 off; the modules copied
+from the JAX package do not mention ``jax`` at all."""
 
 import pathlib
 import subprocess
@@ -19,8 +20,12 @@ registry.ensure_loaded()
 from signals_tpu_torch.compiler import _build
 assert 'signals_tpu_torch.learn' in sys.modules
 assert 'signals_tpu_torch.nodes.wavetable' in sys.modules
+for m in ('nodes.files', 'runtime.sndfile', 'runtime.wavio',
+          'runtime.codecs', 'core.resample'):
+    assert 'signals_tpu_torch.' + m in sys.modules, m
 bad = sorted(n for n in sys.modules
-             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu'))
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu',
+                                    'soundfile'))
 assert not bad, bad
 assert 'matplotlib' not in sys.modules
 assert _build._lib is None
@@ -61,3 +66,26 @@ def test_registry_keeps_reference_qualnames():
     from signals_tpu_torch.nodes import wavetable
     assert (load_signal('signals_tpu.nodes.wavetable.Wavetable')
             is wavetable.Wavetable)
+
+
+def test_copied_modules_never_mention_jax():
+    """The numpy modules copied from the JAX package (the codecs' numpy
+    half, ``wavio``, ``sndfile``, ``resample``) and the file nodes keep no
+    line that names ``jax``."""
+    for rel in ('runtime/codecs.py', 'runtime/wavio.py', 'runtime/sndfile.py',
+                'core/resample.py', 'nodes/files.py'):
+        text = (REPO / 'signals_tpu_torch' / rel).read_text()
+        assert 'jax' not in text.lower(), rel
+        assert 'signals_tpu.' not in text.replace('``signals_tpu.', ''), rel
+
+
+def test_registry_keeps_file_and_eq_qualnames():
+    from signals_tpu_torch.nodes import files, fx
+    from signals_tpu_torch.registry import load_signal
+    assert load_signal('signals.chain.files.FileReader') is files.FileReader
+    assert load_signal('signals.chain.files.FileWriter') is files.FileWriter
+    for name in ('Peak', 'LowShelf', 'HighShelf', 'Notch', 'Allpass', 'Pan',
+                 'Quantize'):
+        cls = getattr(fx, name)
+        assert load_signal(f'signals_tpu.nodes.fx.{name}') is cls
+        assert load_signal(f'signals_tpu_torch.nodes.fx.{name}') is cls

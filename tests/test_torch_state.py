@@ -30,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from signals_tpu_torch.compiler import CompileError, compile_node
+from signals_tpu_torch.compiler import compile_node
 from signals_tpu_torch.compiler import kernels as K
 from signals_tpu_torch.compiler.filters import design_coupled
 from signals_tpu_torch.core.xp import NP, TorchXP
@@ -568,9 +568,10 @@ def test_one_block_tail_window():
 
 def test_history_sizes_and_refusals():
     """The collect pass sizes the rings as the JAX package does: a context
-    reader gives the streaming filter a ``hist`` ring of its lookback; a
+    reader gives the streaming filter a ``hist`` ring of its lookback.  A
     swept-cutoff filter with carry segments downstream of carried state is
-    refused at compile time."""
+    no longer refused: the delay line keeps the segment's lookback and the
+    render agrees with the JAX package's."""
     root, filt = streaming_into_context(PORT)
     compiled = port_compile(root, 8)
     jc = jax_compile(streaming_into_context(JAX)[0], 8)
@@ -578,13 +579,22 @@ def test_history_sizes_and_refusals():
     assert {k: tuple(v.shape) for k, v in compiled.carry0[uid].items()} \
         == {k: np.asarray(v).shape for k, v in jc.carry0[uid].items()} \
         == {'zi': (1, 2, 8), 'hist': (384, 8)}
-    mod = nodes(PORT)
-    swept = mod['fx'].LowPass()
-    swept.input = delay(mod, 4 * 1024, osc(mod, 'Sine', 110.0))
-    swept.cutoff = gain(mod, osc(mod, 'Sine', 1.0), 900.0)
-    with pytest.raises(CompileError, match='carry segments'):
-        compile_node(swept, block_frames=1024, rate=RATE, channels=1,
-                     device='cpu')
+
+    def swept_after_delay(pkg):
+        mod = nodes(pkg)
+        swept = mod['fx'].LowPass()
+        swept.input = delay(mod, 4 * 1024, osc(mod, 'Sine', 110.0))
+        swept.cutoff = gain(mod, osc(mod, 'Sine', 1.0), 900.0)
+        return swept
+
+    import signals_tpu.compiler as C
+    C._compile_cache.clear()
+    want, _ = C.compile_node(swept_after_delay(JAX), block_frames=1024,
+                             rate=RATE, channels=1).render(n_blocks=10)
+    swept = swept_after_delay(PORT)
+    got, _ = compile_node(swept, block_frames=1024, rate=RATE, channels=1,
+                          device='cpu').render(n_blocks=10)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= TOL
     swept.get_state().carry = 1                 # per-block replay: fine
     compile_node(swept, block_frames=1024, rate=RATE, channels=1,
                  device='cpu')
