@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Eight phases; any failure raises and exits non-zero:
+Nine phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
@@ -146,6 +146,36 @@ Eight phases; any failure raises and exits non-zero:
    carried-state entry on RBJ coefficients (a 30 Hz low shelf, a Q 16
    peak) against their plain versions at phase 2's shapes, within phase
    2's budgets, the same bits twice.
+
+9. **Sequenced polyphony and the modulation effects** (``[score]``,
+   ``[modfx]`` and ``[seq]`` lines), each render with its launch counts
+   reset just before it and checked just after, its plan, wall time,
+   device time, busy share and peak memory printed: (a) a seeded 600-note
+   score over 60 s (a 300-note melody and 75 four-note chords, MIDI 36-96,
+   0.1-1.0 s) written as a format-0 SMF and read back with ``read_midi``,
+   played by ``examples/midi_poly.py``'s voice (``GateSeq``, ``PitchSeq``
+   and a velocity ``PitchSeq`` -> saw -> LowPass 1800 Hz -> ADSR, release
+   0.25 s) at 64 voices through ``sequenced_poly``, 2584 blocks in the
+   default vmap layout (``{K3: 1}``: the one-voice plan's single batched
+   launch, folded over the 64 voices, as the voice alone launches it) and
+   in the channels layout (``{K2: 1}``): the two within 64 x 1e-5 over the
+   whole render, each within 64 x 1e-5 of the port's numpy pull oracle
+   over 32 blocks from 0 and from block 1200, the padded event count E
+   printed; (b) ``PolyPatch.fit`` of the score's shared cutoff in the vmap
+   layout over 64 blocks: its gradient within 1e-4 of the plain kernels'
+   at 16 blocks, then 10 steps (``{K3: 1, B3: 1}`` a step); (c)
+   ``examples/modulation.py``'s chain (a ``Merge`` spread -> ``FracDelay``
+   chorus -> ``Mix`` -> 4-stage ``Phaser`` swept 1000 ± 700 Hz at 0.4 Hz
+   -> gain -> ``FileWriter``), stereo, 2584 blocks on the whole-window
+   plan (no cascade kernel): the file byte for byte the audio, 1e-5 of the
+   oracle over 32 blocks, the window within 1e-6 of 32 per-block steps and
+   13 + 19 blocks with the carry within 1e-6 of the first 32, its eager
+   kernels a block; (d) the mono subtractive voice -> ``Convolve`` with a
+   synthetic 88 200-tap IR (2 s, 60 dB down) at mix 0.35 -> gain, 2584
+   blocks on the whole-window plan (``{K1: 1, K4: 1}``: K4 over the IR's
+   lookback before block 0), one FFT pair of 2^22 points: the first and
+   the last 32 blocks within 1e-5 of the oracle (the voice's pull oracle
+   convolved in float64), the FFT size and its time.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -2169,6 +2199,52 @@ def fit_steps(name, run, n, expect, total, card, audio_s):
     return res
 
 
+def c9_memory_split(root, trainables, tgt, nb, card):
+    """Which part of a c9 step sets its peak memory: the render's forward
+    with the graph autograd keeps (the float64 sine chains), the loss's
+    STFT frames, or the backward — each one's peak over what was held
+    before it, and what it leaves held."""
+    import torch
+    from signals_tpu_torch import learn
+    from signals_tpu_torch.compiler import compile_node
+    patch = compile_node(root, block_frames=F, rate=RATE, channels=V,
+                         device='cuda')
+    core = patch.render_core(nb)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    m0 = torch.cuda.memory_allocated()
+    parts = []
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        parts.append((name, torch.cuda.max_memory_allocated() - before,
+                      torch.cuda.memory_allocated() - m0))
+        return out
+
+    with torch.no_grad():
+        stage('render, no grad', lambda: core(patch.params(), {}, 0))
+    params = patch.params()
+    for node in trainables:
+        params[patch.index.info(node).uid]['value'].requires_grad_()
+    blocks = stage('render with the graph for the backward',
+                   lambda: core(params, {}, 0)[0])
+    loss = stage('per_channel_spectral_loss (STFT frames)',
+                 lambda: learn.per_channel_spectral_loss(
+                     blocks.reshape(nb * F, V), tgt))
+    del blocks
+    stage('backward', loss.backward)
+    for name, peak, held in parts:
+        print(f'[fit] c9 memory, {name}: peak {peak / 2**30:.3f} GiB over '
+              f'what it started with, {held / 2**30:.3f} GiB held after  '
+              f'[{card}]')
+    del loss, params
+    torch.cuda.empty_cache()
+
+
 def phase_fit():
     """Differentiable fitting through the port's entry points (``learn``,
     ``PolyPatch.fit``).  Returns ``(per backward kernel {err, ms, ...},
@@ -2240,6 +2316,7 @@ def phase_fit():
     print(f'[fit] c9: loss {res.losses[0]!r} -> {res.losses[-1]!r} over 20 '
           f'steps; peak memory {peak / 2**30:.3f} GiB  [{card}]')
     assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
+    c9_memory_split(root, (hz, cut, vol), tgt, nb, card)
     del tgt
     torch.cuda.empty_cache()
 
@@ -2587,6 +2664,21 @@ def phase_files(results):
     print(f'[files] bounce: the file read while open within {err:.2e} of the '
           f'audio; byte for byte the audio under the pcm16 encoder: {same}')
     assert same
+    # the render's host staging and its one pinned copy, apart from the wall
+    t0 = time.perf_counter()
+    staged = bounce.stage_host(0, n60)
+    t_stage = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bounce.host_inputs(0, n60)
+    torch.cuda.synchronize()
+    t_both = time.perf_counter() - t0
+    print(f'[files] bounce: host staging of {len(staged)} windows x {n60} '
+          f'blocks ({sum(a.nbytes for a in staged.values()) / 1e6:.1f} MB) '
+          f'{t_stage:.3f} s; staging and the pinned copy to the card '
+          f'{t_both:.3f} s, the copy {t_both - t_stage:.3f} s; of the '
+          f'{first:.2f} s wall (host clock)  [{card}]')
+    del staged
     # the oracle with the float64 design (exact_design): the one the port's
     # rows are held to; beside it the oracle's float32 b/a coefficients
     t0 = time.perf_counter()
@@ -2691,6 +2783,441 @@ def phase_files(results):
             'segments_gen': (total['segments_gen'], 'flagship with a Peak')}
 
 
+# --- phase 9: sequenced polyphony and the modulation effects ------------------
+
+SCORE_SEED = 9
+SCORE_MELODY = 300        # one note every 0.2 s, MIDI 60-96
+SCORE_CHORDS = 75         # four notes each, roots 36-72
+SCORE_RELEASE = 0.25      # examples/midi_poly.py's release
+SCORE_LATE = 1200         # the second oracle window's first block
+SCORE_FIT_BLOCKS = 64
+SCORE_FIT_CHECK = 16
+SCORE_CUT = 1800.0        # examples/midi_poly.py's LowPass cutoff
+IR_FRAMES = 88200         # 2 s at 44.1 kHz, 60 dB down at the tail
+CONV_MIX = 0.35
+CONV_GAIN = 0.5
+
+
+def score_notes(seed=SCORE_SEED):
+    """A seeded 600-note score over 60 s, ``(start_s, dur_s, midi,
+    velocity)``: a melody of 300 notes, one every 0.2 s (a random walk over
+    MIDI 60-96, 0.1-0.19 s long), and 75 four-note chords (a root 36-72
+    with its third, fifth and octave) at random starts, 0.1-1.0 s long —
+    10 notes a second."""
+    rng = np.random.default_rng(seed)
+    notes = []
+    step = SECONDS / SCORE_MELODY
+    pitch = 72
+    for i in range(SCORE_MELODY):
+        pitch = int(np.clip(pitch + rng.integers(-4, 5), 60, 96))
+        notes.append((i * step, float(rng.uniform(0.1, 0.19)), pitch,
+                      int(rng.integers(60, 128))))
+    for _ in range(SCORE_CHORDS):
+        start = float(rng.uniform(0.0, SECONDS - 1.0))
+        dur = float(rng.uniform(0.1, 1.0))
+        root = int(rng.integers(36, 73))
+        third = 3 if rng.integers(2) else 4
+        vel = int(rng.integers(40, 100))
+        notes.extend((start, dur, root + k, vel) for k in (0, third, 7, 12))
+    return notes
+
+
+def write_score(path, notes):
+    """``notes`` as a format-0 SMF at 120 bpm, 480 ticks a quarter (960 a
+    second), one track, note-offs before note-ons at the same tick — the
+    way ``examples/midi_poly.py``'s ``demo_midi`` writes its file."""
+    import struct
+
+    def varlen(v):
+        out = [v & 0x7F]
+        v >>= 7
+        while v:
+            out.append(0x80 | (v & 0x7F))
+            v >>= 7
+        return bytes(reversed(out))
+
+    events = []
+    for start, dur, midi, vel in notes:
+        on = int(round(start * 960))
+        off = max(on + 1, int(round((start + dur) * 960)))
+        events.append((on, 1, bytes([0x90, midi, vel])))
+        events.append((off, 0, bytes([0x80, midi, 0])))
+    events.sort(key=lambda e: (e[0], e[1]))
+    body, last = b'', 0
+    for tick, _, msg in events:
+        body += varlen(tick - last) + msg
+        last = tick
+    body += varlen(0) + b'\xff\x2f\x00'
+    with open(path, 'wb') as f:
+        f.write(b'MThd' + struct.pack('>IHHH', 6, 0, 1, 480))
+        f.write(b'MTrk' + struct.pack('>I', len(body)) + body)
+
+
+def build_score_voice():
+    """``examples/midi_poly.py``'s voice: a saw at a ``PitchSeq`` pitch ->
+    LowPass 1800 Hz (context 1024) -> RingMod with an ADSR gated by a
+    ``GateSeq`` -> RingMod with a velocity ``PitchSeq``.  Returns ``(root,
+    gate, pitch, velocity, cutoff)``."""
+    from signals_tpu_torch.nodes.env import ADSR
+    from signals_tpu_torch.nodes.fx import LowPass, RingMod
+    from signals_tpu_torch.nodes.osc import Sawtooth
+    from signals_tpu_torch.nodes.seq import GateSeq, PitchSeq
+    gate, pitch, vel = GateSeq(), PitchSeq(), PitchSeq()
+    osc = Sawtooth()
+    osc.hertz = pitch
+    cut = fixed(SCORE_CUT)
+    lp = LowPass()
+    lp.input = osc
+    lp.cutoff = cut
+    env = ADSR()
+    st = env.get_state()
+    st.attack, st.decay, st.sustain, st.release = 0.01, 0.15, 0.6, 0.25
+    env.gate = gate
+    voiced = RingMod()
+    voiced.left = lp
+    voiced.right = env
+    out = RingMod()
+    out.left = voiced
+    out.right = vel
+    return out, gate, pitch, vel, cut
+
+
+def score_poly(notes, layout):
+    from signals_tpu_torch.parallel.voices import sequenced_poly
+    root, gate, pitch, vel, cut = build_score_voice()
+    poly = sequenced_poly(root, gate=gate, pitch=pitch, velocity=vel,
+                          notes=notes, n_voices=V, release=SCORE_RELEASE,
+                          rate=RATE, block_frames=F, channels=1,
+                          layout=layout, device='cuda')
+    return poly, cut
+
+
+def score_oracle(tracks, n_blocks, start):
+    """The port's numpy pull oracle of the score: the voice V channels
+    wide, its sequencers holding the voices' tracks as rows (the channels
+    layout), blocks ``start - 86 .. start + n_blocks - 1`` pulled in order
+    and summed over the voices; the first 86 (2 s: the ADSR's state, fresh
+    at the first pulled block, has caught up by then) dropped."""
+    root, gate, pitch, vel, _ = build_score_voice()
+    rows = {k: v.reshape(V, -1) for k, v in tracks.items()}
+    for node, values in ((gate, None), (pitch, 'values'),
+                         (vel, 'velocities')):
+        st = node.get_state()
+        st.starts, st.ends = rows['starts'], rows['ends']
+        if values:
+            st.values = rows[values]
+    lead = min(start, 86)
+    out = pull_oracle(root, n_blocks + lead, V, start=start - lead)
+    return out[lead * F:].sum(axis=1, keepdims=True)
+
+
+def phase9_score(card, total, within, timed):
+    """(a) the score in both layouts, (b) its fit."""
+    import torch
+    from signals_tpu_torch import learn
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.parallel.voices import (allocate_voices,
+                                                   score_tracks)
+    from signals_tpu_torch.utils.midifile import read_midi
+    n60 = n_blocks_60s()
+    audio_s = n60 * F / RATE
+    path = work_dir() / 'score.mid'
+    write_score(path, score_notes())
+    notes = read_midi(path)
+    tracks = score_tracks(allocate_voices(notes, V, release=SCORE_RELEASE),
+                          rate=RATE)
+    E = tracks['starts'].shape[-1]
+    busy = sum(1 for v in allocate_voices(notes, V, release=SCORE_RELEASE)
+               if v)
+    print(f'[score] {path.name}: {len(notes)} notes read back over '
+          f'{max(n.end for n in notes):.2f} s, {busy} of {V} voices sound, '
+          f'E = {E} events on the busiest voice (padded event count)')
+    # the one-voice patch's own plan: what the vmap layout folds
+    root, gate, pitch, vel, _ = build_score_voice()
+    for node, values in ((gate, None), (pitch, 'values'),
+                         (vel, 'velocities')):
+        st = node.get_state()
+        st.starts, st.ends = tracks['starts'][0], tracks['ends'][0]
+        if values:
+            st.values = tracks[values][0]
+    solo = compile_node(root, block_frames=F, rate=RATE, channels=1,
+                        device='cuda')
+    solo_expect = {'batch': 1}
+    launched(f'score, one voice alone, {n60} blocks, plan '
+             f'{solo.plan(n60)}', lambda: solo.render(n_blocks=n60),
+             solo_expect)
+    mixes = {}
+    for layout, expect in (('vmap', solo_expect),
+                           ('channels', {'segments': 1})):
+        poly, _ = score_poly(notes, layout)
+        plan = poly.compiled.plan(n60)
+        assert plan == 'mega', (layout, plan)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mix = launched(f'score, {layout} layout, {n60} blocks, plan {plan}',
+                       lambda: poly.render(n_blocks=n60)[0], expect, total)
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f'[score] {layout} layout: peak memory of the render '
+              f'{peak / 2**30:.3f} GiB over {base / 2**30:.3f} GiB held  '
+              f'[{card}]')
+        mixes[layout] = mix.cpu().numpy()
+        del mix
+        timed(f'score, {layout} layout, {n60} blocks', lambda: poly.render(
+            n_blocks=n60), audio_s)
+    diff = float(np.abs(mixes['vmap'] - mixes['channels']).max())
+    print(f'[score] vmap vs channels layout over {n60} blocks: max abs '
+          f'{diff!r} (tol {V * TOL:g}, peak '
+          f'{float(np.abs(mixes["vmap"]).max())!r})')
+    assert diff <= V * TOL, diff
+    t0 = time.perf_counter()
+    for start in (0, SCORE_LATE):
+        want = score_oracle(tracks, ORACLE_BLOCKS, start)
+        for layout, mix in mixes.items():
+            within(f'score, {layout} layout, blocks {start}-'
+                   f'{start + ORACLE_BLOCKS - 1}',
+                   mix[start * F:(start + ORACLE_BLOCKS) * F], want, V * TOL)
+    print(f'[score] oracles, 2 x {ORACLE_BLOCKS} blocks: '
+          f'{time.perf_counter() - t0:.1f} s')
+    del mixes
+
+    # (b) PolyPatch.fit of the shared cutoff, vmap layout
+    t_poly, _ = score_poly(notes, 'vmap')
+    tgt = t_poly.render(n_blocks=SCORE_FIT_BLOCKS)[0]
+    poly, cut = score_poly(notes, 'vmap')
+    cut.get_state().value = np.full((1, 1), 1200.0, np.float32)
+    uid = poly.compiled.index.info(cut).uid
+    render = poly.render_fn(SCORE_FIT_CHECK)
+    short = tgt[:SCORE_FIT_CHECK * F]
+
+    def grad():
+        params, _ = poly.params()
+        leaf = params[uid]['value'].requires_grad_()
+        mix, _ = render(params, poly.init_carry(), 0)
+        value = learn.spectral_loss(mix.reshape(-1, 1), short)
+        return torch.autograd.grad(value, leaf)[0]
+
+    g = launched(f'score, cutoff gradient, {SCORE_FIT_CHECK} blocks, vmap '
+                 f'layout', grad, {'batch': 1, 'batch_vjp': 1}, total)
+    with plain_kernels():
+        g_p = grad()
+    rel = rel_max(g, g_p)
+    print(f'[score] cutoff gradient {g.item()!r} vs the plain kernels '
+          f'{g_p.item()!r}: relative {rel!r} (tol 1e-4)')
+    assert torch.isfinite(g).all() and rel <= 1e-4, rel
+    res = fit_steps(f'score ({V} voices, {SCORE_FIT_BLOCKS} blocks), '
+                    f'PolyPatch.fit, vmap layout',
+                    lambda n: poly.fit(tgt, [(cut, 'value')], steps=n,
+                                       learning_rate=0.05, relative_lr=True,
+                                       apply=False),
+                    10, {'batch': 1, 'batch_vjp': 1}, total, card,
+                    SCORE_FIT_BLOCKS * F / RATE)
+    print(f'[score] fit: loss {res.losses[0]!r} -> {res.losses[-1]!r} over '
+          f'10 steps')
+    assert np.isfinite(res.losses).all()
+
+
+def build_modulation(writer_path=None):
+    """``examples/modulation.py``'s chain: a 146.83 Hz saw -> a stereo
+    chorus (``FracDelay`` up to 30 ms read at a ``Merge`` of two LFOs,
+    12 ± 4 ms at 0.6 Hz and 17 ± 4 ms at 0.73 Hz) mixed 0.5 with the dry
+    saw -> a 4-stage ``Phaser`` swept 1000 ± 700 Hz at 0.4 Hz -> Gain 0.7
+    -> a ``FileWriter`` (float32) when ``writer_path`` is given."""
+    from signals_tpu_torch.nodes.files import FileWriter
+    from signals_tpu_torch.nodes.fx import Gain, Mix
+    from signals_tpu_torch.nodes.moddelay import FracDelay
+    from signals_tpu_torch.nodes.osc import Sawtooth, Sine
+    from signals_tpu_torch.nodes.phaser import Phaser
+    from signals_tpu_torch.nodes.shape import Merge
+
+    def lfo_around(center, depth, hertz):
+        osc = Sine()
+        osc.hertz = fixed(hertz)
+        d = Gain()
+        d.left = osc
+        d.right = fixed(2.0 * depth)
+        m = Mix()
+        m.left = d
+        m.right = fixed(2.0 * center)
+        m.mix = fixed(0.5)
+        return m
+
+    pad = Sawtooth()
+    pad.hertz = fixed(146.83)
+    spread = Merge()
+    spread.left = lfo_around(0.012, 0.004, 0.6)
+    spread.right = lfo_around(0.017, 0.004, 0.73)
+    tap = FracDelay()
+    tap.get_state().max_delay = 0.03
+    tap.input = pad
+    tap.delay = spread
+    chorus = Mix()
+    chorus.left = pad
+    chorus.right = tap
+    chorus.mix = fixed(0.5)
+    swoosh = Phaser()
+    swoosh.input = chorus
+    swoosh.sweep = lfo_around(1000.0, 700.0, 0.4)
+    out = Gain()
+    out.left = swoosh
+    out.right = fixed(0.7)
+    if writer_path is None:
+        return out
+    writer = FileWriter()
+    writer.get_state().path = str(writer_path)
+    writer.input = out
+    return writer
+
+
+def phase9_modfx(card, total, within, timed):
+    """(c) the modulation chain, (d) the convolution."""
+    import torch
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.core.xp import TorchXP
+    from signals_tpu_torch.nodes.conv import Convolve, _next_pow2
+    from signals_tpu_torch.nodes.fx import Gain
+    from signals_tpu_torch.runtime import sndfile
+    n60 = n_blocks_60s()
+    audio_s = n60 * F / RATE
+
+    # (c) examples/modulation.py's chain, stereo, on the whole-window plan
+    out = work_dir() / 'modulation.wav'
+    mod = compile_node(build_modulation(out), block_frames=F, rate=RATE,
+                       channels=2, device='cuda')
+    assert mod.plan(n60) == 'mega', mod.plan(n60)
+    whole = launched(f'modulation, {n60} blocks, plan mega',
+                     lambda: mod.render(n_blocks=n60)[0], {}, total)
+    reader = sndfile.open_reader(out)
+    assert (reader.frames, reader.channels) == (n60 * F, 2)
+    err = float(np.abs(reader.read(0, n60 * F)
+                       - whole.cpu().numpy()).max())
+    reader.close()
+    print(f'[modfx] modulation: {out.name} holds {n60 * F} frames, max abs '
+          f'{err!r} from the returned audio')
+    assert err == 0.0, err
+    want = pull_oracle(build_modulation(), ORACLE_BLOCKS, 2)
+    within(f'modulation, {n60} blocks, first {ORACLE_BLOCKS}',
+           whole[:ORACLE_BLOCKS * F].cpu().numpy(), want, TOL)
+    params, carry, steps = mod.params(), mod.carry0, []
+    for i in range(ORACLE_BLOCKS):
+        blk, carry = mod.step(params, carry, i * F)
+        steps.append(blk)
+    diff = float((torch.cat(steps) - whole[:ORACLE_BLOCKS * F]).abs().max())
+    print(f'[modfx] modulation: the {n60}-block window vs {ORACLE_BLOCKS} '
+          f'per-block steps: max abs {diff!r} (tol 1e-6)')
+    assert diff <= 1e-6, diff
+    a, c13 = mod.render(n_blocks=13, deliver_taps=False)
+    b, _ = mod.render(position=13 * F, n_blocks=19, carry=c13,
+                      deliver_taps=False)
+    diff = float((torch.cat([a, b]) - whole[:32 * F]).abs().max())
+    print(f'[modfx] modulation: 13 + 19 blocks with the carry vs the first '
+          f'32 of {n60}: max abs {diff!r} (tol 1e-6)')
+    assert diff <= 1e-6, diff
+    del whole, steps
+    mod.root._close()
+    quiet = compile_node(build_modulation(), block_frames=F, rate=RATE,
+                         channels=2, device='cuda')
+    timed(f'modulation, {n60} blocks, plan mega', lambda: quiet.render(
+        n_blocks=n60), audio_s)
+
+    # (d) the mono subtractive voice through a 2 s convolution
+    def build_conv():
+        voice, _ = build_subtractive_voice(gain=1.0)
+        cv = Convolve()
+        st = cv.get_state()
+        st.ir_frames, st.decay_db, st.mix = IR_FRAMES, 60.0, CONV_MIX
+        cv.input = voice
+        g = Gain()
+        g.left = cv
+        g.right = fixed(CONV_GAIN)
+        return g, cv
+
+    root, cv = build_conv()
+    conv = compile_node(root, block_frames=F, rate=RATE, channels=1,
+                        device='cuda')
+    assert conv.plan(n60) == 'mega', conv.plan(n60)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # K1 for the voice; K4 once over the IR's lookback before block 0 (the
+    # context window, zeroed: it lies before the timeline)
+    got = launched(f'convolution, {n60} blocks, plan mega',
+                   lambda: conv.render(n_blocks=n60)[0],
+                   {'segments_gen': 1, 'timeline': 1}, total).cpu().numpy()
+    peak = torch.cuda.max_memory_allocated() - base
+    K = cv._ir_len()
+    M = _next_pow2(n60 * F + K - 1)
+    print(f'[modfx] convolution: {K} taps, one transform pair of {M} '
+          f'points (2^{M.bit_length() - 1}); peak memory of the render '
+          f'{peak / 2**30:.3f} GiB  [{card}]')
+    # the oracle: the voice by the port's pull oracle (from block 0, and
+    # from 130 blocks before the last 32: its ADSR has caught up within
+    # one gate cycle of a fresh start, and the IR reaches 86 blocks back),
+    # convolved in float64 with the IR, mixed as Convolve mixes
+    ir = cv._ir_for_channels(1)[:, 0].astype(np.float64)
+    last = n60 - ORACLE_BLOCKS
+    t0 = time.perf_counter()
+    for start, lead in ((0, 0), (last, min(130, last))):
+        dry = pull_oracle(build_subtractive_voice(gain=1.0)[0],
+                          ORACLE_BLOCKS + lead, 1, start=start - lead)
+        dry = dry[:, 0].astype(np.float64)
+        wet = np.convolve(dry, ir)[:dry.size]
+        want = CONV_GAIN * (CONV_MIX * wet + (1.0 - CONV_MIX) * dry)
+        want = want[lead * F:].astype(np.float32)[:, None]
+        within(f'convolution, {n60} blocks, blocks {start}-'
+               f'{start + ORACLE_BLOCKS - 1}',
+               got[start * F:(start + ORACLE_BLOCKS) * F], want, TOL)
+    print(f'[modfx] convolution oracles, 2 x {ORACLE_BLOCKS} blocks: '
+          f'{time.perf_counter() - t0:.1f} s')
+    del got
+    x = torch.randn(M, 1, device='cuda')
+    spec = cv._spectrum(TorchXP(conv.device), M, 1)   # the cached spectrum
+    ms = cuda_ms(lambda: torch.fft.irfft(torch.fft.rfft(x, n=M, dim=0)
+                                         * spec, n=M, dim=0), 10)
+    print(f'[modfx] convolution: rfft + product + irfft of {M} points, '
+          f'{ms:.3f} ms (CUDA events)  [{card}]')
+    timed(f'convolution, {n60} blocks, plan mega', lambda: conv.render(
+        n_blocks=n60), audio_s)
+
+
+def phase_sequencing():
+    """Sequenced polyphony and the modulation effects through the port's
+    entry points (``sequenced_poly``, ``PolyPatch`` in both layouts,
+    ``compile_node``).  Returns, per kernel, ``(launches, what launched
+    it)``."""
+    card = card_line()
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+
+    def within(name, got, want, tol):
+        got = np.asarray(got)
+        assert got.shape == want.shape and np.isfinite(got).all(), name
+        err = float(np.abs(got - want).max())
+        print(f'[seq] {name}: vs oracle max abs {err!r} (tol {tol:g}, peak '
+              f'{float(np.abs(want).max())!r})')
+        assert err <= tol, (name, err)
+
+    def timed(name, fn, audio_s):
+        wall, dev_ms, events = profiled(fn)
+        n = audio_s * RATE / F
+        print(f'[seq] {name}: wall {wall:.3f} ms = '
+              f'{audio_s / (wall / 1e3):.1f}x realtime, device {dev_ms:.3f} '
+              f'ms in {events} kernels and copies ({events / n:.3f} a '
+              f'block), busy share {dev_ms / wall:.3f}  [{card}]')
+
+    phase9_score(card, total, within, timed)
+    phase9_modfx(card, total, within, timed)
+    print(f'[seq] phase 9: {time.perf_counter() - t_phase:.1f} s')
+    return {'batch': (total['batch'], 'score, vmap layout: one folded '
+                      'launch for 64 voices a render and a fit step'),
+            'segments': (total['segments'], 'score, channels layout'),
+            'segments_gen': (total['segments_gen'], 'convolution voice'),
+            'timeline': (total['timeline'], "convolution voice: the IR's "
+                         'lookback before block 0'),
+            'rows_vjp': (total['batch_vjp'], 'score fit, vmap layout')}
+
+
 def kernel_ms(k):
     """``(ms, how)``: a kernel's own time, beside its bound — its device
     time by the profiler or by a CUDA graph of calls
@@ -2723,6 +3250,7 @@ def main() -> int:
     vjp, fit_launches = phase_fit()
     kern.update(vjp)
     phases.append(phase_files(kern))
+    phases.append(phase_sequencing())
     for found in phases + [fit_launches]:
         for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths

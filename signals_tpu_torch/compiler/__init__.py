@@ -268,6 +268,12 @@ class _GraphIndex:
                         h.update(f';{name}@{v.shape}'.encode())
                 else:
                     h.update(f';{name}={getattr(state, name)!r}'.encode())
+            extra = getattr(node, 'structural_extra', None)
+            if extra is not None:
+                # node-defined structural identity beyond its params (a
+                # Convolve's IR file mtime and taps: an edit on disk
+                # recompiles instead of serving the cached spectrum)
+                h.update(f';X={extra()}'.encode())
             if isinstance(node, Receiver):
                 for pname in node.port_names():
                     inp = node._ports[pname].sig

@@ -26,9 +26,13 @@ over ``context`` rows under the segment's first block's coefficients).
 A wrapper runs the plain version only because its tensors lie on the CPU.
 On a CUDA tensor it launches the hand-written kernel (``csrc/segments.cu``,
 ``csrc/rows.cu``, built at first use by :mod:`._build`) or raises; each
-launch adds one to :data:`LAUNCHES`.  The segment kernels take 1 or 2
-order-2 sections per lane (every Butterworth design), the zero-state and
-carried-state kernels 1 to :data:`MAX_SECTIONS`.
+launch adds one to :data:`LAUNCHES`.  Under ``torch.func.vmap`` (the vmap
+layout of :class:`~signals_tpu_torch.parallel.PolyPatch`) every entry folds
+the voice axis into its lanes and makes one call for all voices (the
+``vmap`` rule of each entry's ``autograd.Function``, :func:`_fold`).
+The segment kernels take 1 or 2 order-2 sections per lane (every
+Butterworth design), the zero-state and carried-state kernels 1 to
+:data:`MAX_SECTIONS`.
 """
 
 from __future__ import annotations
@@ -125,6 +129,36 @@ def _needs_grad(*tensors) -> bool:
     saves nothing (the serving paths)."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def _function_call(*tensors) -> bool:
+    """Whether an entry must run as its ``autograd.Function``: to record its
+    backward (:func:`_needs_grad`), or because an input is batched by
+    ``torch.func.vmap`` — the Function's ``vmap`` rule then folds the voice
+    axis into the lanes (:func:`_fold`)."""
+    return (any(t is not None and torch._C._functorch.is_batchedtensor(t)
+                for t in tensors)
+            or _needs_grad(*tensors))
+
+
+def _fold(t, bdim, n: int, axis: int):
+    """A ``vmap`` rule's argument with its batch axis folded into the lane
+    axis: ``t`` is the physical tensor (batch axis ``bdim``; None: unbatched,
+    expanded to the ``n`` voices as a stride-0 view), ``axis`` the lane axis
+    of one call's argument.  Lanes are voice-major (lane ``v * L + l``), so
+    a lane group of ``sum_groups`` dividing ``L`` stays inside one voice.  A
+    view where the strides allow it (a one-lane input, a broadcast lane),
+    else a copy."""
+    t = (t.expand((n,) + t.shape) if bdim is None else t.movedim(bdim, 0))
+    axis %= t.dim() - 1
+    return t.movedim(0, axis).flatten(axis, axis + 1)
+
+
+def _unfold(t, n: int, axis: int):
+    """A folded result's lane axis split back into ``(voices, lanes)``, the
+    voices first (the rule's ``out_dims`` 0)."""
+    axis %= t.dim()
+    return t.unflatten(axis, (n, -1)).movedim(axis, 0)
 
 
 # --- the generator-fed cascade ------------------------------------------------
@@ -242,7 +276,7 @@ def sosfilt_segments_gen(coeffs, toff, lanef, *, n_segments: int,
     kw = dict(n_segments=n_segments, seg_frames=seg_frames,
               context=context, osc_code=osc_code, rate=rate,
               sum_groups=sum_groups, blocks_per_seg=m)
-    if _needs_grad(coeffs, lanef):
+    if _function_call(coeffs, toff, lanef):
         return _SegmentsGenFn.apply(coeffs, toff, lanef, kw)
     return _segments_gen_run(coeffs, toff, lanef, kw)
 
@@ -323,7 +357,7 @@ def sosfilt_segments(coeffs, x, *, n_segments: int, seg_frames: int,
                           sum_groups, m)
     kw = dict(n_segments=n_segments, seg_frames=seg_frames,
               context=context, sum_groups=sum_groups, blocks_per_seg=m)
-    if _needs_grad(coeffs, x):
+    if _function_call(coeffs, x):
         return _SegmentsFn.apply(coeffs, x, kw)
     return _segments_run(coeffs, x, kw)
 
@@ -419,7 +453,7 @@ def sosfilt_timeline(coeffs, x):
     The kernel reads ``x`` and ``coeffs`` through their strides: a strided
     or broadcast view is not copied."""
     nsec, ch, coeffs, x = _timeline_args(coeffs, x)
-    if _needs_grad(coeffs, x):
+    if _function_call(coeffs, x):
         return _TimelineFn.apply(coeffs, x)
     return _timeline_run(coeffs, x)
 
@@ -456,7 +490,7 @@ def sosfilt_stream(coeffs, x, zi):
     coeffs = torch.broadcast_to(coeffs, (nsec, ch, 11))
     x = torch.broadcast_to(x, (x.shape[0], ch))
     zi = _check_state(zi, (nsec, 2, ch), 'zi')
-    if _needs_grad(coeffs, x, zi):
+    if _function_call(coeffs, x, zi):
         return _StreamFn.apply(coeffs, x, zi)
     return _stream_run(coeffs, x, zi)
 
@@ -534,7 +568,7 @@ def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False):
     if zi is not None:
         zi = _check_state(zi, (B, nsec, 2, ch), 'zi')
         tensors.append(zi)
-    if _needs_grad(*tensors):
+    if _function_call(*tensors):
         y, zf = _BatchFn.apply(coeffs, x_t, zi, tail)
         return (y, zf) if return_state else y
     return _batch_run(coeffs, x_t, zi, tail, return_state)
@@ -889,12 +923,27 @@ def sosfilt_stream_vjp(coeffs, x, zi, gy, gzf=None):
     return gco[0], gx[:, 0], gzi[0]
 
 
+# Each entry's Function takes the ``setup_context`` form, which
+# ``torch.func.vmap`` requires, and a ``vmap`` rule: under the vmap layout
+# of ``PolyPatch`` an entry sees tensors batched over the voices, which have
+# no storage for a kernel to read.  The rule folds the voice axis into the
+# lane axis — lanes are independent in every cascade — with the unbatched
+# operands (shared coefficients or input) expanded, makes ONE call of the
+# entry on ``V x lanes`` lanes (one launch on a GPU, the plain version on
+# the CPU, and, under grad, the same Function with its backward kernel) and
+# splits the result back into voices.
+
+
 class _SegmentsGenFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coeffs, toff, lanef, kw):
+    def forward(coeffs, toff, lanef, kw):
+        return _segments_gen_run(coeffs, toff, lanef, kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coeffs, toff, lanef, kw = inputs
         ctx.save_for_backward(coeffs, toff, lanef)
         ctx.kw = kw
-        return _segments_gen_run(coeffs, toff, lanef, kw)
 
     @staticmethod
     def backward(ctx, gy):
@@ -906,13 +955,25 @@ class _SegmentsGenFn(torch.autograd.Function):
                else _source_lanef_grad(toff, lanef, gsrc, ctx.kw))
         return gco, None, glf, None
 
+    @staticmethod
+    def vmap(info, in_dims, coeffs, toff, lanef, kw):
+        n = info.batch_size
+        y = sosfilt_segments_gen(_fold(coeffs, in_dims[0], n, 2),
+                                 _fold(toff, in_dims[1], n, 0),
+                                 _fold(lanef, in_dims[2], n, 1), **kw)
+        return _unfold(y, n, 2), 0
+
 
 class _SegmentsFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coeffs, x, kw):
+    def forward(coeffs, x, kw):
+        return _segments_run(coeffs, x, kw)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coeffs, x, kw = inputs
         ctx.save_for_backward(coeffs, x)
         ctx.kw = kw
-        return _segments_run(coeffs, x, kw)
 
     @staticmethod
     def backward(ctx, gy):
@@ -921,14 +982,25 @@ class _SegmentsFn(torch.autograd.Function):
             coeffs, x, gy, input_grad=ctx.needs_input_grad[1], **ctx.kw)
         return gco, gx, None
 
+    @staticmethod
+    def vmap(info, in_dims, coeffs, x, kw):
+        n = info.batch_size
+        y = sosfilt_segments(_fold(coeffs, in_dims[0], n, 2),
+                             _fold(x, in_dims[1], n, 1), **kw)
+        return _unfold(y, n, 2), 0
+
 
 class _BatchFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coeffs, x_t, zi, tail):
+    def forward(coeffs, x_t, zi, tail):
+        return _batch_run(coeffs, x_t, zi, tail, True)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        coeffs, x_t, zi, tail = inputs
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(coeffs, x_t, zi)
         ctx.tail = tail
-        return _batch_run(coeffs, x_t, zi, tail, True)
 
     @staticmethod
     def backward(ctx, gy, gzf):
@@ -940,28 +1012,58 @@ class _BatchFn(torch.autograd.Function):
                                          zi=zi, gzf=gzf)
         return gco, gx, gzi, None
 
+    @staticmethod
+    def vmap(info, in_dims, coeffs, x_t, zi, tail):
+        n = info.batch_size
+        y, zf = sosfilt_batch(
+            _fold(coeffs, in_dims[0], n, 2), _fold(x_t, in_dims[1], n, 2),
+            tail=tail, zi=None if zi is None else _fold(zi, in_dims[2], n, 3),
+            return_state=True)
+        return (_unfold(y, n, 2), _unfold(zf, n, 3)), (0, 0)
+
 
 class _TimelineFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coeffs, x):
-        ctx.save_for_backward(coeffs, x)
+    def forward(coeffs, x):
         return _timeline_run(coeffs, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, gy):
         coeffs, x = ctx.saved_tensors
         return sosfilt_timeline_vjp(coeffs, x, gy)
 
+    @staticmethod
+    def vmap(info, in_dims, coeffs, x):
+        n = info.batch_size
+        y = sosfilt_timeline(_fold(coeffs, in_dims[0], n, 1),
+                             _fold(x, in_dims[1], n, 1))
+        return _unfold(y, n, 1), 0
+
 
 class _StreamFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, coeffs, x, zi):
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(coeffs, x, zi)
+    def forward(coeffs, x, zi):
         return _stream_run(coeffs, x, zi)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, gy, gzf):
         coeffs, x, zi = ctx.saved_tensors
         gy = torch.zeros_like(x) if gy is None else gy
         return sosfilt_stream_vjp(coeffs, x, zi, gy, gzf)
+
+    @staticmethod
+    def vmap(info, in_dims, coeffs, x, zi):
+        n = info.batch_size
+        y, zf = sosfilt_stream(_fold(coeffs, in_dims[0], n, 1),
+                               _fold(x, in_dims[1], n, 1),
+                               _fold(zi, in_dims[2], n, 2))
+        return (_unfold(y, n, 1), _unfold(zf, n, 2)), (0, 0)

@@ -165,8 +165,9 @@ class TorchXP:
         return torch.amin(torch.where(x == lo, idx, n), dim=axis)
 
     @staticmethod
-    def sum(x, axis=None):
-        return torch.sum(x) if axis is None else torch.sum(x, dim=axis)
+    def sum(x, axis=None, keepdims=False):
+        return (torch.sum(x) if axis is None
+                else torch.sum(x, dim=axis, keepdim=keepdims))
 
     @staticmethod
     def mean(x, axis=None, keepdims=False):
@@ -198,9 +199,19 @@ class TorchXP:
             raise NotImplementedError('pad: axis 0 of a 2-D tensor only')
         return torch.nn.functional.pad(x, (0, 0, before, after))
 
+    @staticmethod
+    def take_along_axis(x, idx, axis):
+        """numpy's ``take_along_axis``; the indices may be int32 (``gather``
+        takes them as int64)."""
+        return torch.gather(x, axis, idx.to(torch.int64))
+
     class fft:
-        """``xp.fft.rfft`` along the last axis (f32 in, complex64 out)."""
+        """``xp.fft.rfft`` / ``irfft`` (f32 in, complex64 out, and back)."""
 
         @staticmethod
-        def rfft(x):
-            return torch.fft.rfft(x)
+        def rfft(x, n=None, axis=-1):
+            return torch.fft.rfft(x, n=n, dim=axis)
+
+        @staticmethod
+        def irfft(x, n=None, axis=-1):
+            return torch.fft.irfft(x, n=n, dim=axis)

@@ -5,7 +5,9 @@ Ported so far: ``fixed``, ``osc`` (Sine, Square, Sawtooth, Triangle), ``fx``
 HighPass, BandPass, BandStop and the RBJ Peak, LowShelf, HighShelf, Notch,
 Allpass, also as ``streaming`` exact IIRs), ``env`` (ADSR), ``delay``
 (Delay), ``noise``, ``reverb``, ``dyn``, ``vis``, ``wavetable``
-(Wavetable) and ``files`` (FileReader, FileWriter).  Each
+(Wavetable), ``files`` (FileReader, FileWriter), ``shape`` (Flatten,
+FlattenUnit, Select, Merge), ``seq`` (GateSeq, PitchSeq), ``moddelay``
+(FracDelay), ``phaser`` (Phaser) and ``conv`` (Convolve).  Each
 node registers the reference-framework qualified names as aliases, exactly
 as its ``signals_tpu`` counterpart does.
 """

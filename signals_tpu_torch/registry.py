@@ -104,6 +104,11 @@ _NODE_MODULES = (
     'signals_tpu_torch.nodes.vis',
     'signals_tpu_torch.nodes.wavetable',
     'signals_tpu_torch.nodes.files',
+    'signals_tpu_torch.nodes.shape',
+    'signals_tpu_torch.nodes.seq',
+    'signals_tpu_torch.nodes.moddelay',
+    'signals_tpu_torch.nodes.phaser',
+    'signals_tpu_torch.nodes.conv',
 )
 
 _loaded = False

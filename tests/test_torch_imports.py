@@ -8,6 +8,8 @@ import pathlib
 import subprocess
 import sys
 
+import pytest
+
 REPO = pathlib.Path(__file__).resolve().parents[1]
 
 PROBE = '''
@@ -89,3 +91,103 @@ def test_registry_keeps_file_and_eq_qualnames():
         cls = getattr(fx, name)
         assert load_signal(f'signals_tpu.nodes.fx.{name}') is cls
         assert load_signal(f'signals_tpu_torch.nodes.fx.{name}') is cls
+
+
+NEW_MODULES = ('nodes.shape', 'nodes.seq', 'nodes.moddelay', 'nodes.phaser',
+               'nodes.conv', 'parallel.voices', 'utils.midifile')
+
+PROBE_NEW = '''
+import importlib, sys
+for m in %r:
+    importlib.import_module('signals_tpu_torch.' + m)
+from signals_tpu_torch import registry
+registry.ensure_loaded()
+bad = sorted(n for n in sys.modules
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu'))
+assert not bad, bad
+print('ok')
+''' % (NEW_MODULES,)
+
+
+def test_sequencing_and_modfx_modules_import_no_jax():
+    """The modules of sequenced polyphony and the modulation effects import
+    neither ``jax`` nor the JAX package, alone as through the registry."""
+    proc = subprocess.run([sys.executable, '-c', PROBE_NEW], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+    for rel in ('parallel/voices.py', 'utils/midifile.py', 'nodes/seq.py',
+                'nodes/shape.py', 'nodes/moddelay.py', 'nodes/phaser.py',
+                'nodes/conv.py'):
+        text = (REPO / 'signals_tpu_torch' / rel).read_text()
+        assert 'import jax' not in text and 'from jax' not in text, rel
+        assert 'from signals_tpu.' not in text, rel
+        assert 'import signals_tpu.' not in text, rel
+
+
+def test_sequenced_poly_and_vmap_layout_default_to_the_card():
+    """``PolyPatch(layout='vmap')`` and ``sequenced_poly`` (whose default
+    layout is ``'vmap'``) ask for the GPU unless told otherwise: where torch
+    sees none they raise instead of running on the CPU."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from signals_tpu_torch.nodes.env import ADSR
+    from signals_tpu_torch.nodes.fx import RingMod
+    from signals_tpu_torch.nodes.osc import Sine
+    from signals_tpu_torch.nodes.seq import GateSeq, PitchSeq
+    from signals_tpu_torch.parallel import PolyPatch
+    from signals_tpu_torch.parallel.voices import Note, sequenced_poly
+
+    assert inspect.signature(PolyPatch).parameters['device'].default == \
+        'cuda'
+    assert inspect.signature(sequenced_poly).parameters['layout'].default \
+        == 'vmap'
+
+    def build():
+        gate, pitch = GateSeq(), PitchSeq()
+        osc = Sine()
+        osc.hertz = pitch
+        env = ADSR()
+        env.gate = gate
+        out = RingMod()
+        out.left = osc
+        out.right = env
+        return out, gate, pitch
+
+    def make(kind):
+        root, gate, pitch = build()
+        if kind == 'seq':
+            return sequenced_poly(root, gate=gate, pitch=pitch,
+                                  notes=[Note(0.0, 0.1, 220.0)], n_voices=2,
+                                  block_frames=256)
+        return PolyPatch(root, n_voices=2, layout='vmap', block_frames=256,
+                         overrides={(pitch, 'values'): np.ones((2, 1))})
+
+    for kind in ('seq', 'poly'):
+        if torch.cuda.is_available():
+            assert make(kind).device.type == 'cuda'
+        else:
+            with pytest.raises(RuntimeError, match='CUDA'):
+                make(kind)
+
+
+def test_registry_keeps_sequencing_and_modfx_qualnames():
+    import importlib
+
+    from signals_tpu_torch.registry import load_signal
+    for modname, names in (('seq', ('GateSeq', 'PitchSeq')),
+                           ('moddelay', ('FracDelay',)),
+                           ('phaser', ('Phaser',)), ('conv', ('Convolve',)),
+                           ('shape', ('Flatten', 'FlattenUnit', 'Select',
+                                      'Merge'))):
+        m = importlib.import_module(f'signals_tpu_torch.nodes.{modname}')
+        for name in names:
+            cls = getattr(m, name)
+            assert load_signal(f'signals_tpu.nodes.{modname}.{name}') is cls
+            assert load_signal(f'signals_tpu_torch.nodes.{modname}.'
+                               f'{name}') is cls
+            if modname == 'shape':
+                assert load_signal(f'signals.chain.shape.{name}') is cls
