@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Nine phases; any failure raises and exits non-zero:
+Ten phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
@@ -176,6 +176,34 @@ Nine phases; any failure raises and exits non-zero:
    lookback before block 0), one FFT pair of 2^22 points: the first and
    the last 32 blocks within 1e-5 of the oracle (the voice's pull oracle
    convolved in float64), the FFT size and its time.
+
+10. **The output path** (``[out]`` lines), each render or encode with its
+   launch counts reset just before it and checked just after: (a) the
+   flagship's 60 s 64-voice mix (mix plan, ``{K1: 1}``) through every
+   device encoder — PCM16, mu-law, A-law, IMA ADPCM (``{ima: 1}``), SLAC v1
+   and v2 — each byte-identical to its numpy encoder on the mix copied to
+   the host and the same bytes twice, with its bytes a sample, its device
+   time and the wall of render + encode + fetch beside the f32 fetch's, and
+   SLAC v2's peak memory; then the IMA kernel against its plain loop, byte
+   for byte, at 1, 2, 16 and 64 channels and 1017 / 505 samples a block,
+   with its device time beside its bound and the loop's time; (b) the mono
+   swept voice on the ``default`` sink at 2 channels: ``render_offline``
+   for 60 s (``{K1: 1}``, 1e-5 of the oracle over 32 blocks),
+   ``render_offline_encoded`` for every subtype from block 0 and from block
+   3 (byte-identical to the numpy encoders of ``render_offline``'s audio),
+   ``render_offline_encoded_stream('slac')`` over 240 s in 60 s batches
+   through ``SlacWriter`` read back bit-exact to the PCM16 of one 240 s
+   render, the same stream with a cap so low that the batches take the
+   overshoot copy, and the same batches rendered and fetched in turn; (c)
+   the voice in real time (~5 s) through the native ring and the paced
+   consumer writing PCM16 into a pipe, then the 16-channel static voice on
+   the ``null`` sink (~3 s, ``{K3: 1}`` a batch): frames, underruns, p50 /
+   p95 a block, the pipe's bytes against the captured blocks, the captured
+   audio against ``render_offline``; (d) the cold and warm structural-swap
+   latencies on the ``null`` sink (``bench.py:654-728``) with each
+   program's own audio on both sides of each swap; (e) the saturated echo
+   checkpointed after 13 blocks, loaded onto the card and resumed for 19,
+   bit for bit the continuation from the device carry.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -3218,6 +3246,574 @@ def phase_sequencing():
             'rows_vjp': (total['batch_vjp'], 'score fit, vmap layout')}
 
 
+# --- phase 10: the output path ----------------------------------------------
+
+STREAM_SECONDS = 240.0      # (b) the streamed SLAC bounce
+RING_SECONDS = 5.0          # (c) the mono voice in real time through the ring
+NULL_SECONDS = 3.0          # (c) the static voice on the null sink
+#: operations of one sample of csrc/codecs.cu's IMA encoder: the load and
+#: quantization (5), the step (26: the three compare-subtract stages, the
+#: quantized difference, the predictor update and its clamp), the index
+#: update and clamp (4), the nibble packing (3), the loop (2)
+IMA_OPS = 40
+IMA_SHAPES = tuple((ch, spb) for ch in (1, 2, 16, 64) for spb in (1017, 505))
+
+
+def device_encoders():
+    """``{name: (device encoder, its numpy encoder, launches)}`` of the
+    device codecs, each on a float32 ``(frames, ch)`` tensor."""
+    from signals_tpu_torch.core.xp import TorchXP
+    from signals_tpu_torch.runtime import codecs
+    return {
+        'pcm16': (lambda x: codecs.pcm16_encode(TorchXP(x.device), x),
+                  lambda a: codecs.pcm16_encode(np, a), {}),
+        'mulaw': (lambda x: codecs.mulaw_encode(TorchXP(x.device), x),
+                  lambda a: codecs.mulaw_encode(np, a), {}),
+        'alaw': (lambda x: codecs.alaw_encode(TorchXP(x.device), x),
+                 lambda a: codecs.alaw_encode(np, a), {}),
+        'adpcm': (codecs.ima_encode, lambda a: codecs.ima_encode_np(a)[0],
+                  {'ima': 1}),
+        'slac v1': (codecs.slac_encode,
+                    lambda a: codecs.slac_encode_np(a)[0], {}),
+        'slac v2': (codecs.slac2_encode,
+                    lambda a: codecs.slac2_encode_np(a)[0], {}),
+    }
+
+
+def encode_np(audio, subtype):
+    """The numpy encoding of ``audio`` a ``render_encoded(subtype)``
+    payload must equal byte for byte."""
+    name = {'slac': 'slac v2'}.get(subtype, subtype)
+    return device_encoders()[name][1](np.asarray(audio, np.float32))
+
+
+def fetch(payload):
+    """An encoder's payload copied off the card: for SLAC the live length
+    first (8 bytes), then that many bytes."""
+    if isinstance(payload, tuple):
+        buf, total = payload
+        return buf[:int(total)].cpu().numpy()
+    return payload.cpu().numpy()
+
+
+def wall_ms(fn, reps=3):
+    """Fastest of ``reps`` host-clock times of ``fn`` ending in a
+    synchronise, after a warmup call."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    best = None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        best = ms if best is None else min(best, ms)
+    return best
+
+
+def ima_kernel(mix, card):
+    """The IMA kernel against its plain loop at ``IMA_SHAPES`` (the mix's
+    frames less 7, scaled per channel past full scale), byte for byte and
+    the same bytes twice, each with its device time beside its bound;
+    returns the kernel's record at the flagship mix (1 channel, 1017)."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.runtime import codecs
+    frames = mix.shape[0] - 7
+    record = None
+    for ch, spb in IMA_SHAPES:
+        x = (mix[:frames] * torch.linspace(0.5, 2.5, ch, device=mix.device)
+             ).contiguous()
+        K.reset_launch_counts()
+        got = codecs.ima_encode(x, samples_per_block=spb)
+        again = codecs.ima_encode(x, samples_per_block=spb)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES['ima'] == 2, K.LAUNCHES
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = codecs.ima_encode_plain(x, samples_per_block=spb)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        same = torch.equal(got, want) and torch.equal(got, again)
+        nb = -(-frames // spb)
+        assert got.numel() == nb * ((spb - 1) // 2 + 4) * ch
+        dms, how = kernel_device_ms(
+            lambda: codecs.ima_encode(x, samples_per_block=spb), 5,
+            ('ima_encode',))
+        b_ms, b_by = bound(IMA_OPS * nb * (spb - 1) * ch,
+                           frames * ch * 4 + got.numel())
+        print(f'[out] IMA kernel, {frames} frames x {ch} ch, '
+              f'samples_per_block {spb} ({nb} blocks, {nb * ch} threads): '
+              f'{"byte-identical" if same else "DIFFERS"} to the plain loop, '
+              f'the same bytes twice; device {dms:.4f} ms ({how}), bound '
+              f'{b_ms:.5f} ms ({b_by}), plain loop {plain_ms:.1f} ms (CUDA '
+              f'events)  [{card}]')
+        assert same, (ch, spb)
+        if (ch, spb) == (1, 1017):
+            ms = cuda_ms(lambda: codecs.ima_encode(x), 20)
+            record = dict(err=0.0, ms=ms, plain_ms=plain_ms, device_ms=dms,
+                          device_ms_by=how, bound_ms=b_ms, bound_by=b_by)
+        del x, got, again, want
+    return record
+
+
+def phase10_encoders(card, total):
+    """(a) Every device encoder on the flagship's 60 s 64-voice mix."""
+    import torch
+    from signals_tpu_torch.runtime import codecs
+    n60 = n_blocks_60s()
+    frames = n60 * F
+    poly = make_poly()
+    mix = launched(f'flagship mix, {n60} blocks, mix plan',
+                   lambda: poly.render(n_blocks=n60)[0],
+                   {'segments_gen': 1}, total)
+    host = mix.cpu().numpy()
+    assert host.shape == (frames, 1) and np.isfinite(host).all()
+    f32_wall = wall_ms(lambda: poly.render(n_blocks=n60)[0].cpu())
+    print(f'[out] flagship, {n60} blocks: render + f32 fetch wall '
+          f'{f32_wall:.2f} ms ({host.nbytes} bytes, 4 a sample)  [{card}]')
+    for name, (enc, enc_np, expect) in device_encoders().items():
+        got = fetch(launched(f'{name} encode of the flagship mix',
+                             lambda: enc(mix), expect, total))
+        same = (np.array_equal(got, enc_np(host))
+                and np.array_equal(fetch(enc(mix)), got))
+        _, dev_ms, events = profiled(lambda: enc(mix))
+        dtxt = (f'{dev_ms:.3f} ms in {events} kernels and copies' if events
+                else 'not measured (the trace lost its events)')
+        wall = wall_ms(lambda: fetch(enc(poly.render(n_blocks=n60)[0])))
+        print(f'[out] flagship, {name}: {"byte-identical" if same else "DIFFERS"}'
+              f' to its numpy encoder, the same bytes twice; {got.nbytes} '
+              f'bytes ({got.nbytes / frames:.4f} a sample); encode device '
+              f'{dtxt}; render + encode + fetch wall {wall:.2f} ms (f32: '
+              f'{f32_wall:.2f})  [{card}]')
+        assert same, name
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    buf, tot = codecs.slac2_encode(mix)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    nb = -(-frames // codecs.SLAC_BLOCK)
+    table = nb * codecs.SLAC_BLOCK * (codecs._SLAC2_MAX_BITS // 32) * 4
+    print(f'[out] SLAC v2 encode of the {frames}-sample mix: peak memory '
+          f'{peak / 2**20:.1f} MiB over {base / 2**20:.1f} MiB held (a '
+          f'(blocks, 256, 288) int32 table would be {table / 2**30:.2f} GiB)'
+          f'  [{card}]')
+    del buf, tot
+    record = ima_kernel(mix, card)
+    del mix, poly
+    torch.cuda.empty_cache()
+    return record
+
+
+def stream_blocks(seconds):
+    return int(np.ceil(seconds * RATE / F / M)) * M
+
+
+def phase10_sink(card, total):
+    """(b) ``SinkDevice`` offline: render, every encoding from block 0 and
+    from block 3, the 240 s SLAC stream (and with every batch overshooting
+    its cap), the stream beside a sequential render -> fetch."""
+    import torch
+    from signals_tpu_torch.compiler import CompiledPatch
+    from signals_tpu_torch.nodes.dev import Rack, SinkDevice
+    from signals_tpu_torch.runtime import codecs
+    from signals_tpu_torch.runtime.sndfile import SlacReader, SlacWriter
+    rack = Rack()
+    rack.scan()
+    sink = SinkDevice(rack.get_sink('default'), realtime=False,
+                      device='cuda')
+    sink.get_state().channels = 2
+    sink.input = build_subtractive_voice(gain=1.0)[0]
+    n60 = n_blocks_60s()
+    audio = launched(f'sink render_offline, {n60} blocks, 2 channels',
+                     lambda: sink.render_offline(n_blocks=n60),
+                     {'segments_gen': 1}, total).cpu().numpy()
+    want = pull_oracle(build_subtractive_voice(gain=1.0)[0], ORACLE_BLOCKS, 2)
+    err = float(np.abs(audio[:ORACLE_BLOCKS * F] - want).max())
+    print(f'[out] sink render_offline, first {ORACLE_BLOCKS} of {n60} '
+          f'blocks: vs oracle max abs {err!r} (tol {TOL}, peak '
+          f'{float(np.abs(want).max())!r})')
+    assert np.isfinite(audio).all() and err <= TOL, err
+    for start, nb in ((0, n60), (3, 64)):
+        ref = (audio if start == 0 else launched(
+            f'sink render_offline, {nb} blocks from block {start}',
+            lambda: sink.render_offline(n_blocks=nb, position=start * F),
+            {'segments_gen': 1}, total).cpu().numpy())
+        for sub in codecs.DEVICE_SUBTYPES:
+            payload, frames = launched(
+                f'sink render_offline_encoded {sub}, {nb} blocks from '
+                f'block {start}',
+                lambda: sink.render_offline_encoded(
+                    n_blocks=nb, position=start * F, subtype=sub),
+                {'segments_gen': 1, **({'ima': 1} if sub == 'adpcm'
+                                       else {})}, total, quiet=True)
+            same = frames == nb * F and np.array_equal(
+                payload, encode_np(ref, sub))
+            print(f'[out] sink render_offline_encoded {sub}, {nb} blocks '
+                  f'from block {start}: {payload.nbytes} bytes, '
+                  f'{"byte-identical" if same else "DIFFERS"} to its numpy '
+                  f'encoder on render_offline\'s audio')
+            assert same, (sub, start)
+    del audio
+
+    # the 240 s stream in 60 s batches through the v3 container
+    nS = stream_blocks(STREAM_SECONDS)
+    path = work_dir() / 'stream.slac'
+
+    def stream(n_batches_expect):
+        parts = []
+        t0 = time.perf_counter()
+        for payload, frames in sink.render_offline_encoded_stream(
+                n_blocks=nS, subtype='slac', batch_seconds=SECONDS):
+            parts.append((payload, frames))
+        wall = time.perf_counter() - t0
+        assert len(parts) == n_batches_expect, len(parts)
+        return parts, wall
+
+    n_batches = -(-nS // n60)
+    parts, wall = launched(
+        f'sink render_offline_encoded_stream slac, {nS} blocks in '
+        f'{n_batches} batches', lambda: stream(n_batches),
+        {'segments_gen': n_batches}, total)
+    w = SlacWriter(path, rate=RATE, channels=2)
+    for payload, frames in parts:
+        w.write_encoded(payload, frames)
+    w.close()
+    nbytes = sum(p.nbytes for p, _ in parts)
+    whole = launched(f'sink render_offline, {nS} blocks',
+                     lambda: sink.render_offline(n_blocks=nS),
+                     {'segments_gen': 1}, total).cpu().numpy()
+    pcm = np.clip(np.round(whole * np.float32(32767.0)), -32768, 32767)
+    t0 = time.perf_counter()
+    r = SlacReader(path)
+    got = np.round(r.read(0, r.frames) * np.float32(32767.0))
+    dec_s = time.perf_counter() - t0
+    exact = r.frames == nS * F and np.array_equal(got, pcm)
+    print(f'[out] stream slac, {nS} blocks ({nS * F / RATE:.1f} s, 2 ch) '
+          f'in {n_batches} batches: wall {wall * 1e3:.1f} ms = '
+          f'{nS * F / RATE / wall:.1f}x realtime, {nbytes} bytes fetched '
+          f'({nbytes / (nS * F * 2):.4f} a sample); {path.name} (v3, '
+          f'{path.stat().st_size} bytes) read back '
+          f'{"bit-exact" if exact else "DIFFERENT"} to the PCM16 of one '
+          f'{nS}-block render (decode {dec_s:.1f} s)  [{card}]')
+    assert exact
+    del whole, pcm, got, r
+
+    # every batch overshooting its cap: the remainder copy
+    saved = (CompiledPatch.STREAM_CAP_GUESS, CompiledPatch.STREAM_CAP_STEP)
+    CompiledPatch.STREAM_CAP_GUESS, CompiledPatch.STREAM_CAP_STEP = 0.01, 256
+    try:
+        over, over_wall = launched(
+            'the same stream, STREAM_CAP_GUESS 0.01', lambda: stream(
+                n_batches), {'segments_gen': n_batches}, total)
+    finally:
+        CompiledPatch.STREAM_CAP_GUESS, CompiledPatch.STREAM_CAP_STEP = saved
+    # the caps the stream used: the guess for the batches queued before the
+    # first length is seen (three: two ahead, one more queued as the first
+    # is taken), then 1.25x the last length seen (as the reference adapts)
+    step = 256
+    caps = [-(-int(n60 * F * 2 * 0.01) // step) * step] * min(3, n_batches)
+    for p, _ in over[:n_batches - len(caps)]:
+        caps.append(max(-(-int(p.nbytes * 1.25) // step) * step, step))
+    overshot = sum(p.nbytes > c for (p, _), c in zip(over, caps))
+    same = all(np.array_equal(a, b) for (a, _), (b, _) in zip(parts, over))
+    print(f'[out] stream slac with STREAM_CAP_GUESS 0.01 (a cap of '
+          f'{caps[0]} bytes): {overshot} of {n_batches} batches copied '
+          f'their remainder after the capped slice; '
+          f'{"the same bytes" if same else "DIFFERENT BYTES"}, wall '
+          f'{over_wall * 1e3:.1f} ms')
+    assert same and overshot >= min(3, n_batches)
+
+    # the same batches rendered, encoded and fetched one after another
+    patch = sink._compile()
+
+    def sequential():
+        out, carry = [], None
+        for i in range(n_batches):
+            nb = min(n60, nS - i * n60)
+            p, _, carry = patch.render_encoded(position=i * n60 * F,
+                                               n_blocks=nb, carry=carry,
+                                               subtype='slac')
+            out.append(p)
+        return out
+
+    seq = sequential()
+    t0 = time.perf_counter()
+    seq = sequential()
+    seq_wall = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for (a, _), b in zip(parts, seq))
+    print(f'[out] the same {n_batches} batches render -> encode -> fetch in '
+          f'turn: wall {seq_wall * 1e3:.1f} ms ({"the same bytes" if same else "DIFFERENT BYTES"})'
+          f' vs the stream {wall * 1e3:.1f} ms  [{card}]')
+    assert same
+
+
+def ring_run(sink, seconds, expect_kernel, card, total, name):
+    """``sink`` (realtime, pcm16 into a pipe, capturing) for ``seconds``:
+    its launches (one ``expect_kernel`` a batch and one for the warmup),
+    the consumer's frames and underruns, the render p50/p95 a block, the
+    pipe's bytes against the PCM16 of the captured blocks
+    (:func:`match_stream`), the captured audio against ``render_offline``
+    over the same blocks."""
+    import os
+    import threading
+
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    r, w = os.pipe()
+    chunks = []
+    reader = threading.Thread(target=lambda: chunks.extend(
+        iter(lambda: os.read(r, 1 << 16), b'')))
+    reader.start()
+    sink.output_fd, sink.output_format = w, 'pcm16'
+    sink.capture(True)
+    K.reset_launch_counts()
+    sink.start()
+    time.sleep(seconds)
+    consumer = sink._consumer
+    tr = sink._transport
+    sink.stop()
+    sink.close()
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    os.close(w)
+    reader.join(timeout=30)
+    os.close(r)
+    assert not reader.is_alive()
+    batches = tr.stats.total_blocks // AHEAD
+    want = {k: (batches + 1 if k == expect_kernel else 0) for k in counts}
+    print(f'[launches] {name}: {counts}')
+    assert counts == want, (counts, want)
+    total.update(counts)
+    ch = sink.get_state().channels
+    raw = np.frombuffer(b''.join(chunks), dtype='<i2').reshape(-1, ch)
+    cap = sink.captured()
+    pcm = np.clip(np.rint(cap * np.float32(32767.0)), -32768,
+                  32767).astype(np.int16)
+    if consumer.underruns:
+        at, und = match_stream(raw, pcm, F)
+    else:                   # no zero-fill: the stream is a prefix, exactly
+        assert np.array_equal(raw, pcm[:raw.shape[0]])
+        at, und = raw.shape[0], 0
+    st = tr.stats.summary(F, RATE)
+    print(f'[out] {name}: {consumer.frames} frames consumed in {seconds} s, '
+          f'{consumer.underruns} underruns after the warmup; {batches} '
+          f'batches rendered ({cap.shape[0]} frames captured), p50 '
+          f'{st["p50_ms"]:.3f} ms / p95 {st["p95_ms"]:.3f} ms a block '
+          f'({st["x_realtime_p50"]:.1f}x realtime); the pipe\'s '
+          f'{raw.shape[0]} frames are the captured PCM16 ({at} frames of '
+          f'it) with {und} zero-filled blocks  [{card}]')
+    assert raw.shape[0] == consumer.frames and at > 0
+    assert und <= consumer.underruns
+    offline = sink.render_offline(n_blocks=cap.shape[0] // F).cpu().numpy()
+    err = float(np.abs(offline - cap).max())
+    print(f'[out] {name}: captured vs render_offline over the same '
+          f'{cap.shape[0] // F} blocks: max abs {err!r} (tol {TOL})')
+    assert err <= TOL, err
+
+
+def phase10_realtime(card, total):
+    """(c) Real time through the native ring and the paced consumer."""
+    from signals_tpu_torch.nodes.dev import Rack, SinkDevice
+    from signals_tpu_torch.runtime.ring import native_available
+    assert native_available(), 'the native ring does not build'
+    rack = Rack()
+    rack.scan()
+    mono = SinkDevice(rack.get_sink('default'), realtime=True,
+                      device='cuda')
+    mono.get_state().channels = 2
+    mono.input = build_subtractive_voice(gain=1.0)[0]
+    ring_run(mono, RING_SECONDS, 'segments_gen', card, total,
+             'mono voice, default sink, 2 ch, real time')
+    static = SinkDevice(rack.get_sink('null'), realtime=True, device='cuda')
+    static.get_state().channels = STATIC_CH
+    static.input = build_static_voice()
+    ring_run(static, NULL_SECONDS, 'batch', card, total,
+             f'static voice, null sink, {STATIC_CH} ch, real time')
+
+
+def phase10_edit(card, total):
+    """(d) Edit latency on the null sink (``bench.py:654-728``): a cold
+    structural swap (a new LowPass with a time-salted context) and a warm
+    one (back), each program's own audio on both sides of each swap."""
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.nodes.dev import Rack, SinkDevice
+    from signals_tpu_torch.nodes.fx import Gain, LowPass
+    from signals_tpu_torch.nodes.osc import Sine
+    rack = Rack()
+    rack.scan()
+    hz = fixed(440.0)
+    osc = Sine()
+    osc.hertz = hz
+    g = Gain()
+    g.left = osc
+    g.right = fixed(1.0)
+    sink = SinkDevice(rack.get_sink('null'), block_frames=F, realtime=False,
+                      device='cuda')
+    sink.get_state().channels = 1
+    sink.input = g
+    sink.capture(True)
+    sink.start()
+    tr = sink._transport
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline and tr.position < 8 * F:
+        time.sleep(0.01)
+
+    def wait_swap(t0):
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            ts = tr.last_swap_time
+            if ts is not None and ts >= t0:
+                return ts
+            time.sleep(0.001)
+        raise RuntimeError('structural swap never landed')
+
+    lp = LowPass()
+    lp.input = osc
+    lp.cutoff = fixed(1200.0)
+    lp.get_state().context = 128 * (int(time.time()) % 89 + 3)
+    t0 = time.monotonic()
+    pos0 = tr.position
+    g.left = lp
+    cold_ms = (wait_swap(t0) - t0) * 1e3
+    blocks_during = (tr.position - pos0) // F
+    time.sleep(0.2)
+    t0 = time.monotonic()
+    g.left = osc
+    warm_ms = (wait_swap(t0) - t0) * 1e3
+    time.sleep(0.1)
+    sink.stop()
+    sink.close()
+    assert tr.error is None, tr.error
+    cap = sink.captured()
+    n = cap.shape[0] // F
+    plain = compile_node(g, block_frames=F, rate=RATE, channels=1,
+                         device='cuda').render(n_blocks=n)[0].cpu().numpy()
+    g.left = lp
+    filtered = compile_node(g, block_frames=F, rate=RATE, channels=1,
+                            device='cuda').render(n_blocks=n)[0].cpu().numpy()
+    g.left = osc
+    owner = []
+    for i in range(n):
+        blk = cap[i * F:(i + 1) * F]
+        a = float(np.abs(blk - plain[i * F:(i + 1) * F]).max())
+        b = float(np.abs(blk - filtered[i * F:(i + 1) * F]).max())
+        assert min(a, b) <= TOL, (i, a, b)
+        owner.append('A' if a <= b else 'B')
+    runs = ''.join(k for i, k in enumerate(owner) if i == 0
+                   or k != owner[i - 1])
+    print(f'[out] edit latency, null sink: cold structural swap '
+          f'{cold_ms:.2f} ms ({blocks_during} blocks rendered by the old '
+          f'program meanwhile), warm {warm_ms:.2f} ms; batch {AHEAD} blocks '
+          f'= {AHEAD * F / RATE * 1e3:.1f} ms of audio; {n} captured blocks '
+          f'are each program\'s own audio in the order {runs} '
+          f'(A: the sine, B: through the LowPass)  [{card}]')
+    assert runs == 'ABA', runs
+
+
+def phase10_checkpoint(card, total):
+    """(e) The saturated echo: 13 blocks, save, load on the card, 19 more,
+    bit for bit the continuation from the device carry."""
+    import torch
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.utils import checkpoint
+    echo = compile_node(build_saturated_echo(), block_frames=F, rate=RATE,
+                        channels=1, device='cuda')
+    _, c13 = launched('echo, 13 blocks', lambda: echo.render(n_blocks=13),
+                      {'stream': 1}, total)
+    path = work_dir() / 'echo_checkpoint.npz'
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, position=13 * F, carry=c13,
+                    graph_hash=echo.graph_hash)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    loaded = checkpoint.load(path, expect_graph_hash=echo.graph_hash,
+                             device='cuda')
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    resumed = launched('echo, 19 blocks from the loaded checkpoint',
+                       lambda: echo.render(position=loaded['position'],
+                                           n_blocks=19,
+                                           carry=loaded['carry'])[0],
+                       {'stream': 2}, total)
+    direct = echo.render(position=13 * F, n_blocks=19, carry=c13)[0]
+    leaves = sum(v.numel() for c in c13.values() for v in c.values())
+    same = torch.equal(resumed, direct)
+    print(f'[out] checkpoint of the saturated echo after 13 blocks: '
+          f'{path.stat().st_size} bytes ({leaves} carry values), save '
+          f'{save_ms:.2f} ms, load to the card {load_ms:.2f} ms; 19 blocks '
+          f'resumed from it {"bit for bit" if same else "DIFFERENT from"} '
+          f'the continuation from the device carry  [{card}]')
+    assert same and torch.isfinite(resumed).all()
+
+
+def phase_output():
+    """The output path through the port's entry points: the device codecs,
+    ``SinkDevice`` offline and in real time through the native ring, the
+    background structural swap, a checkpoint.  Returns ``(per kernel
+    (launches, what launched it), the IMA kernel's record)``."""
+    card = card_line()
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    record = phase10_encoders(card, total)
+    print(f'[out] phase 10 (a) encoders: {time.perf_counter() - t_phase:.1f}'
+          f' s')
+    for part, run in (('(b) sink offline', phase10_sink),
+                      ('(c) real time', phase10_realtime),
+                      ('(d) edit latency', phase10_edit),
+                      ('(e) checkpoint', phase10_checkpoint)):
+        t0 = time.perf_counter()
+        run(card, total)
+        print(f'[out] phase 10 {part}: {time.perf_counter() - t0:.1f} s')
+    print(f'[out] phase 10: {time.perf_counter() - t_phase:.1f} s')
+    return ({'segments_gen': (total['segments_gen'], 'output path: the '
+                              'flagship mix, the sink\'s mono voice offline, '
+                              'streamed and in real time'),
+             'batch': (total['batch'], 'output path: the static voice on '
+                       'the null sink in real time, one a batch'),
+             'stream': (total['stream'], 'output path: the echo around its '
+                        'checkpoint'),
+             'ima': (total['ima'], 'output path: ADPCM encodes of the '
+                     'flagship mix and of the sink\'s renders')}, record)
+
+
+def match_stream(raw, want, block):
+    """Whether a paced consumer's output ``raw`` (frames, ch) is ``want``
+    in order with zero-filled underruns: each ``block``-frame block of
+    ``raw`` either equals the next ``block`` frames of ``want`` or holds
+    the next ``g < block`` of them and then zeros.  Where ``want`` holds
+    zeros itself ``g`` is ambiguous, so every consistent reading is
+    followed.  Returns ``(frames of want consumed, underrun blocks)`` of the
+    reading that consumed most, with the fewest underruns; raises if none
+    fits."""
+    states = {0: 0}                       # position in want -> underruns
+    for b0 in range(0, len(raw), block):
+        blk = raw[b0:b0 + block]
+        nz = np.flatnonzero(blk.any(axis=1))
+        z = int(nz[-1]) + 1 if nz.size else 0
+        nxt = {}
+        for at, und in states.items():
+            seg = want[at:at + len(blk)]
+            same = np.all(seg == blk[:len(seg)], axis=1)
+            g = len(seg) if same.all() else int(np.argmin(same))
+            if g == len(blk):
+                nxt[at + g] = min(nxt.get(at + g, und), und)
+            for gg in range(z, min(g, len(blk) - 1) + 1):
+                nxt[at + gg] = min(nxt.get(at + gg, und + 1), und + 1)
+        if not nxt:
+            raise AssertionError(f'stream block at frame {b0} is not the '
+                                 f'rendered audio')
+        states = dict(sorted(nxt.items())[-256:])
+    at = max(states)
+    return at, states[at]
+
+
 def kernel_ms(k):
     """``(ms, how)``: a kernel's own time, beside its bound — its device
     time by the profiler or by a CUDA graph of calls
@@ -3251,6 +3847,8 @@ def main() -> int:
     kern.update(vjp)
     phases.append(phase_files(kern))
     phases.append(phase_sequencing())
+    out_launches, kern['ima'] = phase_output()
+    phases.append(out_launches)
     for found in phases + [fit_launches]:
         for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths
@@ -3289,7 +3887,17 @@ def main() -> int:
          # no PyTorch call computes a recursive biquad cascade
          'library_ms': None,
          **{k: v for k, v in kern[name].items() if k.startswith('noise_')}}
-        for name in where]}))
+        for name in where] + [
+        # new work, no port of a Pallas kernel: the JAX package's IMA
+        # encoder is one lax.scan over the in-block samples
+        {'name': 'ima_encode', 'route': 'cuda', 'source': csrc + 'codecs.cu',
+         'replaces': 'signals_tpu/runtime/codecs.py:895',
+         'launches': launches['ima'][0], 'launched_by': launches['ima'][1],
+         'max_abs_err': kern['ima']['err'],
+         'ms': kernel_ms(kern['ima'])[0], 'ms_by': kernel_ms(kern['ima'])[1],
+         'call_ms': kern['ima']['ms'], 'plain_ms': kern['ima']['plain_ms'],
+         'bound_ms': kern['ima']['bound_ms'],
+         'bound_by': kern['ima']['bound_by'], 'library_ms': None}]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -51,6 +51,12 @@ mix-epilogue plan (:meth:`CompiledPatch.mega_mix`).
   host, :meth:`CompiledPatch.render_vis` reduces them to display summaries
   on the device and copies only those.
 
+* **Encoded output.**  :meth:`CompiledPatch.render_encoded` and
+  :meth:`CompiledPatch.render_encoded_stream` encode the rendered audio on
+  the device (:func:`signals_tpu_torch.runtime.codecs.device_encode`:
+  PCM16, G.711, IMA ADPCM, SLAC) and copy only the payload off it; the
+  stream copies each batch on a side stream while the next batch renders.
+
 * **Host inputs.**  A host source (a ``FileReader``) is not lowered: every
   window the collect pass saw requested of it is a staged input
   (:meth:`CompiledPatch.stage_host`), read on the host as numpy ``(n_blocks,
@@ -63,6 +69,7 @@ Not ported: lane packing.
 
 from __future__ import annotations
 
+import collections
 import hashlib
 import typing
 
@@ -77,6 +84,8 @@ from signals_tpu_torch.graph import (
     KernelCtx,
     Receiver,
     StatefulEmitter,
+    Wiring,
+    frozen_wiring,
 )
 
 F32 = np.float32
@@ -164,7 +173,7 @@ def _downstream(node) -> dict:
     seen = {id(node): node}
     frontier = [node]
     while frontier:
-        for _pname, recv in frontier.pop()._outputs:
+        for _pname, recv in frontier.pop().outputs_with_ports:
             if id(recv) not in seen:
                 seen[id(recv)] = recv
                 frontier.append(recv)
@@ -233,6 +242,11 @@ class _GraphIndex:
         self.infos: dict[int, _NodeInfo] = {}
         self.order: list[Emitter] = []
         self._walk(root)
+        #: the connections as hashed: every lowering of the patch reads
+        #: the graph through them (``CompiledPatch._frozen``), so a
+        #: structural edit of the live graph does not reach a compiled
+        #: program
+        self.wiring = Wiring(self.order)
 
     def _walk(self, node: Emitter) -> None:
         if id(node) in self.infos:
@@ -901,6 +915,13 @@ class CompiledPatch:
             self.index.info(n).uid: n for n in self.index.order
             if _is_tap(n)}
         self._render_cache: dict[int, typing.Any] = {}
+        self._encoded_cache: dict[tuple, typing.Any] = {}
+
+    def _frozen(self):
+        """The context every lowering of this patch runs in: the graph read
+        through the wiring it was compiled from (:func:`~signals_tpu_torch.
+        graph.frozen_wiring`)."""
+        return frozen_wiring(self.index.wiring)
 
     def _collect_host_spec(self) -> list[tuple]:
         """``(node, window, key)`` for every host-fed input window the
@@ -1043,8 +1064,9 @@ class CompiledPatch:
         (:func:`~signals_tpu_torch.compiler.kernels.sosfilt_stream`)."""
         if host is None:
             host = self._host_slice(self.host_inputs(position), 0)
-        blocks, carry2, _taps = self._window(params, carry, position, 1,
-                                             host)
+        with self._frozen():
+            blocks, carry2, _taps = self._window(params, carry, position, 1,
+                                                 host)
         return blocks[0], carry2
 
     @property
@@ -1274,14 +1296,19 @@ class CompiledPatch:
                 or self._host_spec):
             return None
         f = filters[0]
-        if f.channels != V or not _voice_linear_to_root(f, self.root):
-            return None
+        with self._frozen():
+            if f.channels != V or not _voice_linear_to_root(f, self.root):
+                return None
+            dependent = _downstream(f)
         F = self.block_frames
         main = Window(0, n_blocks * F)
         inv_v = F32(1.0 / V)
-        dependent = _downstream(f)
 
         def many_mix(params, position0: int):
+            with self._frozen():
+                return mix(params, position0)
+
+        def mix(params, position0: int):
             comp = self._compiler(params, position0, None, n_blocks)
             ysum = f.family_sum(LowerCtx(comp, f, main), (F, n_blocks))
             ys = torch.where(comp.node_param(f, 'enabled'),
@@ -1316,10 +1343,11 @@ class CompiledPatch:
         if n_blocks > 1:
             if self._use_mega:
                 return 'mega'
-            if self.delay_mega_plan() is not None:
-                return 'delay_mega'
-            if self.segment_scan_core(n_blocks) is not None:
-                return 'segment_scan'
+            with self._frozen():
+                if self.delay_mega_plan() is not None:
+                    return 'delay_mega'
+                if self.segment_scan_core(n_blocks) is not None:
+                    return 'segment_scan'
         return 'blocks'
 
     def render_core(self, n_blocks: int):
@@ -1344,9 +1372,14 @@ class CompiledPatch:
 
         def many(params, carry, position0: int, host=None):
             if core is not None:
-                return core(params, carry, position0)
+                with self._frozen():
+                    return core(params, carry, position0)
             if host is None:
                 host = self.host_inputs(position0, n_blocks)
+            with self._frozen():
+                return per_block(params, carry, position0, host)
+
+        def per_block(params, carry, position0, host):
             out, tap_parts = [], []
             for i in range(n_blocks):
                 blocks, carry, taps = self._window(
@@ -1395,14 +1428,19 @@ class CompiledPatch:
         blocks, carry2, taps = self.render_core(n_blocks)(
             self.params(), carry, position)
         if deliver_taps:
-            F = self.block_frames
-            for uid, node in self.tap_nodes.items():
-                if uid in taps and node.get_state().enabled:
-                    arr = taps[uid].cpu().numpy()
-                    for i in range(n_blocks):
-                        node.consume_tap(arr[i], position + i * F, self.rate)
+            self._deliver_taps(taps, position, n_blocks)
         return (blocks.reshape(n_blocks * self.block_frames, self.channels),
                 carry2)
+
+    def _deliver_taps(self, taps: dict, position: int, n_blocks: int) -> None:
+        """Copy each enabled tap's blocks to the host and hand them to its
+        ``consume_tap`` one block at a time, with their positions."""
+        F = self.block_frames
+        for uid, node in self.tap_nodes.items():
+            if uid in taps and node.get_state().enabled:
+                arr = taps[uid].cpu().numpy()
+                for i in range(n_blocks):
+                    node.consume_tap(arr[i], position + i * F, self.rate)
 
     def render_vis(self, *, position: int = 0, n_blocks: int = 1,
                    carry: typing.Optional[dict] = None):
@@ -1433,6 +1471,172 @@ class CompiledPatch:
                 summaries[uid] = arr
                 node.consume_summary(arr, frames, position, self.rate)
         return summaries, carry2
+
+    def _encoded_fn(self, n_blocks: int, subtype: str):
+        """``(params, carry, position, host=None) -> (payload, carry',
+        taps)``: :meth:`render_core` with the mix encoded on the device
+        (cached per ``(n_blocks, subtype)``); the payload is a tensor, or
+        ``(buf, total)`` for ``'slac'``."""
+        from signals_tpu_torch.runtime import codecs
+        key = (n_blocks, subtype)
+        if key in self._encoded_cache:
+            return self._encoded_cache[key]
+        if subtype not in codecs.DEVICE_SUBTYPES:
+            raise ValueError(f'unsupported device encoding {subtype!r}')
+        inner = self.render_core(n_blocks)
+        frames = n_blocks * self.block_frames
+
+        def run(params, carry, position: int, host=None):
+            blocks, carry2, taps = inner(params, carry, position, host)
+            mix = blocks.reshape(frames, self.channels)
+            return codecs.device_encode(mix, subtype), carry2, taps
+
+        self._encoded_cache[key] = run
+        return run
+
+    def render_encoded(self, *, position: int = 0, n_blocks: int = 1,
+                       carry: typing.Optional[dict] = None,
+                       subtype: str = 'mulaw', deliver_taps: bool = True):
+        """Like :meth:`render`, but the sample encoding runs **on the
+        device** and only payload bytes are copied off it: 1 byte a sample
+        (mu-law / A-law), 2 (PCM16), ~0.5 (IMA ADPCM) or ~0.4-1.5
+        **lossless** (``'slac'``: Rice-coded PCM16, SLAC v2) instead of 4
+        for float32.  Starts at any block, as :meth:`render` does, with the
+        same audio.
+
+        Returns ``(payload: np.ndarray, frames, carry')``: uint8 (int16
+        for ``'pcm16'``) in exactly the WAV ``data``-chunk layout of the
+        subtype (:mod:`signals_tpu_torch.runtime.codecs`); for ``'slac'``
+        the live length is copied off first (8 bytes), then that many
+        payload bytes."""
+        self.check_position(position, n_blocks)
+        if carry is None:
+            carry = self.carry0
+        payload, carry2, taps = self._encoded_fn(n_blocks, subtype)(
+            self.params(), carry, position)
+        if subtype == 'slac':
+            buf, total = payload
+            payload = buf[:int(total)]
+        if deliver_taps:
+            self._deliver_taps(taps, position, n_blocks)
+        return payload.cpu().numpy(), n_blocks * self.block_frames, carry2
+
+    #: streaming-copy granularity for the SLAC live length: the worst-case
+    #: device buffer is ~4.5 bytes a sample, typical payloads ~0.4; the
+    #: stream copies a slice of a fixed length (started before the host
+    #: knows the live length, so the copy overlaps the next batch's
+    #: render) sized from the previous batch's observed length, rounded up
+    #: to this step.
+    STREAM_CAP_STEP = 1 << 18
+    #: initial cap guess, bytes per sample (SLAC's typical rate + margin)
+    STREAM_CAP_GUESS = 0.6
+
+    def render_encoded_stream(self, *, position: int = 0, n_blocks: int,
+                              batch_blocks: int, subtype: str = 'slac',
+                              carry: typing.Optional[dict] = None,
+                              deliver_taps: bool = True):
+        """Pipelined batched :meth:`render_encoded`: an iterator of
+        ``(payload, frames)``, one a batch, with batch ``k+1`` queued on
+        the device before batch ``k``'s payload is waited for.
+
+        On a GPU each payload is copied off on a side stream, into pinned
+        host memory, after an event recorded at the end of its batch; the
+        payload's memory is marked in use by that stream
+        (``record_stream``).  A copy on the render stream would queue
+        behind the next batch's kernels and serialize the pipeline.  For
+        ``'slac'`` the live length is known only on the device, so a slice
+        of a fixed cap is copied at once with the length; the rare
+        overshoot (cap below the live length) copies the rest after.  The
+        cap starts at :attr:`STREAM_CAP_GUESS` bytes a sample and follows
+        1.25x the last observed length, rounded up to
+        :attr:`STREAM_CAP_STEP`.
+
+        Batches are rounded up to :attr:`carry_seg_align` blocks; each
+        encodes from fresh codec state, so every payload decodes alone and
+        the ``.slac`` v3 container (``runtime/sndfile.SlacWriter``) joins
+        them losslessly.  ``position`` is checked here, at the call."""
+        self.check_position(position, n_blocks)
+        align = self.carry_seg_align
+        if align > 1:
+            batch_blocks = -(-batch_blocks // align) * align
+        return self._encoded_stream(position, n_blocks, batch_blocks,
+                                    subtype,
+                                    self.carry0 if carry is None else carry,
+                                    deliver_taps)
+
+    def _encoded_stream(self, position, n_blocks, batch_blocks, subtype,
+                        carry, deliver_taps):
+        params = self.params()
+        F = self.block_frames
+        cuda = self.device.type == 'cuda'
+        copier = torch.cuda.Stream(self.device) if cuda else None
+        worst = cap = None
+        if subtype == 'slac':
+            step = self.STREAM_CAP_STEP
+            worst = int(batch_blocks * F * self.channels * 2.25)
+            cap = min(worst, -(-int(batch_blocks * F * self.channels
+                                    * self.STREAM_CAP_GUESS) // step) * step)
+
+        def copy_off(tensors):
+            """Start copying ``tensors`` to the host; ``(host tensors,
+            event or None)``."""
+            if not cuda:
+                return list(tensors), None
+            ready = torch.cuda.Event()
+            ready.record()
+            with torch.cuda.stream(copier):
+                copier.wait_event(ready)
+                host = []
+                for t in tensors:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    t.record_stream(copier)
+                    host.append(h)
+                done_ev = torch.cuda.Event()
+                done_ev.record(copier)
+            return host, done_ev
+
+        pending = collections.deque()
+        pos, done = position, 0
+
+        def dispatch():
+            nonlocal carry, pos, done
+            nb = min(batch_blocks, n_blocks - done)
+            payload, carry, taps = self._encoded_fn(nb, subtype)(
+                params, carry, pos)
+            if subtype == 'slac':
+                buf, total = payload
+                head = buf[:cap] if cap < worst else buf
+                pending.append((copy_off((head, total)), buf, nb, pos, taps))
+            else:
+                pending.append((copy_off((payload,)), None, nb, pos, taps))
+            pos += nb * F
+            done += nb
+
+        while done < n_blocks and len(pending) < 2:
+            dispatch()
+        while pending:
+            (host, ev), buf, nb, p0, taps = pending.popleft()
+            if done < n_blocks:
+                dispatch()
+            if ev is not None:
+                ev.synchronize()
+            if subtype == 'slac':
+                head, total = host
+                n = int(total)
+                if n <= head.shape[0]:
+                    out = head[:n].numpy()
+                else:
+                    out = np.concatenate([head.numpy(),
+                                          buf[head.shape[0]:n].cpu().numpy()])
+                want = -(-int(n * 1.25) // self.STREAM_CAP_STEP) \
+                    * self.STREAM_CAP_STEP
+                cap = max(min(worst, want), self.STREAM_CAP_STEP)
+            else:
+                out = host[0].numpy()
+            if deliver_taps:
+                self._deliver_taps(taps, p0, nb)
+            yield out, nb * F
 
 
 def _cat_taps(parts: list) -> dict:

@@ -129,6 +129,8 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.sosfilt_rows_vjp_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p,
                                             p, p, p, p, q, i, i, i, i, i, p]
     lib.sosfilt_rows_vjp_launch.restype = i
+    lib.ima_encode_launch.argtypes = [p, q, i, i, i, p, p]
+    lib.ima_encode_launch.restype = i
     lib.signals_partial_width.argtypes = [i, i, i, i, i, i]
     lib.signals_partial_width.restype = i
     lib.signals_cuda_error_string.argtypes = [i]

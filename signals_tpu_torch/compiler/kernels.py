@@ -51,10 +51,12 @@ from signals_tpu_torch.core.xp import TorchXP
 OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
 
 #: launches of each hand-written kernel since :func:`reset_launch_counts`
-#: (``*_vjp``: the backward kernels of ``csrc/adjoint.cu``)
+#: (``*_vjp``: the backward kernels of ``csrc/adjoint.cu``; ``ima``: the
+#: IMA ADPCM encoder of ``csrc/codecs.cu``, launched by
+#: :func:`signals_tpu_torch.runtime.codecs.ima_encode`)
 LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0,
             'stream': 0, 'segments_gen_vjp': 0, 'segments_vjp': 0,
-            'batch_vjp': 0, 'timeline_vjp': 0, 'stream_vjp': 0}
+            'batch_vjp': 0, 'timeline_vjp': 0, 'stream_vjp': 0, 'ima': 0}
 
 #: sections per lane the segment kernels take (the Butterworth designs: 1
 #: for low/high-pass, 2 for band-pass/band-stop)

@@ -46,6 +46,8 @@ class TorchXP:
 
     is_torch = True
     float32, float64, int32 = torch.float32, torch.float64, torch.int32
+    #: the codecs' integer types (``runtime/codecs.py``)
+    uint8, int16, int64 = torch.uint8, torch.int16, torch.int64
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -93,6 +95,19 @@ class TorchXP:
 
     def floor(self, x):
         return torch.floor(x)
+
+    @staticmethod
+    def round(x):
+        """numpy's ``round``: half to even."""
+        return torch.round(x)
+
+    def atleast_2d(self, x):
+        x = self._t(x)
+        return x.reshape(1, -1) if x.dim() < 2 else x
+
+    def zeros(self, n, dtype=None):
+        return torch.zeros(n, dtype=dtype or torch.float32,
+                           device=self.device)
 
     def sign(self, x):
         return torch.sign(x)

@@ -10,12 +10,22 @@ against a :class:`KernelCtx` with two implementations:
   oracle (it needs no JAX and no GPU);
 * ``LowerCtx`` in :mod:`signals_tpu_torch.compiler` — evaluates the same
   kernels eagerly in PyTorch over whole multi-block windows.
+
+The compiler lowers a patch again at every render, reading the graph as it
+goes.  So that a compiled patch keeps rendering the structure it was
+compiled from while the live graph is rewired (a structural edit during
+playback, swapped in by the ``Transport`` once the new program is warm),
+it renders inside :func:`frozen_wiring`: on that thread every port reads,
+and every emitter lists, the connections of the :class:`Wiring` snapshot
+taken at compile time.
 """
 
 from __future__ import annotations
 
 import abc
 import collections
+import contextlib
+import threading
 import typing
 
 import numpy as np
@@ -45,10 +55,44 @@ __all__ = [
     'ExplicitChannelsEmitter', 'ImplicitChannels', 'PassThroughResult',
     'BlockCachingEmitter', 'StatefulEmitter', 'KernelCtx', 'PullCtx',
     'CycleError', 'BadChannels', 'Param', 'State', 'BadStateValue',
-    'BadStateSchema',
+    'BadStateSchema', 'Wiring', 'frozen_wiring',
 ]
 
 FLOAT = np.float32  # every engine computes audio in float32
+
+#: the :class:`Wiring` the current thread reads the graph through (unset:
+#: the live graph)
+_FROZEN = threading.local()
+
+
+class Wiring:
+    """A snapshot of the connections of the nodes reachable from a root:
+    each port's input and each emitter's outputs, as they were when it was
+    taken."""
+
+    def __init__(self, nodes: typing.Iterable['Signal']):
+        #: id(bound port) -> its input
+        self.inputs: dict[int, typing.Optional['Emitter']] = {}
+        #: id(emitter) -> its (port name, receiver) outputs
+        self.outputs: dict[int, frozenset] = {}
+        for node in nodes:
+            if isinstance(node, Receiver):
+                for bp in node._ports.values():
+                    self.inputs[id(bp)] = bp.sig
+            if isinstance(node, Emitter):
+                self.outputs[id(node)] = frozenset(node.outputs_with_ports)
+
+
+@contextlib.contextmanager
+def frozen_wiring(wiring: Wiring):
+    """Read the graph through ``wiring`` on this thread (nestable); ports
+    and emitters outside the snapshot read live."""
+    prev = getattr(_FROZEN, 'wiring', None)
+    _FROZEN.wiring = wiring
+    try:
+        yield
+    finally:
+        _FROZEN.wiring = prev
 
 
 class CycleError(ChainLayerError):
@@ -251,6 +295,9 @@ class Emitter(Signal, abc.ABC):
 
     @property
     def outputs_with_ports(self) -> typing.AbstractSet[tuple[PortName, 'Receiver']]:
+        wiring = getattr(_FROZEN, 'wiring', None)
+        if wiring is not None:
+            return wiring.outputs.get(id(self), self._outputs)
         return self._outputs
 
     @property
@@ -294,7 +341,20 @@ class Receiver(Signal, abc.ABC):
                      emitter: typing.Optional[Emitter] = None):
             self.name = name
             self.parent = parent
-            self.sig = emitter
+            self._sig = emitter
+
+        @property
+        def sig(self) -> typing.Optional[Emitter]:
+            """The connected input: live, or the one of the thread's
+            :func:`frozen_wiring` snapshot."""
+            wiring = getattr(_FROZEN, 'wiring', None)
+            if wiring is not None:
+                return wiring.inputs.get(id(self), self._sig)
+            return self._sig
+
+        @sig.setter
+        def sig(self, emitter: typing.Optional[Emitter]) -> None:
+            self._sig = emitter
 
         def expel(self) -> None:
             self.sig._outputs.remove((self.name, self.parent))

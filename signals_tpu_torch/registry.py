@@ -109,6 +109,7 @@ _NODE_MODULES = (
     'signals_tpu_torch.nodes.moddelay',
     'signals_tpu_torch.nodes.phaser',
     'signals_tpu_torch.nodes.conv',
+    'signals_tpu_torch.nodes.dev',
 )
 
 _loaded = False

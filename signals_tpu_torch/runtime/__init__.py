@@ -2,10 +2,16 @@
 consumer (``signals_tpu.runtime``).
 
 The device renders ahead: a host thread drives the compiled patch in
-batches of blocks and hands each block, with its position, to a consumer —
-a real audio callback, a paced virtual device, or a file — which drains at
-the sample rate.  The ring buffer, PortAudio and the sink devices are not
-ported yet; the consumer is any callable.
+batches of blocks and hands each block, with its position, to a consumer,
+any callable.  A :class:`~signals_tpu_torch.nodes.dev.SinkDevice` makes it
+push the blocks into the lock-free native ring
+(:mod:`signals_tpu_torch.runtime.ring`, C++), whose consumer — the paced
+virtual device (:class:`~signals_tpu_torch.runtime.ring.PacedConsumer`),
+a PortAudio output callback (:mod:`signals_tpu_torch.runtime.portaudio`)
+or a file descriptor — drains at the sample rate, and passes
+``refresh``, so a structural edit of the patch recompiles in the
+background while the old program keeps playing (:meth:`Transport.
+_swap_async`).  Underruns are counted instead of crashing the stream.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
-"""Companded / ADPCM audio codecs: G.711 mu-law & A-law, IMA ADPCM.
+"""Companded / ADPCM / lossless audio codecs: G.711 mu-law & A-law, IMA
+ADPCM, SLAC (``signals_tpu.runtime.codecs``).
 
 The reference reads and writes every format libsndfile handles
 (``src/signals/chain/files.py:8,42-58``), which includes the classic
@@ -9,16 +10,30 @@ telephony and streaming codecs (``SF_FORMAT_ULAW``, ``SF_FORMAT_ALAW``,
   bit-compatible with the CCITT reference implementation (and therefore
   with libsndfile / ``audioop``).
 * :func:`alaw_encode` / :func:`alaw_decode` — G.711 A-law, same pedigree.
-* :func:`ima_encode` / :func:`ima_decode` — IMA/DVI ADPCM with the WAV
-  per-block layout (independent blocks, int16 predictor header).
+* :func:`ima_encode_np` / :func:`ima_decode_np` — IMA/DVI ADPCM with the
+  WAV per-block layout (independent blocks, int16 predictor header).
+* :func:`slac_encode_np` / :func:`slac2_encode_np` and their decoders —
+  SLAC, a lossless fixed-predictor codec (v1 fixed width, v2 Rice codes).
 
-All of the G.711 math is elementwise integer arithmetic written against
-an ``xp`` array namespace (numpy here).  This is the numpy half of
-``signals_tpu.runtime.codecs``, copied: the host encoders and decoders the
+Two halves.  The **host half** (numpy, the ``*_np`` functions) serves the
 file IO of :mod:`signals_tpu_torch.runtime.wavio` and
-:mod:`signals_tpu_torch.runtime.sndfile` needs, and the specification any
-device-side encoder must match byte for byte.  The device encoders are
-not ported yet.
+:mod:`signals_tpu_torch.runtime.sndfile` and is the specification.  The
+**device half** encodes a rendered mix where it lies, on the GPU, so that
+only payload bytes cross the host link (1 byte a sample for G.711, 2 for
+PCM16, ~0.5 for ADPCM, ~0.4-1.5 for SLAC, against 4 for float32):
+:func:`device_encode` dispatches to :func:`pcm16_encode`,
+:func:`mulaw_encode` / :func:`alaw_encode` (the G.711 code is written
+against an ``xp`` namespace, numpy or :class:`~signals_tpu_torch.core.xp.
+TorchXP`, and runs unchanged on a tensor), :func:`ima_encode` and
+:func:`slac2_encode` (and :func:`slac_encode`, v1).  Each device encoder is
+byte-identical to its ``*_np`` encoder.  The IMA recurrence is sequential
+within a block: on a GPU tensor :func:`ima_encode` launches a hand-written
+kernel (``compiler/csrc/codecs.cu``, one thread per block and channel), on
+a CPU tensor it runs the step loop over tensors
+(:func:`ima_encode_plain`).  The SLAC encoders are elementwise ops, block
+reductions and scatters: a Rice code shifted to its bit offset touches at
+most three 32-bit words of its block, and codes never overlap, so adding
+the word contributions with ``scatter_add_`` is their bitwise OR.
 """
 
 from __future__ import annotations
@@ -26,8 +41,17 @@ from __future__ import annotations
 import typing
 
 import numpy as np
+import torch
 
 F32 = np.float32
+
+
+def _astype(x, dtype):
+    """``x`` (a numpy array or a tensor) as ``dtype``, a numpy or torch
+    type: the one spelling of a cast the shared code uses."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dtype)
+    return np.asarray(x).astype(dtype)
 
 _BIAS = 0x84
 _CLIP = 32635
@@ -41,7 +65,7 @@ def _to_int16(xp, x):
     is deliberately *not* the same as the PCM16 file writers
     (:mod:`signals_tpu_torch.runtime.wavio`), which scale by 32767."""
     q = xp.clip(xp.round(x * F32(32768.0)), -32768, 32767)
-    return q.astype(xp.int32)
+    return _astype(q, xp.int32)
 
 
 def mulaw_encode(xp, x) -> 'np.ndarray':
@@ -58,9 +82,9 @@ def mulaw_encode(xp, x) -> 'np.ndarray':
     mag = xp.minimum(xp.where(s < 0, -s, s), 8159) + 33  # 14-bit CLIP+BIAS
     seg = xp.zeros_like(mag)
     for j in range(8):                 # seg_uend = 0x3F,0x7F,...,0x1FFF
-        seg = seg + (mag > ((0x40 << j) - 1)).astype(mag.dtype)
+        seg = seg + _astype(mag > ((0x40 << j) - 1), mag.dtype)
     u = xp.where(seg >= 8, 0x7F, (seg << 4) | ((mag >> (seg + 1)) & 0x0F))
-    return ((u ^ mask) & 0xFF).astype(xp.uint8)
+    return _astype((u ^ mask) & 0xFF, xp.uint8)
 
 
 def mulaw_decode(xp, u) -> 'np.ndarray':
@@ -89,11 +113,12 @@ def alaw_encode(xp, x) -> 'np.ndarray':
     mag = xp.where(neg, -pcm - 1, pcm) >> 3              # 13-bit magnitude
     seg = xp.zeros_like(mag)
     for j in range(7):
-        seg = seg + (mag > ((0x1F << j) | ((1 << j) - 1))).astype(mag.dtype)
+        seg = seg + _astype(mag > ((0x1F << j) | ((1 << j) - 1)),
+                              mag.dtype)
     low = xp.where(seg < 1, (mag >> 1) & 0x0F, (mag >> seg) & 0x0F)
     aval = (seg << 4) | low
     a = xp.where(neg, aval, aval | 0x80) ^ _ALAW_AMI_MASK
-    return (a & 0xFF).astype(xp.uint8)
+    return _astype(a & 0xFF, xp.uint8)
 
 
 def alaw_decode(xp, a) -> 'np.ndarray':
@@ -270,13 +295,13 @@ _SLAC_MAX_W = 18
 
 
 def _slac_pcm16(xp, x):
-    """Shared PCM16 quantization (32767 scale, matching the
+    """Shared (numpy / torch) PCM16 quantization (32767 scale, matching the
     PCM16 fetch/file writers) flattened channel-major — channel planes
     concatenate into one stream (lossless; costs one spurious delta per
     boundary)."""
     x = xp.atleast_2d(xp.asarray(x, dtype=xp.float32))
     pcm = xp.clip(xp.round(x * F32(32767.0)), -32768, 32767)
-    return pcm.astype(xp.int32).T.reshape(-1)
+    return _astype(pcm, xp.int32).T.reshape(-1)
 
 
 def _slac_widths(xp, res):
@@ -289,18 +314,18 @@ def _slac_widths(xp, res):
 
 
 def _slac_select(xp, cand, nb, N):
-    """Shared per-block predictor-order/width selection from the
+    """Shared (numpy / torch) per-block predictor-order/width selection from the
     stacked residual candidates ``cand`` of shape (n_ord, nb*N).
     Returns ``(order, width, zz)`` with ``zz`` the winning (nb, N)
     zigzags — identical argmin tie-breaking in both backends (first
     minimum over the order axis), keeping the encoders byte-identical."""
     zz, w = _slac_widths(xp, cand)
-    wmax = w.reshape(-1, nb, N).max(axis=2)              # (n_ord, nb)
-    order = xp.argmin(wmax, axis=0).astype(xp.int32)     # first min
-    width = xp.take_along_axis(wmax, order[None], axis=0)[0]
-    zzb = xp.take_along_axis(zz.reshape(-1, nb, N),
-                             order[None, :, None], axis=0)[0]  # (nb, N)
-    return order, width, zzb
+    wmax = xp.max(w.reshape(-1, nb, N), axis=2)          # (n_ord, nb)
+    pick = xp.argmin(wmax, axis=0)                       # first min
+    blocks = xp.arange(nb)
+    width = wmax[pick, blocks]
+    zzb = zz.reshape(-1, nb, N)[pick, blocks]            # (nb, N)
+    return _astype(pick, xp.int32), width, zzb
 
 
 def slac_encode_np(x) -> typing.Tuple[np.ndarray, int]:
@@ -427,23 +452,23 @@ def _slac2_plan(xp, zz3):
     """Per-block (order, k) selection from the zigzag
     candidates ``zz3`` of shape (4, nb, N).  Returns (order, k, zz) with
     zz the winning (nb, N) zigzags — argmin tie-breaking picks the first
-    minimum over the order-major flattened (order, k) axis (the
-    specification a device encoder matches; the k loop is python so no
-    (.., N, KMAX) table ever materializes)."""
+    minimum over the order-major flattened (order, k) axis in both
+    backends (numpy's ``argmin``; on tensors ``TorchXP.argmin``, which
+    writes the first-index rule out rather than lean on ``torch.argmin``),
+    so the device encoder matches the host one byte for byte.  The k loop
+    is python, so no (.., N, KMAX) table ever materializes."""
     n_ord, nb, N = zz3.shape
     cols = []
     for kk in range(_SLAC2_KMAX):
         q = zz3 >> kk
         ln = xp.where(q >= SLAC2_Q0, _SLAC2_ESC_LEN, q + 1 + kk)
-        cols.append(ln.sum(axis=2, dtype=xp.int32))     # (n_ord, nb)
-    bits = xp.stack(cols, axis=2)                       # (n_ord, nb, KMAX)
-    flat = bits.transpose(1, 0, 2).reshape(nb, n_ord * _SLAC2_KMAX)
-    pick = xp.argmin(flat, axis=1).astype(xp.int32)     # first min
+        cols.append(xp.sum(ln, axis=2).T)               # (nb, n_ord)
+    flat = xp.stack(cols, axis=2).reshape(nb, n_ord * _SLAC2_KMAX)
+    pick = xp.argmin(flat, axis=1)                      # first min
     order = pick // _SLAC2_KMAX
     k = pick % _SLAC2_KMAX
-    zz = np.take_along_axis(
-        zz3.transpose(1, 0, 2), order[:, None, None], axis=1)[:, 0]
-    return order, k, zz
+    zz = zz3[order, xp.arange(nb)]                      # (nb, N)
+    return _astype(order, xp.int32), _astype(k, xp.int32), zz
 
 
 def _slac2_residual_cands(xp, s):
@@ -631,3 +656,271 @@ def slac2_decode_np(payload: np.ndarray, n_samples: int,
     pcm = out[:n_flat].astype(np.int16)
     frames = n_flat // channels
     return pcm.reshape(channels, frames).T
+
+
+# --- the device half: encoders on tensors ------------------------------------
+
+
+#: the sample encodings :func:`device_encode` (and the compiler's encoded
+#: entry points) produce on the device
+DEVICE_SUBTYPES = ('pcm16', 'mulaw', 'alaw', 'adpcm', 'slac')
+
+
+def pcm16_encode(xp, x):
+    """float32 -> int16 PCM at 32767 full scale (the PCM16 file writers'
+    and the ring's fd stream's quantization), round half to even."""
+    return _astype(xp.clip(xp.round(x * F32(32767.0)), -32768, 32767),
+                   xp.int16)
+
+
+def device_encode(x, subtype: str):
+    """Encode a float32 ``(frames, ch)`` tensor where it lies: ``'pcm16'``
+    int16 and ``'mulaw'`` / ``'alaw'`` uint8, each ``(frames, ch)``;
+    ``'adpcm'`` the flat WAV IMA ADPCM payload (:func:`ima_encode`);
+    ``'slac'`` the pair ``(buf, total)`` of :func:`slac2_encode`."""
+    from signals_tpu_torch.core.xp import TorchXP
+    xp = TorchXP(x.device)
+    if subtype == 'pcm16':
+        return pcm16_encode(xp, x)
+    if subtype == 'mulaw':
+        return mulaw_encode(xp, x)
+    if subtype == 'alaw':
+        return alaw_encode(xp, x)
+    if subtype == 'adpcm':
+        return ima_encode(x)
+    if subtype == 'slac':
+        return slac2_encode(x)
+    raise ValueError(f'unsupported device encoding {subtype!r}')
+
+
+def _pack_words(code, starts, n_words: int, spans: int):
+    """OR each block's codes into its little-endian bit stream.
+
+    ``code`` (nb, N) int64 holds each sample's code (LSB first, under 2^36)
+    and ``starts`` (nb, N) its bit offset in its block.  A code shifted to
+    its offset touches at most ``spans`` (2 or 3) consecutive 32-bit words;
+    the word contributions are disjoint bitfields (codes abut, never
+    overlap), so summing them with ``scatter_add_`` in int64 is their
+    bitwise OR, exactly, in any order.  (int64 with ``& 0xFFFFFFFF``:
+    torch's uint32 lacks most ops on a GPU.)  Returns the blocks' bytes
+    ``(nb, 4 * n_words)`` uint8.  No ``(nb, N, n_words)`` table is built."""
+    nb = code.shape[0]
+    dev = code.device
+    sh = starts & 31
+    # 2 words of slack: a last contribution that is 0 may index past the
+    # last block
+    w0 = ((starts >> 5) + torch.arange(nb, device=dev)[:, None] * n_words
+          ).reshape(-1)
+    words = torch.zeros(nb * n_words + 2, dtype=torch.int64, device=dev)
+    low = (code & ((1 << (32 - sh)) - 1)) << sh          # bits 0-31
+    words.scatter_add_(0, w0, low.reshape(-1))
+    mid = (code >> (32 - sh)) & 0xFFFFFFFF               # bits 32-63
+    words.scatter_add_(0, w0 + 1, mid.reshape(-1))
+    if spans == 3:
+        high = (code >> 32) >> (32 - sh)                 # bits 64+ (sh > 28)
+        words.scatter_add_(0, w0 + 2, high.reshape(-1))
+    words = words[:nb * n_words].reshape(nb, n_words, 1)
+    shifts = torch.arange(0, 32, 8, device=dev)
+    return ((words >> shifts) & 0xFF).to(torch.uint8).reshape(nb, -1)
+
+
+def _compact(rows, nbytes):
+    """Concatenate variable-length records: row ``i`` of ``rows`` (nb, L)
+    uint8 holds record ``i`` in its first ``nbytes[i]`` bytes.  One
+    scatter writes every live byte to its place (record ``i`` starts at
+    the sum of the lengths before it); the dead tail of each row goes to
+    one dump slot past the end.  Returns ``(buf (nb * L,), total)``: a
+    worst-case buffer, zero past the live length ``total`` (an int64
+    scalar tensor)."""
+    nb, L = rows.shape
+    ends = torch.cumsum(nbytes, 0)
+    starts = ends - nbytes
+    cap = nb * L
+    j = torch.arange(L, device=rows.device)
+    idx = torch.where(j < nbytes[:, None], starts[:, None] + j, cap)
+    out = torch.zeros(cap + 1, dtype=torch.uint8, device=rows.device)
+    out.scatter_(0, idx.reshape(-1), rows.reshape(-1))
+    return out[:cap], ends[-1]
+
+
+def _empty_stream(x):
+    return (torch.zeros(0, dtype=torch.uint8, device=x.device),
+            torch.zeros((), dtype=torch.int64, device=x.device))
+
+
+def slac_encode(x):
+    """SLAC v1 on a tensor: float32 ``(frames, ch)`` -> ``(buf, total)``,
+    a worst-case-capacity uint8 buffer (``nb * 577`` bytes) and the live
+    byte count as an int64 scalar tensor: copy ``total`` off the device
+    first (8 bytes), then ``buf[:total]``.  Byte-identical to
+    :func:`slac_encode_np`."""
+    from signals_tpu_torch.core.xp import TorchXP
+    xp = TorchXP(x.device)
+    pcm = _slac_pcm16(xp, x)
+    n = pcm.shape[0]
+    N = SLAC_BLOCK
+    nb = -(-n // N)
+    if nb == 0:
+        return _empty_stream(x)
+    s = torch.cat([pcm, pcm.new_zeros(nb * N - n)])
+    prev1 = torch.cat([s.new_zeros(1), s[:-1]])
+    prev2 = torch.cat([s.new_zeros(1), prev1[:-1]])
+    cand = torch.stack([s, s - prev1, s - 2 * prev1 + prev2])
+    order, width, zz = _slac_select(xp, cand, nb, N)
+    width = width.to(torch.int64)
+    starts = torch.arange(N, device=x.device) * width[:, None]
+    max_words = N * _SLAC_MAX_W // 32
+    body = _pack_words(zz.to(torch.int64), starts, max_words, 2)
+    hdr = ((order.to(torch.int64) << 5) | width) & 0xFF
+    rows = torch.cat([hdr.to(torch.uint8)[:, None], body], dim=1)
+    return _compact(rows, 1 + (N * width + 7) // 8)
+
+
+def slac2_encode(x):
+    """SLAC v2 (Rice codes) on a tensor: float32 ``(frames, ch)`` ->
+    ``(buf, total)`` as :func:`slac_encode` (``nb * 1155`` bytes of
+    capacity).  Byte-identical to :func:`slac2_encode_np`: the same plan
+    (:func:`_slac2_plan`), each sample's code built whole in int64 (at
+    most 36 bits) and placed by :func:`_pack_words`, the records
+    ``[order << 5 | k, len_lo, len_hi, payload]`` joined by
+    :func:`_compact`."""
+    from signals_tpu_torch.core.xp import TorchXP
+    xp = TorchXP(x.device)
+    pcm = _slac_pcm16(xp, x)
+    n = pcm.shape[0]
+    N = SLAC_BLOCK
+    nb = -(-n // N)
+    if nb == 0:
+        return _empty_stream(x)
+    s = torch.cat([pcm, pcm.new_zeros(nb * N - n)])
+    cand = _slac2_residual_cands(xp, s)
+    zz3 = ((cand << 1) ^ (cand >> 31)).reshape(4, nb, N)
+    order, k, zz = _slac2_plan(xp, zz3)
+    zz = zz.to(torch.int64)
+    kcol = k.to(torch.int64)[:, None]
+    q = zz >> kcol
+    esc = q >= SLAC2_Q0
+    ln = torch.where(esc, _SLAC2_ESC_LEN, q + 1 + kcol)  # (nb, N)
+    cum = torch.cumsum(ln, 1)
+    starts = cum - ln
+    # non-escape: q ones, a zero, the k low bits of zz; escape: Q0 ones,
+    # the RAW low bits (the dead branch's q is clamped: its shift stays
+    # in range)
+    qs = torch.clamp(q, max=SLAC2_Q0)
+    rice = ((1 << qs) - 1) | ((zz & ((1 << kcol) - 1)) << (qs + 1))
+    escape = ((1 << SLAC2_Q0) - 1) | (
+        (zz & ((1 << SLAC2_RAW) - 1)) << SLAC2_Q0)
+    code = torch.where(esc, escape, rice)
+    body = _pack_words(code, starts, _SLAC2_MAX_BITS // 32, 3)
+    nbytes = 3 + (cum[:, -1] + 7) // 8
+    hdr = ((order.to(torch.int64) << 5) | kcol[:, 0]) & 0xFF
+    head = torch.stack([hdr, nbytes & 0xFF, (nbytes >> 8) & 0xFF], dim=1)
+    rows = torch.cat([head.to(torch.uint8), body], dim=1)
+    return _compact(rows, nbytes)
+
+
+def _ima_geometry(x, samples_per_block: int):
+    """``(x (frames, ch) float32, nb, block_align)`` for an IMA encode, or
+    raise for a block size the WAV layout cannot hold."""
+    x = x.reshape(1, -1) if x.dim() < 2 else x
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise ValueError(f'x must be float32 (frames, channels), got '
+                         f'{tuple(x.shape)} {x.dtype}')
+    spb = samples_per_block
+    if spb % 2 == 0:
+        raise ValueError('samples_per_block must be odd')
+    if (spb - 1) % 8:
+        # the channels' nibble words interleave 4 bytes at a time: the
+        # numpy encoder's reshape refuses any other block size too
+        raise ValueError(f'samples_per_block {spb}: samples_per_block - 1 '
+                         f'must be a multiple of 8')
+    frames, ch = x.shape
+    return x, -(-frames // spb), ((spb - 1) // 2 + 4) * ch
+
+
+def ima_encode_plain(x, *, samples_per_block: int = 1017):
+    """Plain PyTorch version of :func:`ima_encode`: the step loop of
+    :func:`ima_encode_np` over tensors, every block and channel at once,
+    one iteration per in-block sample (~30 small ops each)."""
+    x, nb, block_align = _ima_geometry(x, samples_per_block)
+    frames, ch = x.shape
+    spb = samples_per_block
+    dev = x.device
+    if nb == 0:
+        return torch.zeros(0, dtype=torch.uint8, device=dev)
+    pad = nb * spb - frames
+    if pad:
+        x = torch.cat([x, x[-1:].expand(pad, ch)])
+    pcm = torch.clamp(torch.round(x * F32(32768.0)), -32768, 32767)
+    s = pcm.to(torch.int32).reshape(nb, spb, ch)
+    steps = torch.as_tensor(_IMA_STEPS, device=dev)
+    itab = torch.as_tensor(_IMA_INDEX, device=dev)
+    pred = s[:, 0, :].clone()
+    if spb < 2:
+        index = torch.zeros_like(pred)
+    else:
+        d = torch.abs(s[:, 1, :] - s[:, 0, :]).contiguous()
+        index = torch.clamp(torch.searchsorted(steps, d, right=True) - 1,
+                            0, 88).to(torch.int32)
+    index0 = index.clone()
+    codes = torch.empty((nb, spb - 1, ch), dtype=torch.int32, device=dev)
+    for k in range(1, spb):
+        step = steps[index]
+        diff = s[:, k, :] - pred
+        code = torch.where(diff < 0, 8, 0).to(torch.int32)
+        adiff = torch.abs(diff)
+        b4 = adiff >= step
+        adiff = adiff - torch.where(b4, step, 0)
+        b2 = adiff >= step >> 1
+        adiff = adiff - torch.where(b2, step >> 1, 0)
+        b1 = adiff >= step >> 2
+        code = code | b4 * 4 | b2 * 2 | b1
+        diffq = ((step >> 3) + torch.where(b4, step, 0)
+                 + torch.where(b2, step >> 1, 0)
+                 + torch.where(b1, step >> 2, 0))
+        pred = torch.clamp(pred + torch.where((code & 8) != 0, -diffq, diffq),
+                           -32768, 32767)
+        index = torch.clamp(index + itab[code & 7], 0, 88)
+        codes[:, k - 1, :] = code
+    packed = codes[:, 0::2, :] | (codes[:, 1::2, :] << 4)
+    p0 = s[:, 0, :]
+    hdr = torch.stack([p0 & 0xFF, (p0 >> 8) & 0xFF, index0,
+                       torch.zeros_like(p0)], dim=-1)      # (nb, ch, 4)
+    body = packed.transpose(1, 2).reshape(nb, ch, -1, 4)
+    body = body.transpose(1, 2).reshape(nb, -1)
+    out = torch.cat([hdr.reshape(nb, -1), body], dim=1)
+    return out.to(torch.uint8).reshape(-1)
+
+
+def ima_encode(x, *, samples_per_block: int = 1017):
+    """IMA ADPCM on a tensor: float32 ``(frames, channels)`` -> the WAV
+    payload, flat uint8 (``nb * block_align`` bytes), byte-identical to
+    :func:`ima_encode_np`.  Frames are padded with the last sample up to a
+    whole block.
+
+    On a CPU tensor this is :func:`ima_encode_plain`.  On a GPU tensor it
+    launches the hand-written kernel ``ima_encode`` of
+    ``compiler/csrc/codecs.cu`` — no port of a TPU kernel: it is the form
+    the reference package's device encoder, one scan over the in-block
+    samples (``signals_tpu/runtime/codecs.py:839``), takes here (eager PyTorch
+    would issue ~30 small kernels per sample, ~30 000 an encode) — and
+    adds one to ``kernels.LAUNCHES['ima']``, or raises."""
+    x, nb, block_align = _ima_geometry(x, samples_per_block)
+    if x.device.type == 'cpu':
+        return ima_encode_plain(x, samples_per_block=samples_per_block)
+    if x.device.type != 'cuda':
+        raise ValueError(f'unsupported device {x.device}')
+    import ctypes
+
+    from signals_tpu_torch.compiler import _build, kernels
+    x = x.contiguous()
+    out = torch.empty(nb * block_align, dtype=torch.uint8, device=x.device)
+    if nb == 0:
+        return out
+    code = _build.library().ima_encode_launch(
+        x.data_ptr(), x.shape[0], x.shape[1], samples_per_block, nb,
+        out.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    _build.check(code, 'ima_encode')
+    kernels.LAUNCHES['ima'] += 1
+    return out

@@ -191,3 +191,82 @@ def test_registry_keeps_sequencing_and_modfx_qualnames():
                                f'{name}') is cls
             if modname == 'shape':
                 assert load_signal(f'signals.chain.shape.{name}') is cls
+
+
+OUTPUT_MODULES = ('nodes.dev', 'runtime.ring', 'runtime.portaudio',
+                  'runtime.codecs', 'utils', 'utils.checkpoint')
+
+PROBE_OUTPUT = '''
+import importlib, sys
+for m in %r:
+    importlib.import_module('signals_tpu_torch.' + m)
+from signals_tpu_torch import registry
+registry.ensure_loaded()
+from signals_tpu_torch.runtime import ring
+from signals_tpu_torch.compiler import _build
+assert ring._lib is None and _build._lib is None    # nothing built
+bad = sorted(n for n in sys.modules
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu',
+                                    'sounddevice'))
+assert not bad, bad
+print('ok')
+''' % (OUTPUT_MODULES,)
+
+
+def test_output_path_modules_import_no_jax():
+    """The sinks, the ring, PortAudio, the device codecs and the checkpoint
+    import neither ``jax`` nor the JAX package (nor ``sounddevice``), and
+    build nothing when imported; their sources name neither."""
+    proc = subprocess.run([sys.executable, '-c', PROBE_OUTPUT], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+    for rel in ('nodes/dev.py', 'runtime/ring.py', 'runtime/portaudio.py',
+                'runtime/codecs.py', 'utils/__init__.py',
+                'utils/checkpoint.py', 'runtime/native/ring.cc',
+                'compiler/csrc/codecs.cu'):
+        text = (REPO / 'signals_tpu_torch' / rel).read_text()
+        assert 'import jax' not in text and 'from jax' not in text, rel
+        assert 'from signals_tpu.' not in text, rel
+        assert 'import signals_tpu.' not in text, rel
+        assert 'libsigring.so' not in text, rel
+
+
+def test_output_path_entry_points_default_to_the_card():
+    """``SinkDevice`` / ``SourceDevice``, the encoded entry points (through
+    ``compile_node``) and ``checkpoint.load`` ask for the GPU unless told
+    otherwise: where torch sees none, they raise."""
+    import inspect
+
+    import torch
+
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.nodes.dev import Rack, SinkDevice, SourceDevice
+    from signals_tpu_torch.utils import checkpoint
+
+    for fn in (SinkDevice, SourceDevice, compile_node, checkpoint.load):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    rack = Rack()
+    rack.scan()
+    for make in (lambda: SinkDevice(rack.get_sink('default')),
+                 lambda: SourceDevice(rack.get_source('capture'))):
+        if torch.cuda.is_available():
+            assert make().device.type == 'cuda'
+        else:
+            with pytest.raises(RuntimeError, match='CUDA'):
+                make()
+
+
+def test_registry_keeps_device_qualnames():
+    from signals_tpu_torch import registry
+    from signals_tpu_torch.nodes import dev
+    from signals_tpu_torch.registry import Library, load_signal
+    assert 'signals_tpu_torch.nodes.dev' in registry._NODE_MODULES
+    for name in ('SinkDevice', 'SourceDevice'):
+        cls = getattr(dev, name)
+        for prefix in ('signals.chain.dev', 'signals_tpu.nodes.dev',
+                       'signals_tpu_torch.nodes.dev'):
+            assert load_signal(f'{prefix}.{name}') is cls
+    lib = Library()
+    lib.scan()
+    assert not any('Device' in n for n in lib.names)   # devices hidden
