@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Ten phases; any failure raises and exits non-zero:
+Eleven phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
@@ -205,6 +205,33 @@ Ten phases; any failure raises and exits non-zero:
    checkpointed after 13 blocks, loaded onto the card and resumed for 19,
    bit for bit the continuation from the device carry.
 
+11. **The command layer** (``[shell]`` lines): the port's ``Controller``
+   on its default device, the card, as a user drives it, each render with
+   its launch counts reset just before it and checked just after: (a) the
+   mono swept voice written as a ``.sigs`` file
+   (:func:`swept_voice_sigs`, ``signals.chain.*`` names where the
+   reference has them) and ``load``-ed, then ``bounce`` for 60 s in
+   float32 (``{K1: 1}``; the file the same bits as the sink's
+   ``render_offline``, its first 32 blocks within 1e-5 of the oracle), and
+   in pcm16 (``{K1: 1}``, streamed), adpcm (``{K1: 1, ima: 1}``) and slac
+   (``{K1: 1}``, one 60 s batch), each file byte for byte the one the
+   direct encoded entry point writes; each command's wall beside the
+   direct call's; (b) ``fit`` of the cutoff centre's ``Fixed`` from 1400
+   Hz to a 1.5 s target bounced at 2000 Hz, 16 steps (``{K1: 16, B1:
+   16}``): the loss falls, ``undo`` gives back 1400 exactly, ``redo`` the
+   fitted value, ms a step; (c) ``play`` / ``stats`` / ``stop`` of the
+   16-channel static voice on the realtime ``null`` sink for 3 s (one K3
+   launch a batch, one more for the warmup; ``stats`` more than 0 blocks
+   and 0 underruns); (d) ``save`` / ``load`` keeps the hash, and
+   ``tests/fixtures/lowpass_test.sigs`` loads and bounces 10 s (``{K3:
+   1}``: one lane of a static LowPass); (e) ``python -m signals_tpu_torch`` fed a command
+   script on stdin ends in a ``bounce`` and ``exit``: rc 0 and the file
+   written; (f) ``entry()``: two consecutive blocks of the 64-voice mix
+   (``{K1: 1}`` each) within 64 x 1e-5 of the oracle, a block's wall and
+   device time.  ``plot`` is not run here: the machine with the card has
+   no matplotlib; the CPU tests (``tests/test_torch_ui.py``,
+   ``tests/test_torch_shell.py``) cover it.
+
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
 """
@@ -312,6 +339,36 @@ def build_subtractive_voice(gain=1.0 / V, peak=False):
     lp.input = saw
     lp.get_state().context = LowPass.context_for(550.0, RATE)
     return envelope(lp, gain), hz
+
+
+def swept_voice_sigs(sink='default', cutoff=2000.0, gain=1.0):
+    """:func:`build_subtractive_voice` (at ``gain``, cutoff centre
+    ``cutoff``) as the lines of a ``.sigs`` patch feeding a ``sink`` at 9a,
+    with the reference's ``signals.chain.*`` names where it has them: the
+    pitch at 1a, the cutoff centre's ``Fixed`` at 3a, the sink at 9a."""
+    return [
+        f'sink 9a {sink}',
+        '+ 1a signals.chain.fixed.Fixed value=[[110]]',
+        '+ 1b signals.chain.osc.Sawtooth',
+        '+ 2a signals.chain.fixed.Fixed value=[[0.5]]',
+        '+ 2b signals.chain.osc.Sine',
+        '+ 2c signals.chain.fixed.Fixed value=[[900]]',
+        '+ 2d signals.chain.fx.Gain',
+        f'+ 3a signals.chain.fixed.Fixed value=[[{cutoff!r}]]',
+        '+ 3b signals.chain.fixed.Fixed value=[[0.5]]',
+        '+ 3c signals.chain.fx.Mix',
+        f'+ 4a signals.chain.fx.LowPass context={C}',
+        '+ 5a signals.chain.fixed.Fixed value=[[2]]',
+        '+ 5b signals.chain.osc.Square',
+        '+ 5c signals_tpu.nodes.env.ADSR attack=0.01 decay=0.08 sustain=0.6 '
+        'release=0.1',
+        '+ 6a signals.chain.fx.RingMod',
+        f'+ 6b signals.chain.fixed.Fixed value=[[{gain!r}]]',
+        '+ 7a signals.chain.fx.Gain',
+        '> 1a 1b.hertz', '> 2a 2b.hertz', '> 2b 2d.left', '> 2c 2d.right',
+        '> 2d 3c.left', '> 3a 3c.right', '> 3b 3c.mix', '> 1b 4a.input',
+        '> 3c 4a.cutoff', '> 5a 5b.hertz', '> 5b 5c.gate', '> 4a 6a.left',
+        '> 5c 6a.right', '> 6a 7a.left', '> 6b 7a.right', '> 7a 9a.input']
 
 
 def build_static_voice(band=False, streaming=False):
@@ -3783,6 +3840,364 @@ def phase_output():
                      'flagship mix and of the sink\'s renders')}, record)
 
 
+# --- phase 11: the command layer ---------------------------------------------
+
+SHELL_SECONDS = 60.0        # (a) the bounces
+SHELL_ENCODED = ('pcm16', 'adpcm', 'slac')
+FIT_SECONDS = 1.5           # (b) the fit's target
+FIT_FROM, FIT_TO = 1400.0, 2000.0
+SHELL_FIT_STEPS = 16
+PLAY_SECONDS = 3.0          # (c) the static voice on the null sink
+FIXTURE_SECONDS = 10.0      # (d) the reference fixture's bounce
+REPL_SECONDS = 10.0         # (e) the REPL process's bounce
+FIT_LINE = re.compile(r'fit target\.wav: loss (\S+) -> (\S+) over (\d+) '
+                      r'steps; 3a\.value=(\S+)')
+STATS_LINE = re.compile(r'9a null: blocks=(\d+) p50=(\S+)ms p95=(\S+)ms '
+                        r'x_realtime=(\S+) underruns=(\d+)')
+
+
+def static_voice_sigs(sink='null'):
+    """:func:`build_static_voice` as the lines of a ``.sigs`` patch feeding
+    a ``sink`` at 9a set to its STATIC_CH channels."""
+    pitches = json.dumps(poly_freqs(STATIC_CH).reshape(1, -1).tolist(),
+                         separators=(',', ':'))
+    return [
+        f'sink 9a {sink}', f'ed 9a channels={STATIC_CH}',
+        f'+ 1a signals.chain.fixed.Fixed value={pitches}',
+        '+ 1b signals.chain.osc.Sawtooth',
+        '+ 2a signals.chain.fixed.Fixed value=[[2000]]',
+        f'+ 2b signals.chain.fx.LowPass context={STATIC_C}',
+        '+ 5a signals.chain.fixed.Fixed value=[[2]]',
+        '+ 5b signals.chain.osc.Square',
+        '+ 5c signals_tpu.nodes.env.ADSR attack=0.01 decay=0.08 sustain=0.6 '
+        'release=0.1',
+        '+ 6a signals.chain.fx.RingMod',
+        '+ 6b signals.chain.fixed.Fixed value=[[0.015625]]',
+        '+ 7a signals.chain.fx.Gain',
+        '> 1a 1b.hertz', '> 1b 2b.input', '> 2a 2b.cutoff', '> 5a 5b.hertz',
+        '> 5b 5c.gate', '> 2b 6a.left', '> 5c 6a.right', '> 6a 7a.left',
+        '> 6b 7a.right', '> 7a 9a.input']
+
+
+def shell(lines=()):
+    """The port's ``Controller`` on its default device, the card, with
+    ``lines`` applied; a failing command raises."""
+    import io
+
+    from signals_tpu_torch.map.control import Controller
+    ctl = Controller(interactive=False, stdout=io.StringIO())
+    assert str(ctl.device) == 'cuda'
+    for line in lines:
+        ctl.default(line)
+    return ctl
+
+
+def said(ctl):
+    """What ``ctl`` printed since the last call."""
+    out = ctl.stdout.getvalue()
+    ctl.stdout.seek(0)
+    ctl.stdout.truncate()
+    return out.strip()
+
+
+def timed_ms(fn):
+    """``(result, wall ms)`` of ``fn`` ending in a synchronise."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def shell_bounce(card, total):
+    """(a) The swept voice loaded from a ``.sigs`` file and bounced for
+    60 s in float32 and in the encoded subtypes, each file held to the
+    sink's own entry point."""
+    from signals_tpu_torch.map import Coordinates
+    from signals_tpu_torch.runtime import sndfile
+    from signals_tpu_torch.runtime.wavio import read_wav, write_wav
+    d = work_dir()
+    patch = d / 'swept.sigs'
+    patch.write_text('\n'.join(swept_voice_sigs()) + '\n')
+    ctl = shell([f'load {patch}'])
+    sink = ctl.map.find(Coordinates.parse('9a'))
+    assert sink.device.type == 'cuda'
+    n60 = sink._n_blocks(SHELL_SECONDS, None, F)
+    path = d / 'shell.wav'
+    launched(f'bounce 9a {path.name} {SHELL_SECONDS:g}',
+             lambda: ctl.default(f'bounce 9a {path} {SHELL_SECONDS:g}'),
+             {'segments_gen': 1}, total)
+    print(f'[shell] {said(ctl)}')
+    got, rate = read_wav(path)
+    direct = launched(f'sink render_offline, {n60} blocks',
+                      lambda: sink.render_offline(seconds=SHELL_SECONDS),
+                      {'segments_gen': 1}, total).cpu().numpy()
+    same = rate == RATE and got.dtype == np.float32 and np.array_equal(
+        got, direct)
+    want = pull_oracle(sink.input.sig, ORACLE_BLOCKS, 1)
+    err = float(np.abs(got[:ORACLE_BLOCKS * F] - want).max())
+    print(f'[shell] bounce float32, {got.shape[0]} frames: '
+          f'{"the same bits as" if same else "DIFFERENT FROM"} the sink\'s '
+          f'render_offline; first {ORACLE_BLOCKS} blocks vs oracle max abs '
+          f'{err!r} (tol {TOL}, peak {float(np.abs(want).max())!r})')
+    assert same and got.shape == (n60 * F, 1) and err <= TOL, err
+    cmd_ms = wall_ms(lambda: ctl.default(f'bounce 9a {path} '
+                                         f'{SHELL_SECONDS:g}'))
+    said(ctl)
+    direct_path = d / 'direct.wav'
+    direct_ms = wall_ms(lambda: write_wav(
+        direct_path, sink.render_offline(seconds=SHELL_SECONDS).cpu().numpy(),
+        sink.rate))
+    print(f'[shell] bounce float32 {SHELL_SECONDS:g} s: command wall '
+          f'{cmd_ms:.2f} ms, the direct render_offline + copy + write_wav '
+          f'{direct_ms:.2f} ms (fastest of 3 each; the shell\'s own cost '
+          f'{cmd_ms - direct_ms:+.2f} ms)  [{card}]')
+    for sub in SHELL_ENCODED:
+        ext = 'slac' if sub == 'slac' else 'wav'
+        out = d / f'shell_{sub}.{ext}'
+        line = f'bounce 9a {out} {SHELL_SECONDS:g} {sub}'
+        expect = {'segments_gen': 1, **({'ima': 1} if sub == 'adpcm'
+                                        else {})}
+        launched(line, lambda: ctl.default(line), expect, total)
+        print(f'[shell] {said(ctl)}')
+        ref = d / f'direct_{sub}.{ext}'
+
+        def direct_write():
+            w = sndfile.open_writer(ref, rate=RATE, channels=1, subtype=sub)
+            if sub == 'adpcm':
+                w.write_encoded(*sink.render_offline_encoded(
+                    seconds=SHELL_SECONDS, subtype=sub))
+            else:
+                for p, f in sink.render_offline_encoded_stream(
+                        seconds=SHELL_SECONDS, subtype=sub):
+                    w.write_encoded(p, f)
+            w.close()
+
+        launched(f'the direct encoded entry point, {sub}', direct_write,
+                 expect, total)
+        same = out.read_bytes() == ref.read_bytes()
+        cmd_ms = wall_ms(lambda: ctl.default(line))
+        said(ctl)
+        direct_ms = wall_ms(direct_write)
+        print(f'[shell] bounce {sub} {SHELL_SECONDS:g} s: {out.stat().st_size} '
+              f'bytes, {"byte for byte" if same else "DIFFERENT FROM"} the '
+              f'direct entry point\'s file; command wall {cmd_ms:.2f} ms, '
+              f'direct {direct_ms:.2f} ms (fastest of 3 each; the shell\'s '
+              f'own cost {cmd_ms - direct_ms:+.2f} ms)  [{card}]')
+        assert same, sub
+    ctl.default('init')
+    return patch
+
+
+def shell_fit(card, total, patch):
+    """(b) ``fit`` of the cutoff centre's ``Fixed`` from 1400 Hz to a
+    target bounced at 2000 Hz, then ``undo`` / ``redo``."""
+    from signals_tpu_torch.map import Coordinates
+    ctl = shell([f'load {patch}'])
+    target = work_dir() / 'target.wav'
+    launched(f'bounce 9a {target.name} {FIT_SECONDS:g}',
+             lambda: ctl.default(f'bounce 9a {target} {FIT_SECONDS:g}'),
+             {'segments_gen': 1}, total)
+    said(ctl)
+    ctl.default(f'* 3a value=[[{FIT_FROM!r}]]')
+    node = ctl.map.find(Coordinates.parse('3a'))
+    before = np.array(node.get_state().value)
+    line = f'fit 9a {target} 3a.value --steps {SHELL_FIT_STEPS}'
+    _, wall = timed_ms(lambda: launched(
+        line, lambda: ctl.default(line),
+        {'segments_gen': SHELL_FIT_STEPS,
+         'segments_gen_vjp': SHELL_FIT_STEPS}, total))
+    out = said(ctl)
+    print(f'[shell] {out}')
+    m = FIT_LINE.search(out)
+    assert m, out
+    l0, l1, steps, shown = float(m[1]), float(m[2]), int(m[3]), float(m[4])
+    fitted = np.array(node.get_state().value)
+    ctl.default('undo')
+    undone = np.array(node.get_state().value)
+    ctl.default('redo')
+    redone = np.array(node.get_state().value)
+    exact = (np.array_equal(undone, before) and undone.dtype == before.dtype
+             and np.array_equal(redone, fitted))
+    # the same fit again from 1400 Hz: its compile, its loss's FFT plans
+    # and its first autograd pass are warm now
+    ctl.default('undo')
+    _, warm = timed_ms(lambda: launched(
+        f'{line} (again)', lambda: ctl.default(line),
+        {'segments_gen': SHELL_FIT_STEPS,
+         'segments_gen_vjp': SHELL_FIT_STEPS}, total))
+    again = FIT_LINE.search(said(ctl))
+    assert again and float(again[4]) == shown, again
+    print(f'[shell] fit {steps} steps over {FIT_SECONDS:g} s: loss {l0!r} -> '
+          f'{l1!r}, cutoff centre {FIT_FROM:g} -> {float(fitted.ravel()[0])!r}'
+          f' Hz (target {FIT_TO:g}); undo gives back {FIT_FROM:g} '
+          f'{"exactly" if exact else "NOT EXACTLY"}, redo the fitted value; '
+          f'command wall {wall:.1f} ms = {wall / steps:.2f} ms a step '
+          f'(compile and target read included), the same fit again '
+          f'{warm:.1f} ms = {warm / steps:.2f} ms a step  [{card}]')
+    assert steps == SHELL_FIT_STEPS and l1 < l0 and exact
+    assert abs(float(fitted.ravel()[0]) - FIT_TO) < abs(FIT_FROM - FIT_TO)
+    assert abs(shown - float(fitted.ravel()[0])) <= 1e-5 * shown
+
+
+def shell_play(card, total):
+    """(c) ``play`` / ``stats`` / ``stop`` of the static voice on the
+    realtime ``null`` sink: the Transport renders 8-block batches into the
+    native ring, the paced consumer drains it."""
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.map import Coordinates
+    from signals_tpu_torch.runtime.ring import native_available
+    import torch
+    assert native_available(), 'the native ring does not build'
+    ctl = shell(static_voice_sigs())
+    sink = ctl.map.find(Coordinates.parse('9a'))
+    assert sink.realtime and sink.get_state().channels == STATIC_CH
+    K.reset_launch_counts()
+    ctl.default('play 9a')
+    time.sleep(PLAY_SECONDS)
+    ctl.default('stats')
+    stats = said(ctl)
+    tr = sink._transport
+    ctl.default('stop 9a')
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    batches = tr.stats.total_blocks // AHEAD
+    want = {k: (batches + 1 if k == 'batch' else 0) for k in counts}
+    print(f'[launches] play 9a, {PLAY_SECONDS:g} s: {counts}')
+    print(f'[shell] stats: {stats}')
+    m = STATS_LINE.search(stats)
+    assert m, stats
+    blocks, underruns = int(m[1]), int(m[5])
+    print(f'[shell] play {PLAY_SECONDS:g} s of the {STATIC_CH}-channel '
+          f'static voice on the null sink: {blocks} blocks by stats, '
+          f'{batches} batches rendered (one K3 launch each, one more for the '
+          f'warmup), underruns {underruns}, p50 {m[2]} ms / p95 {m[3]} ms a '
+          f'block  [{card}]')
+    assert counts == want, (counts, want)
+    assert blocks > 0 and underruns == 0
+    total.update(counts)
+    ctl.default('init')
+    assert not sink.is_open
+
+
+def shell_save_load(card, total, patch):
+    """(d) ``save`` / ``load`` keeps the hash; the reference fixture loads
+    and bounces."""
+    ctl = shell([f'load {patch}'])
+    saved = work_dir() / 'saved.sigs'
+    ctl.default(f'save {saved}')
+    again = shell([f'load {saved}'])
+    same = again.hash() == ctl.hash()
+    print(f'[shell] save / load {saved.name}: hash {ctl.hash()[:16]} '
+          f'{"unchanged" if same else "CHANGED"}')
+    assert same and list(again.dump()) == list(ctl.dump())
+    import pathlib
+    fixture = (pathlib.Path(__file__).resolve().parent / 'tests' / 'fixtures'
+               / 'lowpass_test.sigs')
+    if not fixture.is_file():
+        raise FileNotFoundError(fixture)
+    ref = shell([f'load {fixture}'])
+    out = work_dir() / 'fixture.wav'
+    # one lane of a static LowPass: the segment gate sends its window to
+    # the batched replay
+    launched(f'fixture lowpass_test.sigs, bounce 7a {FIXTURE_SECONDS:g}',
+             lambda: ref.default(f'bounce 7a {out} {FIXTURE_SECONDS:g}'),
+             {'batch': 1}, total)
+    from signals_tpu_torch.runtime.wavio import read_wav
+    audio, rate = read_wav(out)
+    print(f'[shell] {said(ref)}; peak {float(np.abs(audio).max())!r}')
+    assert rate == RATE and np.isfinite(audio).all()
+    assert np.abs(audio).max() > 1e-3
+    for c in (ctl, again, ref):
+        c.default('init')
+
+
+def shell_repl(card, total, patch):
+    """(e) ``python -m signals_tpu_torch`` fed a command script on stdin."""
+    import os
+    import pathlib
+    root = pathlib.Path(__file__).resolve().parent
+    out = work_dir() / 'repl.wav'
+    if out.exists():
+        out.unlink()
+    script = '\n'.join([f'load {patch}', 'hash',
+                        f'bounce 9a {out} {REPL_SECONDS:g}', 'exit']) + '\n'
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, '-m', 'signals_tpu_torch'],
+                          input=script, capture_output=True, text=True,
+                          timeout=300, cwd=root, env=env)
+    wall = time.perf_counter() - t0
+    lines = [ln.replace('signals: ', '') for ln in proc.stdout.splitlines()]
+    print(f'[shell] python -m signals_tpu_torch: rc {proc.returncode} in '
+          f'{wall:.1f} s; said {[ln for ln in lines if ln.strip()]}')
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert 'Unexpected error' not in proc.stdout, proc.stdout[-2000:]
+    from signals_tpu_torch.runtime.wavio import read_wav
+    audio, rate = read_wav(out)
+    n = int(round(REPL_SECONDS * RATE / F)) * F
+    assert audio.shape == (n, 1) and rate == RATE, audio.shape
+    assert np.isfinite(audio).all() and np.abs(audio).max() > 1e-3
+
+
+def shell_entry(card, total):
+    """(f) ``entry()``: two consecutive blocks of the 64-voice mix, the
+    carry threaded, against the port's numpy pull oracle of the same voice
+    at its 64 pitches."""
+    from signals_tpu_torch import entry as E
+    from signals_tpu_torch.core import BlockLoc, Request, Shape
+    fwd, (params, carry, pos) = E.entry()
+    blocks = []
+    for i in range(2):
+        mix, carry = launched(f'entry forward, block {i}',
+                              lambda: fwd(params, carry, pos + i * F),
+                              {'segments_gen': 1}, total)
+        assert mix.device.type == 'cuda'
+        blocks.append(mix.cpu().numpy())
+    got = np.concatenate(blocks)
+    root, hz = E.subtractive_voice()
+    hz.get_state().value = (110.0 * 2 ** (np.arange(V) % 12 / 12.0)).astype(
+        np.float32).reshape(1, V)
+    want = np.concatenate([np.broadcast_to(root.respond(Request(
+        requestor=None, port='oracle', loc=BlockLoc(
+            position=i * F, rate=RATE, shape=Shape(F, V)))), (F, V))
+        for i in range(2)]).sum(axis=1, keepdims=True)
+    err = float(np.abs(got - want).max())
+    wall, dev_ms, events = profiled(lambda: fwd(params, carry, 2 * F))
+    print(f'[shell] entry(): 2 blocks of the 64-voice mix {got.shape}, vs '
+          f'oracle max abs {err!r} (tol {V * TOL:g}, peak '
+          f'{float(np.abs(want).max())!r}); a block: wall {wall:.3f} ms, '
+          f'device {dev_ms:.4f} ms in {events} kernels and copies  [{card}]')
+    assert np.isfinite(got).all() and err <= V * TOL, err
+
+
+def phase_shell():
+    """The command layer through the port's ``Controller``, the REPL
+    process and ``entry()``.  Returns, per kernel, ``(launches, what
+    launched it)``."""
+    card = card_line()
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    patch = shell_bounce(card, total)
+    print(f'[shell] phase 11 (a) bounce: {time.perf_counter() - t0:.1f} s')
+    for part, run in (('(b) fit', lambda: shell_fit(card, total, patch)),
+                      ('(c) play', lambda: shell_play(card, total)),
+                      ('(d) save / load', lambda: shell_save_load(
+                          card, total, patch)),
+                      ('(e) REPL', lambda: shell_repl(card, total, patch)),
+                      ('(f) entry', lambda: shell_entry(card, total))):
+        t0 = time.perf_counter()
+        run()
+        print(f'[shell] phase 11 {part}: {time.perf_counter() - t0:.1f} s')
+    print(f'[shell] phase 11: {time.perf_counter() - t_phase:.1f} s')
+    how = {'segments_gen': 'the bounces, the fit and entry()',
+           'segments_gen_vjp': 'the fit', 'ima': 'the adpcm bounce',
+           'batch': 'play on the null sink, one a batch, and the fixture'}
+    return {name: (n, f'command layer: {how[name]}')
+            for name, n in total.items() if n}
+
+
 def match_stream(raw, want, block):
     """Whether a paced consumer's output ``raw`` (frames, ch) is ``want``
     in order with zero-filled underruns: each ``block``-frame block of
@@ -3849,6 +4264,7 @@ def main() -> int:
     phases.append(phase_sequencing())
     out_launches, kern['ima'] = phase_output()
     phases.append(out_launches)
+    phases.append(phase_shell())
     for found in phases + [fit_launches]:
         for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths

@@ -23,6 +23,9 @@ it.  The renderer itself calls no matrix product.
 from __future__ import annotations
 
 import enum
+import functools
+import json
+import pathlib
 import typing
 
 import numpy as np
@@ -75,3 +78,76 @@ class SignalFlags(enum.Flag):
     PASSTHRU = enum.auto()
     #: Never alters its input; produces a side effect when enabled.
     SIDE_EFFECT = VIS | RECORDER | PASSTHRU
+
+
+class _Env:
+    """Filesystem anchors (reference ``src/signals/__init__.py:68-83``)."""
+
+    @property
+    def package_root(self) -> pathlib.Path:
+        return pathlib.Path(__file__).parent
+
+    @property
+    def project_root(self) -> pathlib.Path:
+        return self.package_root.parent
+
+
+env = _Env()
+
+
+class Config:
+    """Per-project JSON configuration (reference ``__init__.py:86-101``):
+    the theme name plus the engine defaults a patch is rendered with (block
+    size and sample rate).  The same file format as the JAX package's."""
+
+    def __init__(self,
+                 *,
+                 theme_: str = 'GREEN',
+                 block_frames: int = 1024,
+                 samplerate: int = 44100):
+        self.theme_ = theme_
+        self.block_frames = int(block_frames)
+        self.samplerate = int(samplerate)
+
+    @property
+    def theme(self):
+        import signals_tpu_torch.ui.theme
+        return getattr(signals_tpu_torch.ui.theme, self.theme_)
+
+    def asdict(self) -> dict:
+        return {'theme_': self.theme_,
+                'block_frames': self.block_frames,
+                'samplerate': self.samplerate}
+
+    @classmethod
+    def load(cls, path: pathlib.Path) -> 'Config':
+        with pathlib.Path(path).open('r') as f:
+            return cls(**json.load(f))
+
+    def save(self, path: pathlib.Path) -> None:
+        with pathlib.Path(path).open('w') as f:
+            json.dump(self.asdict(), f, indent=2)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Config) and self.asdict() == other.asdict()
+
+
+class Project:
+    """A project is a directory with a ``config.json``
+    (reference ``__init__.py:104-118``); the default project is the
+    repository's ``templates/default``, which both packages read."""
+
+    def __init__(self, *, path: pathlib.Path):
+        self.path = pathlib.Path(path)
+
+    @property
+    def name(self) -> str:
+        return self.path.stem
+
+    @functools.cached_property
+    def config(self) -> Config:
+        return Config.load(self.path / 'config.json')
+
+    @classmethod
+    def default(cls) -> 'Project':
+        return cls(path=env.project_root / 'templates' / 'default')

@@ -40,7 +40,7 @@ def _next_pow2(n: int) -> int:
     return 1 << max(int(n - 1).bit_length(), 0)
 
 
-@register('signals_tpu.nodes.conv.Convolve')
+@register()
 class Convolve(Effect):
     """Convolve the input with an impulse response.
 

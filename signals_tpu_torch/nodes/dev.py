@@ -106,7 +106,7 @@ class Device:
         return n_blocks
 
 
-@register('signals.chain.dev.SinkDevice', 'signals_tpu.nodes.dev.SinkDevice')
+@register('signals.chain.dev.SinkDevice')
 class SinkDevice(Device, Receiver, ExplicitChannels):
     """Playback endpoint and transport owner.
 
@@ -354,8 +354,7 @@ class SinkDevice(Device, Receiver, ExplicitChannels):
         return np.broadcast_to(block, tuple(loc.shape)).astype(F32)
 
 
-@register('signals.chain.dev.SourceDevice',
-          'signals_tpu.nodes.dev.SourceDevice')
+@register('signals.chain.dev.SourceDevice')
 class SourceDevice(Device, Emitter):
     """Capture endpoint.  A host source for the compiler: captured blocks
     enter the compiled program as staged inputs (reference

@@ -110,7 +110,7 @@ class Drive(Effect):
         return tanh_exact(xp, x * d) / tanh_exact(xp, d)
 
 
-@register('signals_tpu.nodes.fx.Pan')
+@register()
 class Pan(Effect):
     """Equal-power stereo panner: mono in, two channels out.  ``position``
     (block rate) in [-1, 1], left to right; a wider input is averaged to
@@ -811,7 +811,7 @@ class GainlessParametricFilter(ParametricFilter, abc.ABC):
                 ctx.in_block_rate_grid('q'))
 
 
-@register('signals_tpu.nodes.fx.Peak')
+@register()
 class Peak(GainParametricFilter):
     """Peaking (bell) EQ: boost/cut of ``gain`` dB around ``freq``,
     bandwidth set by ``q``; unity far from the center."""
@@ -820,7 +820,7 @@ class Peak(GainParametricFilter):
         return _filters.PEAK
 
 
-@register('signals_tpu.nodes.fx.LowShelf')
+@register()
 class LowShelf(GainParametricFilter):
     """Low shelf: ``gain`` dB below the corner, unity above."""
 
@@ -828,7 +828,7 @@ class LowShelf(GainParametricFilter):
         return _filters.LOWSHELF
 
 
-@register('signals_tpu.nodes.fx.HighShelf')
+@register()
 class HighShelf(GainParametricFilter):
     """High shelf: ``gain`` dB above the corner, unity below."""
 
@@ -836,7 +836,7 @@ class HighShelf(GainParametricFilter):
         return _filters.HIGHSHELF
 
 
-@register('signals_tpu.nodes.fx.Notch')
+@register()
 class Notch(GainlessParametricFilter):
     """Notch: kills a narrow band around ``freq``, unity elsewhere."""
 
@@ -844,7 +844,7 @@ class Notch(GainlessParametricFilter):
         return _filters.NOTCH
 
 
-@register('signals_tpu.nodes.fx.Allpass')
+@register()
 class Allpass(GainlessParametricFilter):
     """Second-order allpass: unit magnitude everywhere, phase rotation
     around ``freq``."""
@@ -853,7 +853,7 @@ class Allpass(GainlessParametricFilter):
         return _filters.ALLPASS
 
 
-@register('signals_tpu.nodes.fx.Quantize')
+@register()
 class Quantize(Effect):
     """Pitch quantizer: snap a control signal in Hz to the nearest tone of
     an equal-temperament scale (semitone pitch classes in ``scale``,

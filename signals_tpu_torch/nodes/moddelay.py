@@ -31,7 +31,7 @@ from signals_tpu_torch.registry import register
 F32 = np.float32
 
 
-@register('signals_tpu.nodes.moddelay.FracDelay')
+@register()
 class FracDelay(BlockCachingEmitter, ImplicitChannels, Receiver):
     """Linearly interpolated moving delay read.
 

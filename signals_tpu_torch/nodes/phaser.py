@@ -35,7 +35,7 @@ from signals_tpu_torch.registry import register
 F32 = np.float32
 
 
-@register('signals_tpu.nodes.phaser.Phaser')
+@register()
 class Phaser(StatefulEmitter, ImplicitChannels, Receiver):
     """Swept first-order allpass chain with dry mix.
 

@@ -134,7 +134,7 @@ class _SeqBase(BlockCachingEmitter):
                                     dtype=np.float32)
 
 
-@register('signals_tpu.nodes.seq.GateSeq')
+@register()
 class GateSeq(_SeqBase):
     """1 while any event is active, else 0."""
 
@@ -151,7 +151,7 @@ class GateSeq(_SeqBase):
         return xp.max(active.astype(F32), axis=2)
 
 
-@register('signals_tpu.nodes.seq.PitchSeq')
+@register()
 class PitchSeq(_SeqBase):
     """Sample-and-hold value track: the most recently started event's value,
     held through and after the event (the usual mono-synth pitch behavior).

@@ -42,7 +42,7 @@ class Scalar(Shaper, abc.ABC):
         return 1
 
 
-@register('signals.chain.shape.Flatten', 'signals_tpu.nodes.shape.Flatten')
+@register('signals.chain.shape.Flatten')
 class Flatten(Scalar):
     """Sum all channels into one."""
 
@@ -50,8 +50,7 @@ class Flatten(Scalar):
         return ctx.xp.sum(ctx.in_full('input'), axis=1, keepdims=True)
 
 
-@register('signals.chain.shape.FlattenUnit',
-          'signals_tpu.nodes.shape.FlattenUnit')
+@register('signals.chain.shape.FlattenUnit')
 class FlattenUnit(Scalar):
     """Mean of all channels."""
 
@@ -59,7 +58,7 @@ class FlattenUnit(Scalar):
         return ctx.xp.mean(ctx.in_full('input'), axis=1, keepdims=True)
 
 
-@register('signals.chain.shape.Select', 'signals_tpu.nodes.shape.Select')
+@register('signals.chain.shape.Select')
 class Select(Scalar):
     """Pick one channel by index; silence when the index is out of range
     (reference ``shape.py:44-57``, kept 2-D)."""
@@ -75,7 +74,7 @@ class Select(Scalar):
         return ctx.in_full('input')[:, idx:idx + 1]
 
 
-@register('signals.chain.shape.Merge', 'signals_tpu.nodes.shape.Merge')
+@register('signals.chain.shape.Merge')
 class Merge(Shaper):
     """Concatenate the channels of both inputs (reference
     ``shape.py:60-74``), each side broadcast to its full ``(frames,

@@ -37,7 +37,7 @@ def _default_table() -> np.ndarray:
     return np.sin(2 * np.pi * t).astype(np.float32).reshape(-1, 1)
 
 
-@register('signals_tpu.nodes.wavetable.Wavetable')
+@register()
 class Wavetable(BlockCachingEmitter, ImplicitChannels):
     """Single-cycle wavetable oscillator with linear interpolation.
 

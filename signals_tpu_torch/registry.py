@@ -5,7 +5,12 @@ library search and ``load_signal(qualname)`` resolution.  For ``.sigs``
 patch-file compatibility every node registers the reference's qualified name
 (``signals.chain.osc.Sine`` …) as an alias — the same aliases the JAX
 package registers, so a patch resolves to the counterpart class in either
-package.
+package.  Every node module of the port is also reachable under the JAX
+package's module path (``signals_tpu.nodes.osc.Sine``): those are the names
+the JAX package's REPL writes, and the names this package writes into a
+``.sigs`` file and lists in its library (:func:`patch_name`), so a patch file
+reads the same in both packages.  Resolving a name never imports the JAX
+package or JAX itself.
 """
 
 from __future__ import annotations
@@ -114,6 +119,15 @@ _NODE_MODULES = (
 
 _loaded = False
 
+#: this package's node modules, and the JAX package's path of the same
+#: modules (the names its REPL writes into a ``.sigs`` file)
+_PORT_NODES = 'signals_tpu_torch.nodes.'
+_PATCH_NODES = 'signals_tpu.nodes.'
+
+#: top-level packages a name is never imported from: the JAX package and
+#: its toolchain are not this package's dependencies
+_FOREIGN = frozenset(('signals_tpu', 'jax', 'jaxlib', 'optax'))
+
 
 def ensure_loaded() -> None:
     global _loaded
@@ -121,6 +135,21 @@ def ensure_loaded() -> None:
         _loaded = True
         for mod in _NODE_MODULES:
             importlib.import_module(mod)
+        for name, cls in list(registry._by_name.items()):
+            if name.startswith(_PORT_NODES):
+                registry._by_name.setdefault(
+                    _PATCH_NODES + name[len(_PORT_NODES):], cls)
+
+
+def patch_name(cls: type) -> str:
+    """The name ``cls`` has in a ``.sigs`` file and in the library: its
+    canonical name, with a node module of this package written under the
+    JAX package's path (``signals_tpu.nodes.osc.Sine``), which both
+    packages resolve."""
+    name = registry.canonical_name(cls)
+    if name.startswith(_PORT_NODES):
+        return _PATCH_NODES + name[len(_PORT_NODES):]
+    return name
 
 
 def register(*aliases: str):
@@ -135,10 +164,12 @@ def register(*aliases: str):
 def load_signal(name: str) -> type:
     """Resolve a dotted signal name to its class.
 
-    Registry first (covers all built-in nodes and reference-name aliases);
-    falls back to a real dotted import for user-supplied classes — keeping the
-    reference's ability to reference any importable Signal subclass
-    (``chain/discovery.py:129-140``).
+    Registry first (covers all built-in nodes, the reference-name aliases
+    and the JAX package's names of the same nodes); falls back to a real
+    dotted import for user-supplied classes — keeping the reference's
+    ability to reference any importable Signal subclass
+    (``chain/discovery.py:129-140``).  A name under the JAX package or JAX
+    that the registry does not hold is refused without importing anything.
     """
     import signals_tpu_torch.graph as graph
     ensure_loaded()
@@ -148,6 +179,9 @@ def load_signal(name: str) -> type:
         if '.' not in name:
             raise BadSyntax(name)
         module_name, _, cls_name = name.rpartition('.')
+        if module_name.split('.')[0] in _FOREIGN:
+            raise BadPath(name, 'not a node of this package, and '
+                          f'{module_name.split(".")[0]!r} is never imported')
         try:
             module = importlib.import_module(module_name)
         except ImportError as e:
@@ -178,7 +212,8 @@ class Library:
     def scan(self) -> None:
         import signals_tpu_torch.graph as graph
         ensure_loaded()
-        names = set(registry.names(include_aliases=False, devices=False))
+        names = {patch_name(registry.resolve(n)) for n in
+                 registry.names(include_aliases=False, devices=False)}
         for mod_name in self._extra_modules:
             module = importlib.import_module(mod_name)
             for k, v in vars(module).items():
@@ -186,7 +221,7 @@ class Library:
                         and getattr(v, '__module__', None) == module.__name__
                         and is_concrete_subclass(v, graph.Signal)
                         and not (v.flags() & SignalFlags.DEVICE)):
-                    names.add(qualname(v))
+                    names.add(patch_name(v))
         self.names = sorted(names)
 
     def grep(self, pattern: str) -> list[str]:

@@ -270,3 +270,144 @@ def test_registry_keeps_device_qualnames():
     lib = Library()
     lib.scan()
     assert not any('Device' in n for n in lib.names)   # devices hidden
+
+
+PROBE_JAX_NAMES = '''
+import json, sys
+from signals_tpu_torch.registry import BadPath, load_signal
+names = json.loads(sys.stdin.read())
+got = {}
+for name in names:
+    cls = load_signal(name)
+    got[name] = [cls.__module__, cls.__qualname__]
+refused = []
+for name in ('signals_tpu.nodes.osc.NoSuchNode', 'signals_tpu.map.Map',
+             'signals_tpu.compiler.compile_node', 'jax.numpy.sin',
+             'jaxlib.xla_client.Client', 'optax.adam'):
+    try:
+        load_signal(name)
+    except BadPath:
+        refused.append(name)
+bad = sorted(n for n in sys.modules
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu'))
+print(json.dumps({'got': got, 'refused': refused, 'bad': bad}))
+'''
+
+
+def test_registry_resolves_the_jax_package_names_without_importing_it():
+    """Every ``signals_tpu.nodes.*`` name of the JAX package's registry (the
+    names its REPL writes into a ``.sigs`` file) resolves to the port's
+    class of the same module and name, and another name under the JAX
+    package or JAX raises ``BadPath``; in a fresh process, neither the JAX
+    package nor JAX is imported by any of it."""
+    import json
+
+    from signals_tpu import registry as jax_registry
+    jax_registry.ensure_loaded()
+    names = [n for n in jax_registry.registry.names(include_aliases=True,
+                                                    devices=True)
+             if n.startswith('signals_tpu.nodes.')]
+    assert len(names) >= 44
+    proc = subprocess.run([sys.executable, '-c', PROBE_JAX_NAMES], cwd=REPO,
+                          input=json.dumps(names), capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout)
+    assert out['bad'] == []
+    assert len(out['refused']) == 6, out['refused']
+    for name in names:
+        cls = jax_registry.load_signal(name)
+        module, qual = out['got'][name]
+        assert module == cls.__module__.replace('signals_tpu.',
+                                                'signals_tpu_torch.', 1)
+        assert qual == cls.__qualname__
+
+
+COMMAND_MODULES = ('signals_tpu_torch.map', 'signals_tpu_torch.map.control',
+                   'signals_tpu_torch.layout', 'signals_tpu_torch.ui',
+                   'signals_tpu_torch.entry', 'signals_tpu_torch.__main__')
+
+PROBE_COMMANDS = '''
+import importlib, pkgutil, sys
+import signals_tpu_torch
+for m in %r:
+    importlib.import_module(m)
+import signals_tpu_torch.ui
+for m in pkgutil.walk_packages(signals_tpu_torch.ui.__path__,
+                               'signals_tpu_torch.ui.'):
+    importlib.import_module(m.name)
+assert len([n for n in sys.modules if n.startswith('signals_tpu_torch.ui.')]) == 8
+signals_tpu_torch.Project.default().config.theme
+from signals_tpu_torch.compiler import _build
+assert _build._lib is None
+bad = sorted(n for n in sys.modules
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu',
+                                    'matplotlib', 'tkinter', '_tkinter'))
+assert not bad, bad
+print('ok')
+''' % (COMMAND_MODULES,)
+
+
+def test_command_layer_modules_import_no_jax_matplotlib_or_tkinter():
+    """The map, the controller, the layout, the nine ``ui`` modules, the
+    REPL's ``__main__`` and ``entry`` import neither JAX, the JAX package,
+    matplotlib nor tkinter (the GUI, the plots and the vis rack import
+    them when they draw), and build no kernel."""
+    proc = subprocess.run([sys.executable, '-c', PROBE_COMMANDS], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+
+
+def test_copied_command_modules_never_mention_jax():
+    """The backend-neutral modules copied from the JAX package for the
+    command layer (the layout, the nine ``ui`` modules, ``__main__``) keep
+    no line that names ``jax``; those and the rewritten map, controller and
+    ``entry`` import neither JAX nor the JAX package."""
+    copied = ['layout/__init__.py', '__main__.py']
+    copied += [f'ui/{p.name}' for p in (REPO / 'signals_tpu_torch' /
+                                        'ui').glob('*.py')]
+    assert len(copied) == 11
+    for rel in copied + ['map/__init__.py', 'map/control.py', 'entry.py']:
+        text = (REPO / 'signals_tpu_torch' / rel).read_text()
+        if rel in copied:
+            assert 'jax' not in text.lower(), rel
+        assert 'import jax' not in text and 'from jax' not in text, rel
+        assert 'from signals_tpu.' not in text, rel
+        assert 'import signals_tpu.' not in text, rel
+        assert 'import signals_tpu\n' not in text, rel
+
+
+def test_command_layer_defaults_to_the_card():
+    """``Controller``, ``Map``, the REPL's ``main`` and ``entry`` ask for the
+    GPU unless told otherwise: where torch sees none, a sink added through
+    the controller or the map, and ``entry()``, raise instead of running on
+    the CPU."""
+    import inspect
+
+    import torch
+
+    from signals_tpu_torch import entry
+    from signals_tpu_torch.map import Coordinates, Map, MappedDevInfo
+    from signals_tpu_torch.map import control
+    from signals_tpu_torch.nodes.dev import Rack
+
+    for fn in (control.Controller, Map, control.main, entry.entry):
+        assert inspect.signature(fn).parameters['device'].default == 'cuda'
+    ctl = control.Controller(interactive=False)
+    assert ctl.device == 'cuda' and ctl.map.device == 'cuda'
+    rack = Rack()
+    rack.scan()
+    makes = (lambda: ctl.default('sink 1a default'),
+             lambda: Map().add(MappedDevInfo.for_sink(
+                 at=Coordinates.parse('1a'),
+                 device=rack.get_sink('default'))),
+             entry.entry)
+    for make in makes:
+        if torch.cuda.is_available():
+            make()
+        else:
+            with pytest.raises(RuntimeError, match='no CUDA GPU'):
+                make()
+    if not torch.cuda.is_available():
+        assert list(ctl.dump()) == []      # the failed sink left nothing
