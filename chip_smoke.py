@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Eleven phases; any failure raises and exits non-zero:
+Twelve phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
@@ -79,8 +79,10 @@ Eleven phases; any failure raises and exits non-zero:
    after, its plan, wall and device time printed, against the port's numpy
    pull oracle: (a) ``master_bus`` (``bench.py:256-278``: the swept mono
    voice -> FDN reverb -> RMS compressor -> gain), 2584 blocks on the
-   whole-window plan with one generator-kernel launch, 1e-5 over the first
-   32 blocks, 13 + 19 blocks against them within 1e-6; (b)
+   whole-window plan with one generator-kernel launch and one launch of the
+   reverb's network kernel (``csrc/fdn.cu``), 1e-5 over the first 32
+   blocks, the same bits, audio and carry, as the plain turn loop (timed
+   beside it), 13 + 19 blocks against them within 1e-6; (b)
    ``poly64_noise_mix`` (``bench.py:168-188``: one white-noise channel ->
    64 LowPass 1000-4000 Hz -> gain), 2584 blocks on the mix plan with one
    timeline-kernel launch, 64 x 1e-5 over 32 blocks; (c) ``sine``
@@ -129,14 +131,17 @@ Eleven phases; any failure raises and exits non-zero:
    (a) the offline bounce of a 60 s stereo pcm16 WAV made from a seed
    (``FileReader`` -> LowShelf 120 Hz +3 dB -> Peak 1 kHz -4 dB Q 1.4 ->
    Notch 60 Hz Q 4 -> HighShelf 8 kHz +2 dB -> ``FileWriter`` pcm16), 2584
-   blocks on the per-block plan (``{K4: 10 a block}``): 32 blocks from 0
-   and 32 from block 3 within 1e-5 of the oracle with the design in
-   float64 (:func:`exact_design`; the error against the oracle's
-   float32 b/a coefficients printed beside it), the written file valid
-   while open and byte for byte the returned audio under the pcm16
-   encoder, its wall time and, over 256 profiled blocks, its device time
-   and busy share; (b) the same patch under the ``Transport`` in 8-block
-   batches: four against the oracle, then the p50 per block of 20; (c) a
+   blocks on the ``'stateless'`` plan (the one-block step vmapped over the
+   blocks, ``{K4: 10}`` a batch): 32 blocks from 0 and 32 from block 3
+   within 1e-5 of the oracle with the design in float64
+   (:func:`exact_design`; the error against the oracle's float32 b/a
+   coefficients printed beside it), the written file valid while open and
+   byte for byte the returned audio under the pcm16 encoder, its wall time
+   and, over 256 profiled blocks, its device time and busy share; the same
+   256 blocks as a loop of ``step`` (``{K4: 10}`` a block), within 1e-6,
+   with their walls side by side; (b) the same patch under the
+   ``Transport`` in 8-block batches (``{K4: 10}`` a batch): four against
+   the oracle, then the p50 per block of 20; (c) a
    48 kHz file with ``conform_rate`` -> streaming LowPass -> swept LowPass
    (fault C1) -> ``Pan`` -> ``FileWriter`` float32 (``{sosfilt_stream: 1,
    K2: 1}`` a block): 32 blocks from 0 and 16 from block 3 continuing the
@@ -231,6 +236,22 @@ Eleven phases; any failure raises and exits non-zero:
    device time.  ``plot`` is not run here: the machine with the card has
    no matplotlib; the CPU tests (``tests/test_torch_ui.py``,
    ``tests/test_torch_shell.py``) cover it.
+
+12. **The reverb under autograd and vmap** (``[reverb]`` lines): (a) each
+   FDN kernel against its plain version on the card -- ``fdn_advance`` at
+   the master bus's shape (one lane, 60 s) and at 64 lanes with per-lane
+   decay times (60 s), bit for bit; ``fdn_advance_vjp`` at one lane, 60 s,
+   and 64 lanes over 256 blocks, within 1e-5 of each output's largest
+   value and the same bits twice -- each with its device time beside its
+   bound and the plain version's; ``learn.fit`` of the 60 s master bus
+   with the voice's output gain, its cutoff centre and the reverb's
+   ``t60`` and ``mix`` trainable against a target rendered at other
+   values: the four gradients within 1e-4 relative of the plain kernels',
+   8 steps (``{K1, fdn, B1, fdn_vjp: 1}`` a step), the loss falling, ms a
+   step and peak memory; (b) the flagship's 64 voices, each into its own
+   ``Reverb``, 60 s, in the vmap layout (one 64-lane ``fdn`` launch, the
+   voices folded) and the channels layout, within 64 x 1e-5 of each
+   other, with their peak memory.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -1185,10 +1206,53 @@ def plain_kernels():
     for n in names:
         setattr(K, n, getattr(K, f'{n}_plain'))
     try:
-        yield
+        with plain_fdn():
+            yield
     finally:
         for n, fn in saved.items():
             setattr(K, n, fn)
+
+
+def plain_fdn_entry():
+    """``fdn_advance`` on its plain versions: the turn loop forward and the
+    plain adjoint as its backward (an ``autograd.Function``, as the kernel
+    entry is, so that a fit runs on it too)."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+
+    class PlainFdn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, lines, inject, g, lengths):
+            tl = K.fdn_advance_plain(lines, inject, g, lengths)
+            ctx.save_for_backward(tl, g)
+            ctx.lengths, ctx.L = lengths, lines.shape[0]
+            return tl
+
+        @staticmethod
+        def backward(ctx, gtl):
+            tl, g = ctx.saved_tensors
+            return (*K.fdn_advance_vjp_plain(tl, g, gtl, ctx.lengths, ctx.L),
+                    None)
+
+    def entry(lines, inject, g, lengths):
+        lengths = tuple(int(d) for d in lengths)
+        return PlainFdn.apply(*K._check_fdn(lines, inject, g, lengths),
+                              lengths)
+
+    return entry
+
+
+@contextlib.contextmanager
+def plain_fdn():
+    """Within this block the reverb's network runs its plain versions (the
+    reverb looks ``fdn_advance`` up at call time)."""
+    from signals_tpu_torch.compiler import kernels as K
+    saved = K.fdn_advance
+    K.fdn_advance = plain_fdn_entry()
+    try:
+        yield
+    finally:
+        K.fdn_advance = saved
 
 
 @contextlib.contextmanager
@@ -1569,7 +1633,7 @@ def phase_checks():
         node.get_state().value = values.reshape(1, V)
         return pull_oracle(root, n_blocks, V).sum(axis=1, keepdims=True)
 
-    # (a) master_bus: K1 at one lane under the reverb's carried state
+    # (a) master_bus: K1 at one lane, the reverb's network in one launch
     bus = compile_node(build_master_bus(), block_frames=F, rate=RATE,
                        channels=1, device='cuda')
     assert bus.plan(n60) == 'mega', bus.plan(n60)
@@ -1579,18 +1643,28 @@ def phase_checks():
     want = pull_oracle(build_master_bus(), ORACLE_BLOCKS, 1)
     print(f'[checks] master_bus oracle, {ORACLE_BLOCKS} blocks: '
           f'{time.perf_counter() - t0:.1f} s')
-    whole, _ = launched(f'master_bus, {n60} blocks, plan mega',
-                        lambda: bus.render(n_blocks=n60),
-                        {'segments_gen': 1}, total)
+    bus_launches = {'segments_gen': 1, 'fdn': 1}
+    whole, wcarry = launched(f'master_bus, {n60} blocks, plan mega',
+                             lambda: bus.render(n_blocks=n60), bus_launches,
+                             total)
     within(f'master_bus, {n60} blocks, first {ORACLE_BLOCKS}',
            whole[:ORACLE_BLOCKS * F].cpu().numpy(), want, TOL)
+    with plain_fdn():
+        p_whole, p_carry = bus.render(n_blocks=n60)
+    same = torch.equal(whole, p_whole) and all(
+        torch.equal(wcarry[u][k], p_carry[u][k]) for u in wcarry
+        for k in wcarry[u])
+    print(f'[checks] master_bus, {n60} blocks: the network kernel vs the '
+          f'plain turn loop, audio and carry the same bits: {same} (audio '
+          f'max abs {float((whole - p_whole).abs().max())!r})')
+    assert same
+    del p_whole, p_carry
     a, carry = launched('master_bus, 13 blocks',
-                        lambda: bus.render(n_blocks=13),
-                        {'segments_gen': 1}, total)
+                        lambda: bus.render(n_blocks=13), bus_launches, total)
     b, _ = launched('master_bus, 19 blocks from block 13 with the carry',
                     lambda: bus.render(position=13 * F, n_blocks=19,
                                        carry=carry),
-                    {'segments_gen': 1}, total)
+                    bus_launches, total)
     diff = float((torch.cat([a, b]) - whole[:32 * F]).abs().max())
     print(f'[checks] master_bus, 13 + 19 blocks vs the first 32 of {n60}: '
           f'max abs {diff!r} (tol 1e-6)')
@@ -1598,6 +1672,9 @@ def phase_checks():
     del whole
     timed(f'master_bus, {n60} blocks, plan mega',
           lambda: bus.render(n_blocks=n60))
+    with plain_fdn():
+        timed(f'master_bus, {n60} blocks, plan mega, the plain turn loop',
+              lambda: bus.render(n_blocks=n60))
 
     # (b) poly64_noise_mix: K2 with the in-kernel sum, one noise channel
     noise = poly(build_noise_voice, NOISE_CUTS)
@@ -1694,7 +1771,8 @@ def phase_checks():
     return {'segments_gen': (total['segments_gen'], 'master_bus (whole, 13 '
                              '+ 19), poly64_static_mix'),
             'segments': (total['segments'], 'poly64_noise_mix, 64 lanes on '
-                         'one noise channel')}
+                         'one noise channel'),
+            'fdn': (total['fdn'], 'master_bus (whole, 13 + 19)')}
 
 
 # --- phase 7: differentiable fitting ------------------------------------------
@@ -2724,12 +2802,12 @@ def phase_files(results):
     out = d / 'bounce.wav'
     bounce = compile_node(build_bounce(src, out), block_frames=F, rate=RATE,
                           channels=2, device='cuda')
-    assert bounce.plan(n60) == 'blocks', bounce.plan(n60)
+    assert bounce.plan(n60) == 'stateless', bounce.plan(n60)
     print(f'[files] bounce: {len(bounce._host_spec)} staged windows '
-          f'{[k for *_, k in bounce._host_spec]}, plan blocks')
+          f'{[k for *_, k in bounce._host_spec]}, plan stateless')
     t0 = time.perf_counter()
-    got = launched(f'bounce, {n60} blocks', lambda: bounce.render(
-        n_blocks=n60)[0].cpu().numpy(), {'timeline': BOUNCE_TIMELINE * n60},
+    got = launched(f'bounce, {n60} blocks, one batch', lambda: bounce.render(
+        n_blocks=n60)[0].cpu().numpy(), {'timeline': BOUNCE_TIMELINE},
         total)
     first = time.perf_counter() - t0
     reader = sndfile.open_reader(out)              # the writer is still open
@@ -2783,18 +2861,47 @@ def phase_files(results):
     part = launched(f'bounce, {ORACLE_BLOCKS} blocks from block 3',
                     lambda: bounce.render(position=3 * F,
                                           n_blocks=ORACLE_BLOCKS)[0],
-                    {'timeline': BOUNCE_TIMELINE * ORACLE_BLOCKS}, total)
+                    {'timeline': BOUNCE_TIMELINE}, total)
     within(f'bounce, {ORACLE_BLOCKS} blocks from block 3',
            part.cpu().numpy(), want3, TOL)
-    del got, part
-    timed(f'bounce, {N_BLOCKS} blocks (profiled)',
+    del part
+    timed(f'bounce, {N_BLOCKS} blocks (profiled), plan stateless',
           lambda: bounce.render(n_blocks=N_BLOCKS)[0].cpu(), N_BLOCKS)
+    # the per-block path over the same blocks: a loop of step, one block
+    # each (its own 10 launches a block)
+    params = bounce.params()
+    host = bounce.host_inputs(0, N_BLOCKS)
+
+    def steps():
+        return torch.cat([bounce.step(params, {}, i * F,
+                                      bounce._host_slice(host, i))[0]
+                          for i in range(N_BLOCKS)])
+
+    stepped = launched(f'bounce, {N_BLOCKS} steps', steps,
+                       {'timeline': BOUNCE_TIMELINE * N_BLOCKS}, total)
+    diff = float(np.abs(stepped.cpu().numpy() - got[:N_BLOCKS * F]).max())
+    print(f'[files] bounce, first {N_BLOCKS} blocks: the stateless batch vs '
+          f'{N_BLOCKS} steps max abs {diff!r} (the same bits: '
+          f'{diff == 0.0})')
+    assert diff <= 1e-6, diff
+    del got, stepped
+    timed(f'bounce, {N_BLOCKS} steps (profiled), the per-block path',
+          lambda: steps().cpu(), N_BLOCKS)
+    for name, fn in ((f'{N_BLOCKS} steps', lambda: steps().cpu()),
+                     (f'{N_BLOCKS} blocks, plan stateless',
+                      lambda: bounce.render(n_blocks=N_BLOCKS,
+                                            deliver_taps=False)[0].cpu())):
+        wall = wall_ms(fn, reps=2)
+        print(f'[files] bounce, {name}: wall {wall:.1f} ms = '
+              f'{N_BLOCKS * F / RATE / (wall / 1e3):.2f}x realtime '
+              f'(host clock, best of 2, the copy off the card included, no '
+              f'file written)  [{card}]')
 
     # (b) the same patch under the Transport in 8-block batches
     tr = Transport(bounce, consumer=None, blocks_per_call=AHEAD)
     batches = [launched(f'bounce Transport batch at block {i * AHEAD}',
                         lambda: tr.render(AHEAD),
-                        {'timeline': BOUNCE_TIMELINE * AHEAD}, total)
+                        {'timeline': BOUNCE_TIMELINE}, total)
                for i in range(ORACLE_BLOCKS // AHEAD)]
     within(f'bounce, {ORACLE_BLOCKS // AHEAD} Transport batches',
            np.concatenate(batches), want, TOL)
@@ -2860,8 +2967,9 @@ def phase_files(results):
     # (e) the kernels on RBJ coefficients against their plain versions
     rbj_kernels(np.random.default_rng(TRACK_SEED), card, results)
     print(f'[files] phase 8: {time.perf_counter() - t_phase:.1f} s')
-    return {'timeline': (total['timeline'], 'file bounce: 10 a block '
-                         '(whole, from block 3, Transport batches)'),
+    return {'timeline': (total['timeline'], 'file bounce: 10 a stateless '
+                         'batch (whole, from block 3, Transport batches), '
+                         '10 a block of its 256 steps'),
             'stream': (total['stream'], 'swept chain after a 48 kHz file'),
             'segments': (total['segments'], 'swept chain after a 48 kHz '
                          'file (fault C1)'),
@@ -4198,6 +4306,263 @@ def phase_shell():
             for name, n in total.items() if n}
 
 
+# --- phase 12: the reverb under autograd and vmap -----------------------------
+
+#: f32 operations a frame-lane: fdn_advance's 8 r*g, 8 h*fed, 7 x 8 mix sums
+#: and 8 inject sums; fdn_advance_vjp's 8 g*Hu, 8 cotangent sums, 7 for the
+#: inject cotangent, 24 for the Walsh-Hadamard transform, 8 h*, 16 for the
+#: g sums
+FDN_FLOP = 80
+FDN_VJP_FLOP = 71
+FDN_VOICE_T60 = (0.5, 4.0)     # (b)'s per-voice decay times, linspace
+
+
+def fdn_lengths():
+    from signals_tpu_torch.nodes.reverb import Reverb
+    return tuple(Reverb()._lengths(RATE, F))
+
+
+def fdn_gains(t60s):
+    """``(8, lanes)`` float32 feedback gains of decay times ``t60s`` (the
+    Schroeder relation of ``Reverb._gains``)."""
+    lens = np.array(fdn_lengths(), np.float32)[:, None]
+    t60s = np.asarray(t60s, np.float32)[None, :]
+    return np.exp(lens * (np.float32(-3.0 * np.log(10.0))
+                          / (t60s * np.float32(RATE)))).astype(np.float32)
+
+
+def fdn_inputs(lanes, T, seed):
+    """Seeded ``(lines, inject, g)`` on the card: carried lines and an
+    input at a reverb's levels, per-lane decay times."""
+    import torch
+    rng = np.random.default_rng(seed)
+    L = max(fdn_lengths())
+    t60s = (np.full(1, 2.0) if lanes == 1
+            else np.linspace(*FDN_VOICE_T60, lanes))
+    arrays = (0.05 * rng.standard_normal((L, 8, lanes)),
+              0.02 * rng.standard_normal((T, lanes)), fdn_gains(t60s))
+    return [torch.tensor(np.asarray(a, np.float32), device='cuda')
+            for a in arrays]
+
+
+def fdn_kernels(card):
+    """Each FDN kernel against its plain version on the card: the forward
+    at the master bus's shape (one lane, 60 s) and at (b)'s (64 lanes,
+    per-lane gains, 60 s), bit for bit, the audio rows and the carry rows;
+    the adjoint at the fit's shape (one lane, 60 s) and at 64 lanes over
+    256 blocks, within 1e-5 of each output's largest value and the same
+    bits twice; each kernel's device time beside its bound and the plain
+    version's time.  Returns ``{'fdn': {...}, 'fdn_vjp': {...}}`` at the
+    master bus's shape, the 64-lane numbers under ``lanes64_*``."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    n60 = n_blocks_60s()
+    lengths = fdn_lengths()
+    L = max(lengths)
+    out = {}
+    for lanes, T, key in ((1, n60 * F, ''), (V, n60 * F, 'lanes64_')):
+        lines, inject, g = fdn_inputs(lanes, T, 11 + lanes)
+        K.reset_launch_counts()
+        tl = K.fdn_advance(lines, inject, g, lengths)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES['fdn'] == 1
+        tl_p = K.fdn_advance_plain(lines, inject, g, lengths)
+        err = float((tl - tl_p).abs().max())
+        same = torch.equal(tl, tl_p)
+        del tl_p
+        again = K.fdn_advance(lines, inject, g, lengths)
+        twice = torch.equal(tl, again)
+        del tl, again
+        ms, how = kernel_device_ms(
+            lambda: K.fdn_advance(lines, inject, g, lengths), 3,
+            ('fdn_advance',))
+        plain_ms = cuda_ms(
+            lambda: K.fdn_advance_plain(lines, inject, g, lengths), 2)
+        nbytes = 4 * lanes * (L * 8 + T + 8 + (L + T) * 8)
+        b_ms, b_by = bound(FDN_FLOP * T * lanes, nbytes)
+        print(f'[reverb] fdn_advance, {lanes} lane(s) x {T} frames '
+              f'({-(-T // min(lengths))} turns): vs the plain turn loop max '
+              f'abs {err!r}, the same bits {same}, twice {twice}; device '
+              f'{ms:.3f} ms ({how}), bound {b_ms:.4f} ms by {b_by} (share '
+              f'{b_ms / ms:.4f}), plain {plain_ms:.3f} ms  [{card}]')
+        assert same and twice, (lanes, err)
+        fwd = {'err': err, 'ms': ms, 'device_ms': ms, 'device_ms_by': how,
+               'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by}
+        out.setdefault('fdn', {}).update(
+            fwd if not key else {key + k: v for k, v in fwd.items()
+                                 if k in ('err', 'ms', 'plain_ms',
+                                          'bound_ms', 'bound_by')})
+        del lines, inject, g
+        torch.cuda.empty_cache()
+    for lanes, T, key in ((1, n60 * F, ''), (V, N_BLOCKS * F, 'lanes64_')):
+        lines, inject, g = fdn_inputs(lanes, T, 21 + lanes)
+        tl = K.fdn_advance(lines, inject, g, lengths)
+        gtl = torch.randn(tl.shape, device='cuda', generator=torch.Generator(
+            'cuda').manual_seed(lanes))
+        K.reset_launch_counts()
+        got = K.fdn_advance_vjp(tl, g, gtl, lengths, L)
+        again = K.fdn_advance_vjp(tl, g, gtl, lengths, L)
+        torch.cuda.synchronize()
+        assert K.LAUNCHES['fdn_vjp'] == 2
+        want = K.fdn_advance_vjp_plain(tl, g, gtl, lengths, L)
+        rel = max(rel_max(a, w) for a, w in zip(got, want))
+        twice = all(torch.equal(a, b) for a, b in zip(got, again))
+        del got, again, want
+        ms, how = kernel_device_ms(
+            lambda: K.fdn_advance_vjp(tl, g, gtl, lengths, L), 3,
+            ('fdn_advance_vjp',))
+        plain_ms = cuda_ms(
+            lambda: K.fdn_advance_vjp_plain(tl, g, gtl, lengths, L), 1)
+        nbytes = 4 * lanes * (2 * (L + T) * 8 + 8 + L * 8 + T + 8)
+        b_ms, b_by = bound(FDN_VJP_FLOP * T * lanes, nbytes)
+        print(f'[reverb] fdn_advance_vjp, {lanes} lane(s) x {T} frames: vs '
+              f'the plain adjoint {rel!r} of the largest value (tol 1e-5), '
+              f'the same bits twice {twice}; device {ms:.3f} ms ({how}), '
+              f'bound {b_ms:.4f} ms by {b_by} (share {b_ms / ms:.4f}), plain '
+              f'{plain_ms:.3f} ms  [{card}]')
+        assert rel <= 1e-5 and twice, (lanes, rel)
+        bwd = {'err': rel, 'ms': ms, 'device_ms': ms, 'device_ms_by': how,
+               'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by}
+        out.setdefault('fdn_vjp', {}).update(
+            bwd if not key else {key + k: v for k, v in bwd.items()
+                                 if k in ('err', 'ms', 'plain_ms',
+                                          'bound_ms', 'bound_by')})
+        del lines, inject, g, tl, gtl
+        torch.cuda.empty_cache()
+    return out
+
+
+def build_reverb_voice():
+    """The flagship voice into its own ``Reverb`` (phase 12 (b))."""
+    from signals_tpu_torch.nodes.reverb import Reverb
+    voice, hz = build_subtractive_voice()
+    rv = Reverb()
+    rv.input = voice
+    return rv, hz
+
+
+def phase_reverb():
+    """The reverb under autograd and ``vmap`` through the port's entry
+    points.  Returns ``(per kernel {err, ms, ...}, per kernel (launches,
+    what launched it))``."""
+    import torch
+    from signals_tpu_torch import learn
+    from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.parallel import PolyPatch
+    t_phase = time.perf_counter()
+    card = card_line()
+    total = collections.Counter()
+    n60 = n_blocks_60s()
+    audio_s = n60 * F / RATE
+    kern = fdn_kernels(card)
+    print(f'[reverb] kernels: {time.perf_counter() - t_phase:.1f} s')
+
+    # (a) learn.fit of the 60 s master bus: the voice's output gain, its
+    # cutoff centre, the reverb's t60 and mix, against a target rendered
+    # at other values
+    def bus_nodes(root):
+        rv = port_sig(root, 'left', 'input')
+        return {'gain': (port_sig(rv, 'input', 'right'), 'value'),
+                'centre': (port_sig(rv, 'input', 'left', 'left', 'cutoff',
+                                    'right'), 'value'),
+                't60': (rv, 't60'), 'mix': (rv, 'mix')}
+
+    t_root = build_master_bus()
+    named = bus_nodes(t_root)
+    named['gain'][0].get_state().value = np.full((1, 1), 1.3 / V,
+                                                 np.float32)
+    named['centre'][0].get_state().value = np.full((1, 1), 2300.0,
+                                                   np.float32)
+    rst = named['t60'][0].get_state()
+    rst.t60, rst.mix = 1.5, 0.45
+    tgt = compile_node(t_root, block_frames=F, rate=RATE, channels=1,
+                       device='cuda').render(n_blocks=n60)[0]
+    root = build_master_bus()
+    named = bus_nodes(root)
+    bus = compile_node(root, block_frames=F, rate=RATE, channels=1,
+                       device='cuda')
+    assert bus.plan(n60) == 'mega'
+    loss_fn = learn.make_loss_fn(bus, tgt)
+    step_launches = {'segments_gen': 1, 'fdn': 1, 'segments_gen_vjp': 1,
+                     'fdn_vjp': 1}
+
+    def value_and_grads():
+        params, leaves = bus.params(), []
+        for node, pname in named.values():
+            uid = bus.index.info(node).uid
+            params[uid][pname] = t = params[uid][pname].requires_grad_()
+            leaves.append(t)
+        value = loss_fn(params)
+        return value, torch.autograd.grad(value, leaves)
+
+    v, grads = launched(f'master_bus, loss and 4 gradients, {n60} blocks',
+                        value_and_grads, step_launches, total)
+    with plain_kernels():
+        v_p, grads_p = value_and_grads()
+    for k, g, g_p in zip(named, grads, grads_p):
+        rel = rel_max(g, g_p)
+        print(f'[reverb] master_bus fit: {k} gradient {g.item()!r} vs the '
+              f'plain kernels {g_p.item()!r}: relative {rel!r} (tol 1e-4)')
+        assert torch.isfinite(g).all() and rel <= 1e-4, (k, rel)
+    print(f'[reverb] master_bus fit: loss {v.item()!r} (plain kernels '
+          f'{v_p.item()!r})')
+    torch.cuda.reset_peak_memory_stats()
+    res = fit_steps(
+        f'master_bus ({n60} blocks, 4 trainables), learn.fit', lambda n:
+        learn.fit(root, tgt, list(named.values()), rate=RATE, block_frames=F,
+                  steps=n, learning_rate=0.02, relative_lr=True,
+                  apply=False),
+        8, step_launches, total, card, audio_s)
+    peak = torch.cuda.max_memory_allocated()
+    print(f'[reverb] master_bus fit: loss {res.losses[0]!r} -> '
+          f'{res.losses[-1]!r} over 8 steps; peak memory '
+          f'{peak / 2**30:.3f} GiB  [{card}]')
+    assert np.isfinite(res.losses).all() and res.losses[-1] < res.losses[0]
+    del tgt
+    torch.cuda.empty_cache()
+
+    # (b) 64 voices, each into its own Reverb: the vmap layout against the
+    # channels layout
+    mixes = {}
+    for layout in ('vmap', 'channels'):
+        rv, hz = build_reverb_voice()
+        poly = PolyPatch(rv, n_voices=V, overrides={(hz, 'value'):
+                                                    poly_freqs(V)},
+                         block_frames=F, rate=RATE, layout=layout,
+                         device='cuda')
+        assert poly.compiled.plan(n60) == 'mega'
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mixes[layout], carry = launched(
+            f'{V} reverb voices, layout {layout}, {n60} blocks',
+            lambda: poly.render(n_blocks=n60),
+            {'segments_gen': 1, 'fdn': 1}, total)
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        (lines,) = [c['lines'] for c in carry.values()]
+        print(f'[reverb] {V} reverb voices, layout {layout}, {n60} blocks: '
+              f'wall {wall:.1f} ms (first call), peak memory '
+              f'{peak / 2**30:.3f} GiB, carried lines '
+              f'{tuple(lines.shape)}  [{card}]')
+        del poly, carry, lines
+        torch.cuda.empty_cache()
+    diff = float((mixes['vmap'] - mixes['channels']).abs().max())
+    print(f'[reverb] {V} reverb voices: vmap vs channels layout max abs '
+          f'{diff!r} (tol {V} x {TOL}), peak '
+          f'{float(mixes["channels"].abs().max())!r}')
+    assert torch.isfinite(mixes['vmap']).all() and diff <= V * TOL, diff
+    del mixes
+    torch.cuda.synchronize()
+    print(f'[reverb] phase 12: {time.perf_counter() - t_phase:.1f} s')
+    how = {'segments_gen': 'the master-bus fit, the 64 reverb voices',
+           'fdn': 'the master-bus fit, the 64 reverb voices (one 64-lane '
+                  'launch a render in both layouts)',
+           'segments_gen_vjp': 'the master-bus fit',
+           'fdn_vjp': 'the master-bus fit'}
+    return kern, {name: (total[name], f'phase 12: {how[name]}')
+                  for name in how}
+
+
 def match_stream(raw, want, block):
     """Whether a paced consumer's output ``raw`` (frames, ch) is ``want``
     in order with zero-filled underruns: each ``block``-frame block of
@@ -4265,6 +4630,9 @@ def main() -> int:
     out_launches, kern['ima'] = phase_output()
     phases.append(out_launches)
     phases.append(phase_shell())
+    fdn, reverb_launches = phase_reverb()
+    kern.update(fdn)
+    phases.append(reverb_launches)
     for found in phases + [fit_launches]:
         for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths
@@ -4313,7 +4681,23 @@ def main() -> int:
          'ms': kernel_ms(kern['ima'])[0], 'ms_by': kernel_ms(kern['ima'])[1],
          'call_ms': kern['ima']['ms'], 'plain_ms': kern['ima']['plain_ms'],
          'bound_ms': kern['ima']['bound_ms'],
-         'bound_by': kern['ima']['bound_by'], 'library_ms': None}]}))
+         'bound_by': kern['ima']['bound_by'], 'library_ms': None}] + [
+        # new work, no port of a Pallas kernel: the JAX package scans the
+        # reverb's network block by block and differentiates the scan
+        {'name': name, 'route': 'cuda', 'source': csrc + 'fdn.cu',
+         'replaces': replaces, 'launches': launches[key][0],
+         'launched_by': launches[key][1], 'max_abs_err': kern[key]['err'],
+         'ms': kernel_ms(kern[key])[0], 'ms_by': kernel_ms(kern[key])[1],
+         'plain_ms': kern[key]['plain_ms'],
+         'bound_ms': kern[key]['bound_ms'],
+         'bound_by': kern[key]['bound_by'],
+         # no PyTorch call computes a feedback delay network
+         'library_ms': None,
+         **{k: v for k, v in kern[key].items() if k.startswith('lanes64_')}}
+        for name, key, replaces in (
+            ('fdn_advance', 'fdn', 'signals_tpu/nodes/reverb.py:189'),
+            ('fdn_advance_vjp', 'fdn_vjp', 'signals_tpu/nodes/reverb.py:'
+             '171-189 (JAX autodiff of the scan)'))]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -1334,12 +1334,49 @@ class CompiledPatch:
 
         return many_mix
 
+    @property
+    def stateless_batchable(self) -> bool:
+        """Whether a batch may take the ``'stateless'`` plan: the patch
+        carries no state (``carry0`` empty) and is kept off the whole-window
+        plan only by a host source, and no swept filter engages its carry
+        segments (their lowering reads the segment phase off the render
+        position as a host integer, which a batched position is not)."""
+        return (self.enable_mega and not self.carry0 and bool(self._host_spec)
+                and self.carry_seg_align == 1)
+
+    def stateless_core(self, n_blocks: int):
+        """The reference's plan for a carry-free batch, ``(params, carry,
+        position0, host) -> (blocks (n, F, ch), carry, taps)``: the
+        one-block lowering of :meth:`step` under ``torch.func.vmap`` over
+        the blocks' positions (an int32 tensor: every read of the position
+        in a lowering is tensor arithmetic) and their staged host inputs
+        ``(n_blocks, F', ch)``.  The blocks are independent, so the batch
+        is one lowering: what does not depend on the position (a static
+        filter's coefficients) is computed once, and each kernel entry's
+        ``vmap`` rule folds the blocks into its lanes — one launch a batch
+        where the per-block plan makes one a block."""
+        F = self.block_frames
+
+        def one(params, position, host):
+            blocks, _, taps = self._window(params, {}, position, 1, host)
+            return blocks[0], {uid: t[0] for uid, t in taps.items()}
+
+        def many(params, carry, position0: int, host):
+            positions = position0 + F * torch.arange(
+                n_blocks, dtype=torch.int32, device=self.device)
+            blocks, taps = torch.func.vmap(one, in_dims=(None, 0, 0))(
+                params, positions, host)
+            return blocks, carry, taps
+
+        return many
+
     def plan(self, n_blocks: int) -> str:
         """The plan :meth:`render_core` picks for a batch of ``n_blocks``,
         in the JAX package's order (its lane-packed plan aside): ``'mega'``
         (:meth:`mega_core`), ``'delay_mega'`` (:meth:`delay_mega_core`),
-        ``'segment_scan'`` (:meth:`segment_scan_core`) or ``'blocks'`` (one
-        :meth:`step` per block)."""
+        ``'segment_scan'`` (:meth:`segment_scan_core`), ``'stateless'``
+        (:meth:`stateless_core`) or ``'blocks'`` (one :meth:`step` per
+        block)."""
         if n_blocks > 1:
             if self._use_mega:
                 return 'mega'
@@ -1348,6 +1385,8 @@ class CompiledPatch:
                     return 'delay_mega'
                 if self.segment_scan_core(n_blocks) is not None:
                     return 'segment_scan'
+            if self.stateless_batchable:
+                return 'stateless'
         return 'blocks'
 
     def render_core(self, n_blocks: int):
@@ -1355,29 +1394,12 @@ class CompiledPatch:
         carry', taps)`` on the plan :meth:`plan` names (cached per batch
         size).  ``host`` is the render's staged host inputs on the device
         (:meth:`host_inputs` at ``position0`` for ``n_blocks``); None
-        stages them in the call.  Only the per-block plan reads them: a
-        host source keeps a patch off the others."""
+        stages them in the call.  Only the stateless and per-block plans
+        read them: a host source keeps a patch off the others."""
         if n_blocks in self._render_cache:
             return self._render_cache[n_blocks]
         plan = self.plan(n_blocks)
-        if plan == 'mega':
-            core = self.mega_core(n_blocks)
-        elif plan == 'delay_mega':
-            core = self.delay_mega_core(n_blocks, self.delay_mega_plan())
-        elif plan == 'segment_scan':
-            core = self.segment_scan_core(n_blocks)
-        else:
-            core = None
         F = self.block_frames
-
-        def many(params, carry, position0: int, host=None):
-            if core is not None:
-                with self._frozen():
-                    return core(params, carry, position0)
-            if host is None:
-                host = self.host_inputs(position0, n_blocks)
-            with self._frozen():
-                return per_block(params, carry, position0, host)
 
         def per_block(params, carry, position0, host):
             out, tap_parts = [], []
@@ -1388,6 +1410,27 @@ class CompiledPatch:
                 out.append(blocks)
                 tap_parts.append(taps)
             return torch.cat(out), carry, _cat_taps(tap_parts)
+
+        if plan == 'mega':
+            core = self.mega_core(n_blocks)
+        elif plan == 'delay_mega':
+            core = self.delay_mega_core(n_blocks, self.delay_mega_plan())
+        elif plan == 'segment_scan':
+            core = self.segment_scan_core(n_blocks)
+        elif plan == 'stateless':
+            core = self.stateless_core(n_blocks)
+        else:
+            core = per_block
+        reads_host = plan in ('stateless', 'blocks')
+
+        def many(params, carry, position0: int, host=None):
+            if not reads_host:
+                with self._frozen():
+                    return core(params, carry, position0)
+            if host is None:
+                host = self.host_inputs(position0, n_blocks)
+            with self._frozen():
+                return core(params, carry, position0, host)
 
         self._render_cache[n_blocks] = many
         return many

@@ -18,6 +18,11 @@ Five entry points, each with a plain PyTorch version of the same signature:
   scan inside its XLA program).  :func:`sosfilt_batch` takes ``zi`` and
   returns ``zf`` too (``return_state=True``).
 
+One more entry is no port of a Pallas kernel: :func:`fdn_advance`, the
+``Reverb``'s feedback delay network over a window (``csrc/fdn.cu``; the JAX
+package scans it, ``signals_tpu/nodes/reverb.py:171-189``), with its
+adjoint :func:`fdn_advance_vjp`.
+
 The segment kernels take ``sum_groups = g`` (the mix epilogue: return each
 ``g``-lane group's sum instead of the lanes) and ``blocks_per_seg = m``
 (carry segments: ``m`` coefficient blocks share one state that warms up
@@ -53,10 +58,12 @@ OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
 #: launches of each hand-written kernel since :func:`reset_launch_counts`
 #: (``*_vjp``: the backward kernels of ``csrc/adjoint.cu``; ``ima``: the
 #: IMA ADPCM encoder of ``csrc/codecs.cu``, launched by
-#: :func:`signals_tpu_torch.runtime.codecs.ima_encode`)
+#: :func:`signals_tpu_torch.runtime.codecs.ima_encode`; ``fdn`` /
+#: ``fdn_vjp``: the reverb's network and its adjoint, ``csrc/fdn.cu``)
 LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0,
             'stream': 0, 'segments_gen_vjp': 0, 'segments_vjp': 0,
-            'batch_vjp': 0, 'timeline_vjp': 0, 'stream_vjp': 0, 'ima': 0}
+            'batch_vjp': 0, 'timeline_vjp': 0, 'stream_vjp': 0, 'ima': 0,
+            'fdn': 0, 'fdn_vjp': 0}
 
 #: sections per lane the segment kernels take (the Butterworth designs: 1
 #: for low/high-pass, 2 for band-pass/band-stop)
@@ -1069,3 +1076,221 @@ class _StreamFn(torch.autograd.Function):
                                _fold(x, in_dims[1], n, 1),
                                _fold(zi, in_dims[2], n, 2))
         return (_unfold(y, n, 1), _unfold(zf, n, 2)), (0, 0)
+
+
+# --- the reverb's feedback delay network --------------------------------------
+
+
+def _hadamard8() -> np.ndarray:
+    h2 = np.array([[1.0, 1.0], [1.0, -1.0]])
+    h = np.kron(np.kron(h2, h2), h2) / np.sqrt(8.0)
+    return h.astype(np.float32)
+
+
+#: the FDN's mixing matrix: the 8x8 Sylvester Hadamard matrix over
+#: ``sqrt(8)``, float32 (symmetric; ``H8[i, j] = (-1)^popcount(i & j) h``)
+H8 = _hadamard8()
+FDN_LINES = H8.shape[0]
+#: ``H8_COLS[j]`` is column ``j`` of the matrix shaped ``(1, n_lines, 1)``:
+#: what line ``j``'s fed-back signal contributes to every line's input
+H8_COLS = np.ascontiguousarray(H8.T).reshape(8, 1, 8, 1)
+
+
+def hadamard_mix(cols, fed):
+    """``mixed[:, i, :] = sum_j H8[i, j] * fed[:, j, :]`` for every line
+    ``i`` at once, the terms added in the order ``j = 0 .. 7``: per element
+    the very products and sums of the reference's doubly unrolled loop
+    (each its own f32 operation), in 15 array operations instead of 120.
+    ``cols`` is :data:`H8_COLS` in ``fed``'s namespace."""
+    acc = cols[0] * fed[:, 0:1, :]
+    for j in range(1, cols.shape[0]):
+        acc = acc + cols[j] * fed[:, j:j + 1, :]
+    return acc
+
+
+def _check_fdn(lines, inject, g, lengths):
+    """``(lines, inject, g)`` at the widest lane count, ``g`` ``(8,
+    lanes)``; raises on what the network does not take."""
+    if (lines.dtype != torch.float32 or lines.dim() != 3
+            or lines.shape[1] != FDN_LINES):
+        raise ValueError(f'lines must be float32 (L, {FDN_LINES}, lanes), '
+                         f'got {tuple(lines.shape)} {lines.dtype}')
+    if inject.dtype != torch.float32 or inject.dim() != 2:
+        raise ValueError(f'inject must be float32 (T, lanes), got '
+                         f'{tuple(inject.shape)} {inject.dtype}')
+    if g.dtype != torch.float32 or g.dim() != 2 or g.shape[0] != FDN_LINES:
+        raise ValueError(f'g must be float32 ({FDN_LINES}, lanes), got '
+                         f'{tuple(g.shape)} {g.dtype}')
+    L = lines.shape[0]
+    if len(lengths) != FDN_LINES or not all(1 <= d <= L for d in lengths):
+        raise ValueError(f'lengths {lengths}: {FDN_LINES} delays in [1, {L}]')
+    lanes = max(lines.shape[2], inject.shape[1], g.shape[1])
+    return (torch.broadcast_to(lines, (L, FDN_LINES, lanes)),
+            torch.broadcast_to(inject, (inject.shape[0], lanes)),
+            torch.broadcast_to(g, (FDN_LINES, lanes)))
+
+
+def fdn_advance_plain(lines, inject, g, lengths):
+    """Plain PyTorch version of :func:`fdn_advance`: a loop over turns of
+    ``min(lengths)`` frames (every read of a turn lies before its first
+    write), the delayed rows sliced from the timeline in place and mixed
+    by :func:`hadamard_mix`."""
+    L, n, lanes = lines.shape
+    T = inject.shape[0]
+    tl = torch.empty((L + T, n, lanes), dtype=torch.float32,
+                     device=lines.device)
+    tl[:L] = lines
+    cols = torch.as_tensor(H8_COLS, device=lines.device)
+    g = g.reshape(1, n, lanes)
+    inj = inject[:, None, :]
+    turn = min(lengths)
+    for t0 in range(0, T, turn):
+        t1 = min(t0 + turn, T)
+        reads = torch.stack(
+            [tl[L + t0 - d:L + t1 - d, i] for i, d in enumerate(lengths)],
+            dim=1)                                 # (t1 - t0, n, lanes)
+        torch.add(hadamard_mix(cols, reads * g), inj[t0:t1],
+                  out=tl[L + t0:L + t1])
+    return tl
+
+
+def fdn_advance(lines, inject, g, lengths):
+    """Advance the reverb's eight delay lines over a window of ``T``
+    frames: ``lines`` ``(L, 8, lanes)`` float32, the carried timeline
+    (row ``L - 1`` the newest); ``inject`` ``(T, lanes)``, the signal added
+    to every line's input; ``g`` ``(8, lanes)``, each line's feedback gain
+    per lane; ``lengths``, the eight delays (frames, each in ``[1, L]``).
+    Returns the timeline ``tl`` ``(L + T, 8, lanes)``: the lines, then
+    ``tl[L + t, i] = sum_j H8[i, j] (g_j tl[L + t - d_j, j]) + inject[t]``,
+    each product and sum its own f32 operation in the order ``j = 0 .. 7``
+    (the JAX package's order, so the kernel, the plain loop and the
+    per-block :meth:`~signals_tpu_torch.nodes.reverb.Reverb.step` agree bit
+    for bit).  The lane axes broadcast to the widest count.  Its last
+    ``L`` rows are the carry out; the rows a line's output reads are
+    ``tl[L - d_j : L - d_j + T, j]``.  Differentiable in ``lines``,
+    ``inject`` and ``g``; under ``torch.func.vmap`` the batch folds into
+    the lanes (one launch)."""
+    lengths = tuple(int(d) for d in lengths)
+    lines, inject, g = _check_fdn(lines, inject, g, lengths)
+    if _function_call(lines, inject, g):
+        return _FdnFn.apply(lines, inject, g, lengths)
+    return _fdn_run(lines, inject, g, lengths)
+
+
+def _fdn_group(dev, lanes: int) -> int:
+    """Lanes a CTA of the FDN kernels works: one CTA per lane while the
+    lanes do not outnumber the SMs, else the fewest lanes a CTA (a power of
+    two, at most 8: a warp's reads of one line then fill whole 32-byte
+    sectors) that keep to one wave."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    group = 1
+    while group < 8 and -(-lanes // group) > sms:
+        group *= 2
+    return group
+
+
+def _delays(lengths):
+    return (ctypes.c_int * FDN_LINES)(*lengths)
+
+
+def _fdn_run(lines, inject, g, lengths):
+    if _device_kind(lines, inject, g) == 'cpu':
+        return fdn_advance_plain(lines, inject, g, lengths)
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    L, n, lanes = lines.shape
+    T = inject.shape[0]
+    lines, inject, g = (t.contiguous() for t in (lines, inject, g))
+    tl = torch.empty((L + T, n, lanes), dtype=torch.float32,
+                     device=lines.device)
+    code = lib.fdn_advance_launch(
+        lines.data_ptr(), inject.data_ptr(), g.data_ptr(), tl.data_ptr(),
+        L, T, lanes, _fdn_group(lines.device, lanes), float(H8[0, 0]),
+        _delays(lengths), _stream(lines.device))
+    _build.check(code, 'fdn_advance')
+    LAUNCHES['fdn'] += 1
+    return tl
+
+
+def fdn_advance_vjp_plain(tl, g, gtl, lengths, L: int):
+    """Plain PyTorch version of :func:`fdn_advance_vjp`: the adjoint
+    recurrence as a loop over turns from the end.  A turn's rows are final
+    once the turns after it are done (a row's cotangent comes from rows at
+    least ``min(lengths)`` later); each hands ``g_j (H u)_j`` to the rows
+    ``d_j`` earlier and adds ``r_j (H u)_j`` to ``g_j``'s cotangent."""
+    n, lanes = tl.shape[1], tl.shape[2]
+    T = tl.shape[0] - L
+    h = torch.as_tensor(H8, device=tl.device)
+    u = gtl.clone()
+    gg = torch.zeros((n, lanes), dtype=torch.float32, device=tl.device)
+    turn = min(lengths)
+    for p1 in range(L + T, L, -turn):
+        p0 = max(p1 - turn, L)
+        hu = torch.einsum('ij,pjc->pic', h, u[p0:p1])
+        for j, d in enumerate(lengths):
+            u[p0 - d:p1 - d, j] += g[j] * hu[:, j]
+            gg[j] += (tl[p0 - d:p1 - d, j] * hu[:, j]).sum(dim=0)
+    return u[:L].clone(), u[L:].sum(dim=1), gg
+
+
+def fdn_advance_vjp(tl, g, gtl, lengths, L: int):
+    """The backward of :func:`fdn_advance`: from the forward's timeline
+    ``tl`` ``(L + T, 8, lanes)``, its gains ``g`` ``(8, lanes)`` (both at
+    the full lane count) and the timeline's cotangent ``gtl``, the
+    cotangents ``(glines (L, 8, lanes), ginject (T, lanes), gg (8,
+    lanes))``.  On a GPU the kernel ``fdn_advance_vjp`` of ``csrc/fdn.cu``,
+    which sums ``gg`` over time in a fixed order (the same bits on every
+    run)."""
+    lengths = tuple(int(d) for d in lengths)
+    if _device_kind(tl, g, gtl) == 'cpu':
+        return fdn_advance_vjp_plain(tl, g, gtl, lengths, L)
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    n, lanes = tl.shape[1], tl.shape[2]
+    T = tl.shape[0] - L
+    dev = tl.device
+    tl, g, gtl = (t.contiguous() for t in (tl, g, gtl))
+    ha = torch.empty((T, n, lanes), dtype=torch.float32, device=dev)
+    glines = torch.empty((L, n, lanes), dtype=torch.float32, device=dev)
+    ginject = torch.empty((T, lanes), dtype=torch.float32, device=dev)
+    gg = torch.empty((n, lanes), dtype=torch.float32, device=dev)
+    code = lib.fdn_advance_vjp_launch(
+        tl.data_ptr(), g.data_ptr(), gtl.data_ptr(), ha.data_ptr(),
+        glines.data_ptr(), ginject.data_ptr(), gg.data_ptr(), L, T, lanes,
+        _fdn_group(dev, lanes), float(H8[0, 0]), _delays(lengths),
+        _stream(dev))
+    _build.check(code, 'fdn_advance_vjp')
+    LAUNCHES['fdn_vjp'] += 1
+    return glines, ginject, gg
+
+
+class _FdnFn(torch.autograd.Function):
+    """:func:`fdn_advance` under autograd and ``torch.func.vmap``: the
+    backward is :func:`fdn_advance_vjp` on the saved timeline; the ``vmap``
+    rule folds the batch into the lanes (a per-voice ``t60`` is a per-lane
+    ``g``), one call for all voices."""
+
+    @staticmethod
+    def forward(lines, inject, g, lengths):
+        return _fdn_run(lines, inject, g, lengths)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        lines, _inject, g, lengths = inputs
+        ctx.save_for_backward(output, g)
+        ctx.lengths = lengths
+        ctx.L = lines.shape[0]
+
+    @staticmethod
+    def backward(ctx, gtl):
+        tl, g = ctx.saved_tensors
+        glines, ginject, gg = fdn_advance_vjp(tl, g, gtl, ctx.lengths, ctx.L)
+        return glines, ginject, gg, None
+
+    @staticmethod
+    def vmap(info, in_dims, lines, inject, g, lengths):
+        n = info.batch_size
+        tl = fdn_advance(_fold(lines, in_dims[0], n, 2),
+                         _fold(inject, in_dims[1], n, 1),
+                         _fold(g, in_dims[2], n, 1), lengths)
+        return _unfold(tl, n, 2), 0

@@ -12,9 +12,9 @@ instances, in one of the JAX package's two layouts:
   CompiledPatch.render_core`) is vmapped over the voices with the
   overridden params and the carry batched on dim 0, and the mix is the sum
   over that axis.  Any per-voice param and multichannel voices work.  The
-  cascade kernels meet batched tensors through their ``vmap`` rule, which
-  folds the voices into the lanes: one launch for all voices
-  (:mod:`signals_tpu_torch.compiler.kernels`).
+  kernels (the cascades, the reverb's network) meet batched tensors
+  through their ``vmap`` rule, which folds the voices into the lanes: one
+  launch for all voices (:mod:`signals_tpu_torch.compiler.kernels`).
 
 No device mesh is ported.
 """
@@ -47,9 +47,7 @@ class PolyPatch:
     * ``'vmap'``: the patch compiles as one voice; :meth:`params` stacks
       each overridden leaf to ``(V, *leaf)`` (a 1-D array is one scalar per
       voice) and :meth:`render` vmaps the voice's plan over them.  The live
-      nodes keep their one-voice state.  A ``Reverb`` is refused: its
-      whole-window step writes a timeline in place and replays a captured
-      CUDA graph, neither of which batches.
+      nodes keep their one-voice state.
 
     ``mix_epilogue`` (None = on for a CUDA device; channels layout only)
     folds the voice sum into the filter kernel when the patch allows it
@@ -127,15 +125,9 @@ class PolyPatch:
         return arr
 
     def _build_vmap(self, root, overrides, block_frames, rate, channels):
-        from signals_tpu_torch.nodes.reverb import Reverb
         self.compiled = compile_node(root, block_frames=block_frames,
                                      rate=rate, channels=channels,
                                      device=self.device)
-        if any(isinstance(n, Reverb) for n in self.compiled.index.order):
-            raise NotImplementedError(
-                'layout="vmap": a Reverb is not ported under vmap (its '
-                'whole-window step writes its timeline in place and replays '
-                'a captured CUDA graph); use layout="channels"')
         self._out_channels = self.compiled.channels
         index = self.compiled.index
         #: (uid, pname) -> per-voice array, leading dim n_voices

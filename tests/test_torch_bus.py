@@ -19,7 +19,8 @@ counterpart in the port, on the CPU, at small sizes:
 * ``Compressor``, ``Gate``, ``Limiter`` against the JAX pull engine and
   compiled render within 1e-5; the float64 cumulative sum of ``_rms_env``;
 * the master bus (bench c7) whole, split, through the ``Transport``, block
-  by block, and with a one-block tail window.
+  by block, and with a one-block tail window; on the card (``-m cuda``)
+  its network kernel bit for bit the plain turn loop.
 """
 
 import importlib
@@ -532,29 +533,29 @@ def test_reverb_in_a_feedback_scan_with_a_one_block_tail():
 
 
 @pytest.mark.cuda
-def test_cuda_master_bus_graphed_turns_equal_eager_turns():
-    """On a GPU the reverb replays its turn as a CUDA graph: the same bits
-    as the eager turn loop, audio and carry, and the oracle's values; the
-    voice ahead of it takes one generator-kernel launch either way."""
+def test_cuda_master_bus_fdn_kernel_equals_plain_turns(monkeypatch):
+    """On a GPU the reverb advances through the FDN kernel: the same bits
+    as the plain turn loop, audio and carry, and the oracle's values; the
+    voice ahead of it takes one generator-kernel launch and the reverb one
+    network launch."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
-    from signals_tpu_torch.nodes.reverb import Reverb
     patch = compile_node(master_bus(PORT), block_frames=F, rate=RATE,
                          channels=1, device='cuda')
-    outs = {}
-    try:
-        for graphed in (False, True):
-            Reverb.graph_turns = graphed
-            K.reset_launch_counts()
-            outs[graphed] = patch.render(n_blocks=64)
-            assert K.LAUNCHES['segments_gen'] == 1
-    finally:
-        Reverb.graph_turns = None
-    (a, ca), (b, cb) = outs[False], outs[True]
+    K.reset_launch_counts()
+    a, ca = patch.render(n_blocks=64)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in K.LAUNCHES.items() if v} == {
+        'segments_gen': 1, 'fdn': 1}
+
+    def plain(lines, inject, g, lengths):
+        lines, inject, g = K._check_fdn(lines, inject, g, lengths)
+        return K.fdn_advance_plain(lines, inject, g, lengths)
+
+    monkeypatch.setattr(K, 'fdn_advance', plain)
+    b, cb = patch.render(n_blocks=64)
     assert torch.equal(a, b)
     assert all(torch.equal(ca[u][k], cb[u][k]) for u in ca for k in ca[u])
-    auto, _ = patch.render(n_blocks=64)          # 50 turns: the graph
-    assert torch.equal(auto, a)
     oracle = pull(PORT, master_bus(PORT), 16, F, 1)
     assert np.abs(a[:16 * F].cpu().numpy() - oracle).max() <= TOL
 

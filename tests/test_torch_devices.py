@@ -161,7 +161,7 @@ def test_source_device_feeds_compiled_patch(rack):
     compiled = compile_node(g, block_frames=64, rate=RATE, channels=2,
                             device='cpu')
     audio, _ = compiled.render(n_blocks=2)
-    assert compiled.plan(2) == 'blocks'
+    assert compiled.plan(2) == 'stateless'       # carry-free, host-fed
     np.testing.assert_array_equal(audio.numpy(), 0)   # virtual: silence
     np.testing.assert_array_equal(src.render_offline(n_blocks=2).numpy(), 0)
 

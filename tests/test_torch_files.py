@@ -11,7 +11,8 @@ same seeded numpy audio through both packages:
 * ``FileReader.host_read`` with ``conform_rate`` at 32 and 64 taps bit for
   bit;
 * ``FileReader`` -> LowPass -> ``FileWriter`` through ``compile_node``:
-  ``plan() == 'blocks'`` in both packages, the render and ``step`` within
+  ``plan() == 'stateless'`` (the JAX package's per-block ``vmap`` of a
+  carry-free batch), the render and ``step`` within
   1e-5 of the JAX render and of the port's pull oracle, from block 0 and
   from block 3, the staged windows' keys equal to the JAX package's;
 * the strided control-grid windows of ``tests/test_grid_samples_ahead.py``
@@ -276,7 +277,7 @@ def test_bounce_matches_jax_and_oracle(tmp_path, start):
     src = write_file(tmp_path / 'in.wav', audio(3000, 2, seed=6))
     jc = jax_compile(bounce(JAX, src), F, 2)
     pc = port_compile(bounce(PORT, src), F, 2)
-    assert pc.plan(nb) == 'blocks' and not pc.mega_compatible
+    assert pc.plan(nb) == 'stateless' and not pc.mega_compatible
     assert not jc.mega_compatible and not jc._use_mega
     assert jc.packed_mega_streams(nb) is None
     assert jc.delay_mega_plan() is None and jc.segment_scan_core(nb) is None

@@ -20,7 +20,8 @@ same numbers through both packages:
 * fits that mirror ``tests/test_learn.py`` (a gain, fused against per-step
   chunks, ``relative_lr``) and ``PolyPatch.fit`` of a per-voice gain;
 * the ``Wavetable``'s render and table gradient;
-* a trainable upstream of a ``Reverb`` raises.
+* a trainable upstream of a ``Reverb``: the same gradient from the
+  whole-window and the per-block plans, and a fit that lowers the loss.
 
 The plain cascade is a loop over frames, so every case keeps its rows few;
 the fits at full size run on the card (``chip_smoke.py`` phase 7,
@@ -461,28 +462,41 @@ def test_wavetable_render_and_table_grad_match_jax():
     assert rel_err(to_np(got), want) <= GRAD_TOL
 
 
-# --- the refusal --------------------------------------------------------------
+# --- through a reverb ---------------------------------------------------------
 
 def test_trainable_upstream_of_reverb_raises():
-    """Fitting through a ``Reverb`` is not ported: a trainable that reaches
-    it under grad raises, whole-window plan or per-block step, while the
-    same render without grad runs."""
+    """Fitting through a ``Reverb`` runs (no refusal remains): a trainable
+    upstream of it gets the same gradient from the whole-window plan
+    (``mega_step``: the FDN entry's adjoint) and from the per-block plan
+    (``step``, autograd of its slices) within 1e-5 relative, and
+    ``learn.fit`` lowers the loss against a target rendered at another
+    gain."""
+    F, nb = 256, 8
     mod = nodes(PORT)
     vol = fixed(mod, 0.5)
     o = mod['osc'].Sine()
     o.hertz = fixed(mod, 220.0)
     rev = mod['reverb'].Reverb()
     rev.input = gain(mod, o, vol)
-    c = compile_node(rev, block_frames=256, rate=RATE, device='cpu')
-    target = np.zeros((4 * 256, 1), np.float32)
-    with pytest.raises(NotImplementedError, match='Reverb'):
-        learn.fit(rev, target, [(vol, 'value')], block_frames=256,
-                  steps=1, device='cpu')
-    params = c.params()
+    rev.get_state().t60 = 0.5
+    c = compile_node(rev, block_frames=F, rate=RATE, device='cpu')
+    vol.get_state().value = np.full((1, 1), 0.3, np.float32)
+    target = c.render(n_blocks=nb)[0].numpy()
+    vol.get_state().value = np.full((1, 1), 0.5, np.float32)
     uid = c.index.info(vol).uid
-    params[uid]['value'] = params[uid]['value'].requires_grad_()
-    with pytest.raises(NotImplementedError, match='Reverb'):
-        c.step(params, c.carry0, 0)
-    with torch.no_grad():
-        block, _ = c.step(params, c.carry0, 0)
-    assert torch.isfinite(block).all()
+    grads = []
+    for mega in (True, False):
+        c.enable_mega = mega
+        c._render_cache.clear()
+        assert c.plan(nb) == ('mega' if mega else 'blocks')
+        params = c.params()
+        params[uid]['value'] = v = params[uid]['value'].requires_grad_()
+        (g,) = torch.autograd.grad(learn.make_loss_fn(c, target)(params), v)
+        grads.append(to_np(g))
+    c.enable_mega = True
+    c._render_cache.clear()
+    assert np.abs(grads[0]).max() > 0
+    assert rel_err(grads[1], grads[0]) <= 1e-5
+    res = learn.fit(rev, target, [(vol, 'value')], block_frames=F,
+                    steps=8, learning_rate=0.05, device='cpu', apply=False)
+    assert res.losses[-1] < res.losses[0]

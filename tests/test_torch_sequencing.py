@@ -835,11 +835,32 @@ def test_vmap_feedback_voices(saturate):
 
 
 def test_vmap_refuses_a_reverb():
-    root, hz = subtractive(PKGS[1])
-    rv = mod(PKGS[1], 'nodes.reverb').Reverb()
-    rv.input = root
-    with pytest.raises(NotImplementedError, match='Reverb'):
-        poly_of(PKGS[1], rv, {(hz, 'value'): FREQS}, 4)
+    """A ``Reverb`` under ``layout='vmap'`` renders (no refusal remains):
+    the voices fold into the FDN kernel's lanes, within V x 1e-5 of the
+    channels layout and of the JAX package's vmap layout."""
+    nb, V = 16, 4
+
+    def reverb_voice(pkg):
+        root, hz = subtractive(pkg)
+        rv = mod(pkg, 'nodes.reverb').Reverb()
+        rv.input = root
+        rv.get_state().t60 = 0.7
+        return rv, hz
+
+    rv, hz = reverb_voice(PKGS[1])
+    got, carry = poly_of(PKGS[1], rv, {(hz, 'value'): FREQS}, V).render(
+        n_blocks=nb)
+    assert carry and all(
+        v.shape[0] == V for c in carry.values() for v in c.values())
+    rv, hz = reverb_voice(PKGS[1])
+    want_c, _ = poly_of(PKGS[1], rv, {(hz, 'value'): FREQS}, V,
+                        layout='channels').render(n_blocks=nb)
+    assert float((got - want_c).abs().max()) <= V * TOL
+    rv, hz = reverb_voice(PKGS[0])
+    want_j, _ = poly_of(PKGS[0], rv, {(hz, 'value'): FREQS}, V).render(
+        n_blocks=nb)
+    assert np.abs(got.numpy() - np.asarray(want_j)).max() <= V * TOL
+    assert np.abs(got.numpy()).max() > 100 * TOL
 
 
 def gain_voice(pkg, cut=1500.0):
