@@ -9,7 +9,8 @@ Twelve phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
-   ``ptxas``' report (B3's registers and spills at each section count).
+   ``ptxas``' report (B3's registers and spills at each section count;
+   each FDN kernel's registers, shared memory and spills).
 2. **Each kernel against its plain PyTorch version** on the card, at the
    shapes the main paths give it: the segment kernels at the flagship's
    (64 lanes, F=1024, C=512, 8-block carry segments) over 256 blocks and
@@ -239,16 +240,19 @@ Twelve phases; any failure raises and exits non-zero:
 
 12. **The reverb under autograd and vmap** (``[reverb]`` lines): (a) each
    FDN kernel against its plain version on the card -- ``fdn_advance`` at
-   the master bus's shape (one lane, 60 s) and at 64 lanes with per-lane
-   decay times (60 s), bit for bit; ``fdn_advance_vjp`` at one lane, 60 s,
-   and 64 lanes over 256 blocks, within 1e-5 of each output's largest
-   value and the same bits twice -- each with its device time beside its
-   bound and the plain version's; ``learn.fit`` of the 60 s master bus
-   with the voice's output gain, its cutoff centre and the reverb's
-   ``t60`` and ``mix`` trainable against a target rendered at other
-   values: the four gradients within 1e-4 relative of the plain kernels',
-   8 steps (``{K1, fdn, B1, fdn_vjp: 1}`` a step), the loss falling, ms a
-   step and peak memory; (b) the flagship's 64 voices, each into its own
+   the master bus's shape (one lane, 60 s), at 64 lanes with per-lane
+   decay times (60 s; clusters of 8 CTAs) and at ``Reverb(size=4.0)``'s
+   delays (one lane, 60 s; the rings in global memory), bit for bit;
+   ``fdn_advance_vjp`` with its gain kernel ``fdn_vjp_gain`` at one lane,
+   60 s, at 64 lanes over 256 blocks and at size 4.0, within 1e-5 of each
+   output's largest value and the same bits twice -- each with its device
+   time beside its bound, the plain version's and commit b3cf912's design's;
+   ``learn.fit`` of the 60 s master bus with the voice's output gain, its
+   cutoff centre and the reverb's ``t60`` and ``mix`` trainable against a
+   target rendered at other values: the four gradients within 1e-4
+   relative of the plain kernels', 8 steps (``{K1, fdn, B1, fdn_vjp,
+   fdn_vjp_gain: 1}`` a step), the loss falling, ms a step and peak
+   memory; (b) the flagship's 64 voices, each into its own
    ``Reverb``, 60 s, in the vmap layout (one 64-lane ``fdn`` launch, the
    voices folded) and the channels layout, within 64 x 1e-5 of each
    other, with their peak memory.
@@ -704,6 +708,9 @@ def phase_build():
     for nsec, (regs, spills) in sorted(b3_ptxas(out).items()):
         print(f'[build] B3 rows_cascade_vjp<{nsec}>: {regs} registers, '
               f'{spills}')
+    for name, (regs, smem, spills) in sorted(fdn_ptxas(out).items()):
+        print(f'[build] FDN {name}: {regs} registers, {smem} bytes static '
+              f'shared memory (+ the rings: dynamic), {spills}')
     release = [ln for ln in run([_build.nvcc_path(), '--version']).splitlines()
                if 'release' in ln]
     print(f'[build] torch {torch.__version__} cuda {torch.version.cuda}; '
@@ -728,6 +735,38 @@ def b3_ptxas(out: str) -> dict:
             found[nsec] = (int(m.group(1)), found.get(nsec, (0, '?'))[1])
             nsec = None
     return found
+
+
+def fdn_ptxas(out: str) -> dict:
+    """``{kernel: (registers, static shared bytes, spill line)}`` of each
+    kernel of ``csrc/fdn.cu`` from ``nvcc -Xptxas -v``'s report, the
+    templates named by their rings (shared or global memory) and, for the
+    forward, one CTA a lane or clusters."""
+    found, name = {}, None
+    for line in out.splitlines():
+        if 'Compiling entry function' in line:
+            m = re.search(r'(fdn_advance_vjp|fdn_advance|fdn_vjp_gain_sum|'
+                          r'fdn_vjp_gain)(I((?:Lb[01]E)+)E)?', line)
+            name = None
+            if m:
+                flags = [f == '1' for f in re.findall(r'Lb([01])E',
+                                                      m.group(3) or '')]
+                name = m.group(1)
+                if flags:
+                    parts = ['shared rings' if flags[0] else 'global rings']
+                    if len(flags) > 1:
+                        parts.append('cluster' if flags[1] else 'CTA a lane')
+                    name += f'<{", ".join(parts)}>'
+                found[name] = [None, 0, '?']
+        elif name is not None and 'spill stores' in line:
+            found[name][2] = line.strip()
+        elif name is not None and 'registers' in line:
+            m = re.search(r'Used (\d+) registers', line)
+            found[name][0] = int(m.group(1)) if m else None
+            m = re.search(r'(\d+) bytes smem', line)
+            found[name][1] = int(m.group(1)) if m else 0
+            name = None
+    return {k: tuple(v) for k, v in found.items()}
 
 
 def card_line() -> str:
@@ -4309,59 +4348,103 @@ def phase_shell():
 # --- phase 12: the reverb under autograd and vmap -----------------------------
 
 #: f32 operations a frame-lane: fdn_advance's 8 r*g, 8 h*fed, 7 x 8 mix sums
-#: and 8 inject sums; fdn_advance_vjp's 8 g*Hu, 8 cotangent sums, 7 for the
-#: inject cotangent, 24 for the Walsh-Hadamard transform, 8 h*, 16 for the
-#: g sums
+#: and 8 inject sums; fdn_advance_vjp's chain 8 g*Hu, 8 cotangent sums, 7
+#: for the inject cotangent, 24 for the Walsh-Hadamard transform, 8 h*;
+#: fdn_vjp_gain's 8 multiply-adds (16 operations)
 FDN_FLOP = 80
-FDN_VJP_FLOP = 71
+FDN_VJP_FLOP = 55
+FDN_GAIN_FLOP = 16
 FDN_VOICE_T60 = (0.5, 4.0)     # (b)'s per-voice decay times, linspace
+#: the device times of commit b3cf912's design (one CTA a lane group, the
+#: timeline read back d_j rows behind, the gain sums on the adjoint's
+#: chain) on an H100 80GB HBM3 at 700 W (PERF.md), printed beside this
+#: run's
+B3CF912_FDN_MS = {
+    ('fdn', 1): '15.03-15.20', ('fdn', V): '66.0-66.7',
+    ('fdn_vjp', 1): '20.79-20.89 (with the gain sums)',
+    ('fdn_vjp', V): '6.93-7.11 (256 blocks, with the gain sums)'}
+#: Reverb(size=4.0): rings of 286 KiB a lane, past a block's shared memory
+FDN_BIG_SIZE = 4.0
 
 
-def fdn_lengths():
+def fdn_lengths(size=1.0):
     from signals_tpu_torch.nodes.reverb import Reverb
-    return tuple(Reverb()._lengths(RATE, F))
+    rv = Reverb()
+    rv.get_state().size = float(size)
+    return tuple(rv._lengths(RATE, F))
 
 
-def fdn_gains(t60s):
+def fdn_gains(t60s, lengths=None):
     """``(8, lanes)`` float32 feedback gains of decay times ``t60s`` (the
     Schroeder relation of ``Reverb._gains``)."""
-    lens = np.array(fdn_lengths(), np.float32)[:, None]
+    lens = np.array(lengths or fdn_lengths(), np.float32)[:, None]
     t60s = np.asarray(t60s, np.float32)[None, :]
     return np.exp(lens * (np.float32(-3.0 * np.log(10.0))
                           / (t60s * np.float32(RATE)))).astype(np.float32)
 
 
-def fdn_inputs(lanes, T, seed):
+def fdn_inputs(lanes, T, seed, lengths=None):
     """Seeded ``(lines, inject, g)`` on the card: carried lines and an
     input at a reverb's levels, per-lane decay times."""
     import torch
+    lengths = lengths or fdn_lengths()
     rng = np.random.default_rng(seed)
-    L = max(fdn_lengths())
+    L = max(lengths)
     t60s = (np.full(1, 2.0) if lanes == 1
             else np.linspace(*FDN_VOICE_T60, lanes))
     arrays = (0.05 * rng.standard_normal((L, 8, lanes)),
-              0.02 * rng.standard_normal((T, lanes)), fdn_gains(t60s))
+              0.02 * rng.standard_normal((T, lanes)),
+              fdn_gains(t60s, lengths))
     return [torch.tensor(np.asarray(a, np.float32), device='cuda')
             for a in arrays]
 
 
+def fdn_case_name(lanes, size):
+    return f'{lanes} lane(s)' + (f', size {size}' if size != 1.0 else '')
+
+
+def b3cf912_ms(kernel, lanes, size):
+    return B3CF912_FDN_MS.get((kernel, lanes), '-') if size == 1.0 else '-'
+
+
+def fdn_rings_shared(lengths):
+    """Whether the FDN kernels keep these delays' rings in shared memory
+    on this card (else in a global scratch buffer)."""
+    from signals_tpu_torch.compiler import _build
+    from signals_tpu_torch.compiler import kernels as K
+    return bool(_build.library().fdn_ring_shared(K._delays(lengths)))
+
+
 def fdn_kernels(card):
     """Each FDN kernel against its plain version on the card: the forward
-    at the master bus's shape (one lane, 60 s) and at (b)'s (64 lanes,
-    per-lane gains, 60 s), bit for bit, the audio rows and the carry rows;
-    the adjoint at the fit's shape (one lane, 60 s) and at 64 lanes over
-    256 blocks, within 1e-5 of each output's largest value and the same
-    bits twice; each kernel's device time beside its bound and the plain
-    version's time.  Returns ``{'fdn': {...}, 'fdn_vjp': {...}}`` at the
-    master bus's shape, the 64-lane numbers under ``lanes64_*``."""
+    at the master bus's shape (one lane, 60 s), at (b)'s (64 lanes,
+    per-lane gains, 60 s: clusters) and at ``Reverb(size=4.0)``'s delays
+    (one lane, 60 s: the rings in global memory), bit for bit, the audio
+    rows and the carry rows; the adjoint's chain and gain kernel at the
+    fit's shape (one lane, 60 s), at 64 lanes over 256 blocks and at size
+    4.0, within 1e-5 of each output's largest value and the same bits
+    twice, and the gain kernel alone on the same inputs as its plain
+    version; each kernel's device time beside its bound, the plain
+    version's time and commit b3cf912's design's.  Returns ``{'fdn': {...},
+    'fdn_vjp': {...}, 'fdn_vjp_gain': {...}}`` at the master bus's shape,
+    the 64-lane numbers under ``lanes64_*``, size 4.0's under ``size4_*``."""
     import torch
     from signals_tpu_torch.compiler import kernels as K
     n60 = n_blocks_60s()
-    lengths = fdn_lengths()
-    L = max(lengths)
     out = {}
-    for lanes, T, key in ((1, n60 * F, ''), (V, n60 * F, 'lanes64_')):
-        lines, inject, g = fdn_inputs(lanes, T, 11 + lanes)
+
+    def keep(kernel, key, numbers):
+        out.setdefault(kernel, {}).update(
+            numbers if not key else {key + k: v for k, v in numbers.items()
+                                     if k in ('err', 'ms', 'plain_ms',
+                                              'bound_ms', 'bound_by')})
+
+    for lanes, T, size, key in ((1, n60 * F, 1.0, ''),
+                                (V, n60 * F, 1.0, 'lanes64_'),
+                                (1, n60 * F, FDN_BIG_SIZE, 'size4_')):
+        lengths = fdn_lengths(size)
+        L = max(lengths)
+        lines, inject, g = fdn_inputs(lanes, T, 11 + lanes, lengths)
         K.reset_launch_counts()
         tl = K.fdn_advance(lines, inject, g, lengths)
         torch.cuda.synchronize()
@@ -4380,22 +4463,38 @@ def fdn_kernels(card):
             lambda: K.fdn_advance_plain(lines, inject, g, lengths), 2)
         nbytes = 4 * lanes * (L * 8 + T + 8 + (L + T) * 8)
         b_ms, b_by = bound(FDN_FLOP * T * lanes, nbytes)
-        print(f'[reverb] fdn_advance, {lanes} lane(s) x {T} frames '
-              f'({-(-T // min(lengths))} turns): vs the plain turn loop max '
+        cluster = K.fdn_cluster(lanes)
+        shared = fdn_rings_shared(lengths)
+        assert shared == (size == 1.0), (size, shared)
+        turn = min(lengths)
+        if cluster and shared:
+            from signals_tpu_torch.compiler import _build
+            resident = _build.library().fdn_cluster_occupancy(
+                K._delays(lengths))
+            design = f'clusters of 8 CTAs, {resident} resident at once'
+        else:
+            design = 'clusters of 8 CTAs' if cluster else 'one CTA a lane'
+        print(f'[reverb] fdn_advance, {fdn_case_name(lanes, size)} x {T} '
+              f'frames ({design}, rings in '
+              f'{"shared" if shared else "global"} memory; '
+              f'{-(-T // turn)} turns of {turn}): vs the plain turn loop max '
               f'abs {err!r}, the same bits {same}, twice {twice}; device '
-              f'{ms:.3f} ms ({how}), bound {b_ms:.4f} ms by {b_by} (share '
-              f'{b_ms / ms:.4f}), plain {plain_ms:.3f} ms  [{card}]')
-        assert same and twice, (lanes, err)
-        fwd = {'err': err, 'ms': ms, 'device_ms': ms, 'device_ms_by': how,
-               'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by}
-        out.setdefault('fdn', {}).update(
-            fwd if not key else {key + k: v for k, v in fwd.items()
-                                 if k in ('err', 'ms', 'plain_ms',
-                                          'bound_ms', 'bound_by')})
+              f'{ms:.3f} ms ({how}; commit b3cf912\'s design '
+              f'{b3cf912_ms("fdn", lanes, size)} ms), bound {b_ms:.4f} ms by '
+              f'{b_by} (share {b_ms / ms:.4f}), plain {plain_ms:.3f} ms  '
+              f'[{card}]')
+        assert same and twice, (lanes, size, err)
+        keep('fdn', key, {'err': err, 'ms': ms, 'device_ms': ms,
+                          'device_ms_by': how, 'plain_ms': plain_ms,
+                          'bound_ms': b_ms, 'bound_by': b_by})
         del lines, inject, g
         torch.cuda.empty_cache()
-    for lanes, T, key in ((1, n60 * F, ''), (V, N_BLOCKS * F, 'lanes64_')):
-        lines, inject, g = fdn_inputs(lanes, T, 21 + lanes)
+    for lanes, T, size, key in ((1, n60 * F, 1.0, ''),
+                                (V, N_BLOCKS * F, 1.0, 'lanes64_'),
+                                (1, n60 * F, FDN_BIG_SIZE, 'size4_')):
+        lengths = fdn_lengths(size)
+        L = max(lengths)
+        lines, inject, g = fdn_inputs(lanes, T, 21 + lanes, lengths)
         tl = K.fdn_advance(lines, inject, g, lengths)
         gtl = torch.randn(tl.shape, device='cuda', generator=torch.Generator(
             'cuda').manual_seed(lanes))
@@ -4403,7 +4502,7 @@ def fdn_kernels(card):
         got = K.fdn_advance_vjp(tl, g, gtl, lengths, L)
         again = K.fdn_advance_vjp(tl, g, gtl, lengths, L)
         torch.cuda.synchronize()
-        assert K.LAUNCHES['fdn_vjp'] == 2
+        assert K.LAUNCHES['fdn_vjp'] == 2 and K.LAUNCHES['fdn_vjp_gain'] == 2
         want = K.fdn_advance_vjp_plain(tl, g, gtl, lengths, L)
         rel = max(rel_max(a, w) for a, w in zip(got, want))
         twice = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -4411,23 +4510,54 @@ def fdn_kernels(card):
         ms, how = kernel_device_ms(
             lambda: K.fdn_advance_vjp(tl, g, gtl, lengths, L), 3,
             ('fdn_advance_vjp',))
+        gain_in_call, _ = kernel_device_ms(
+            lambda: K.fdn_advance_vjp(tl, g, gtl, lengths, L), 3,
+            ('fdn_vjp_gain',))
         plain_ms = cuda_ms(
             lambda: K.fdn_advance_vjp_plain(tl, g, gtl, lengths, L), 1)
-        nbytes = 4 * lanes * (2 * (L + T) * 8 + 8 + L * 8 + T + 8)
+        nbytes = 4 * lanes * ((L + T) * 8 + 8 + T * 8 + L * 8 + T)
         b_ms, b_by = bound(FDN_VJP_FLOP * T * lanes, nbytes)
-        print(f'[reverb] fdn_advance_vjp, {lanes} lane(s) x {T} frames: vs '
-              f'the plain adjoint {rel!r} of the largest value (tol 1e-5), '
-              f'the same bits twice {twice}; device {ms:.3f} ms ({how}), '
-              f'bound {b_ms:.4f} ms by {b_by} (share {b_ms / ms:.4f}), plain '
-              f'{plain_ms:.3f} ms  [{card}]')
-        assert rel <= 1e-5 and twice, (lanes, rel)
-        bwd = {'err': rel, 'ms': ms, 'device_ms': ms, 'device_ms_by': how,
-               'plain_ms': plain_ms, 'bound_ms': b_ms, 'bound_by': b_by}
-        out.setdefault('fdn_vjp', {}).update(
-            bwd if not key else {key + k: v for k, v in bwd.items()
-                                 if k in ('err', 'ms', 'plain_ms',
-                                          'bound_ms', 'bound_by')})
-        del lines, inject, g, tl, gtl
+        print(f'[reverb] fdn_advance_vjp + fdn_vjp_gain, '
+              f'{fdn_case_name(lanes, size)} x {T} frames: vs the plain '
+              f'adjoint {rel!r} of the largest value (tol 1e-5), the same '
+              f'bits twice {twice}; device: chain {ms:.3f} ms ({how}), gain '
+              f'{gain_in_call:.4f} ms, together {ms + gain_in_call:.3f} ms '
+              f'(commit b3cf912\'s design '
+              f'{b3cf912_ms("fdn_vjp", lanes, size)} ms); '
+              f'chain bound {b_ms:.4f} ms by {b_by} (share {b_ms / ms:.4f}), '
+              f'plain adjoint {plain_ms:.3f} ms  [{card}]')
+        assert rel <= 1e-5 and twice, (lanes, size, rel)
+        keep('fdn_vjp', key, {'err': rel, 'ms': ms, 'device_ms': ms,
+                              'device_ms_by': how, 'plain_ms': plain_ms,
+                              'bound_ms': b_ms, 'bound_by': b_by})
+        # the gain kernel alone against its plain version, same inputs
+        ha = torch.randn((lanes, T, 8), device='cuda',
+                         generator=torch.Generator('cuda').manual_seed(3))
+        K.reset_launch_counts()
+        gg = K.fdn_vjp_gain(tl, ha, lengths, L)
+        twice = torch.equal(gg, K.fdn_vjp_gain(tl, ha, lengths, L))
+        torch.cuda.synchronize()
+        assert K.LAUNCHES['fdn_vjp_gain'] == 2
+        gg_p = K.fdn_vjp_gain_plain(tl, ha, lengths, L)
+        rel = rel_max(gg, gg_p)
+        gms, ghow = kernel_device_ms(
+            lambda: K.fdn_vjp_gain(tl, ha, lengths, L), 3, ('fdn_vjp_gain',))
+        gplain = cuda_ms(lambda: K.fdn_vjp_gain_plain(tl, ha, lengths, L), 3)
+        gb_ms, gb_by = bound(FDN_GAIN_FLOP * T * lanes,
+                             4 * lanes * (2 * T * 8 + 8))
+        chunks = K.fdn_gain_chunks(T, lanes, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        print(f'[reverb] fdn_vjp_gain (and its chunk sum), '
+              f'{fdn_case_name(lanes, size)} x {T} frames, {chunks} chunks: '
+              f'vs its plain version {rel!r} of the largest value '
+              f'(tol 1e-5), the same bits twice {twice}; device {gms:.4f} ms '
+              f'({ghow}), bound {gb_ms:.4f} ms by {gb_by} (share '
+              f'{gb_ms / gms:.4f}), plain {gplain:.3f} ms  [{card}]')
+        assert rel <= 1e-5 and twice, (lanes, size, rel)
+        keep('fdn_vjp_gain', key, {'err': rel, 'ms': gms, 'device_ms': gms,
+                                   'device_ms_by': ghow, 'plain_ms': gplain,
+                                   'bound_ms': gb_ms, 'bound_by': gb_by})
+        del lines, inject, g, tl, gtl, ha
         torch.cuda.empty_cache()
     return out
 
@@ -4484,7 +4614,7 @@ def phase_reverb():
     assert bus.plan(n60) == 'mega'
     loss_fn = learn.make_loss_fn(bus, tgt)
     step_launches = {'segments_gen': 1, 'fdn': 1, 'segments_gen_vjp': 1,
-                     'fdn_vjp': 1}
+                     'fdn_vjp': 1, 'fdn_vjp_gain': 1}
 
     def value_and_grads():
         params, leaves = bus.params(), []
@@ -4558,7 +4688,8 @@ def phase_reverb():
            'fdn': 'the master-bus fit, the 64 reverb voices (one 64-lane '
                   'launch a render in both layouts)',
            'segments_gen_vjp': 'the master-bus fit',
-           'fdn_vjp': 'the master-bus fit'}
+           'fdn_vjp': 'the master-bus fit',
+           'fdn_vjp_gain': 'the master-bus fit'}
     return kern, {name: (total[name], f'phase 12: {how[name]}')
                   for name in how}
 
@@ -4693,11 +4824,14 @@ def main() -> int:
          'bound_by': kern[key]['bound_by'],
          # no PyTorch call computes a feedback delay network
          'library_ms': None,
-         **{k: v for k, v in kern[key].items() if k.startswith('lanes64_')}}
+         **{k: v for k, v in kern[key].items()
+            if k.startswith(('lanes64_', 'size4_'))}}
         for name, key, replaces in (
             ('fdn_advance', 'fdn', 'signals_tpu/nodes/reverb.py:189'),
             ('fdn_advance_vjp', 'fdn_vjp', 'signals_tpu/nodes/reverb.py:'
-             '171-189 (JAX autodiff of the scan)'))]}))
+             '171-189 (JAX autodiff of the scan)'),
+            ('fdn_vjp_gain', 'fdn_vjp_gain', 'signals_tpu/nodes/reverb.py:'
+             '171-189 (JAX autodiff of the scan: the gains\' cotangent)'))]}))
     print(card_line())
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -132,11 +132,18 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.ima_encode_launch.argtypes = [p, q, i, i, i, p, p]
     lib.ima_encode_launch.restype = i
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.fdn_advance_launch.argtypes = [p, p, p, p, i, i, i, i, f, ints, p]
+    lib.fdn_ring_shared.argtypes = [ints]
+    lib.fdn_ring_shared.restype = i
+    lib.fdn_cluster_occupancy.argtypes = [ints]
+    lib.fdn_cluster_occupancy.restype = i
+    lib.fdn_advance_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, f,
+                                       ints, p]
     lib.fdn_advance_launch.restype = i
-    lib.fdn_advance_vjp_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i,
-                                           f, ints, p]
+    lib.fdn_advance_vjp_launch.argtypes = [p, p, p, p, p, p, i, i, i, f,
+                                           ints, p]
     lib.fdn_advance_vjp_launch.restype = i
+    lib.fdn_vjp_gain_launch.argtypes = [p, p, p, p, i, i, i, i, ints, p]
+    lib.fdn_vjp_gain_launch.restype = i
     lib.signals_partial_width.argtypes = [i, i, i, i, i, i]
     lib.signals_partial_width.restype = i
     lib.signals_cuda_error_string.argtypes = [i]

@@ -59,11 +59,12 @@ OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
 #: (``*_vjp``: the backward kernels of ``csrc/adjoint.cu``; ``ima``: the
 #: IMA ADPCM encoder of ``csrc/codecs.cu``, launched by
 #: :func:`signals_tpu_torch.runtime.codecs.ima_encode`; ``fdn`` /
-#: ``fdn_vjp``: the reverb's network and its adjoint, ``csrc/fdn.cu``)
+#: ``fdn_vjp``: the reverb's network and its adjoint's serial chain,
+#: ``fdn_vjp_gain``: the adjoint's gain sums, ``csrc/fdn.cu``)
 LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0,
             'stream': 0, 'segments_gen_vjp': 0, 'segments_vjp': 0,
             'batch_vjp': 0, 'timeline_vjp': 0, 'stream_vjp': 0, 'ima': 0,
-            'fdn': 0, 'fdn_vjp': 0}
+            'fdn': 0, 'fdn_vjp': 0, 'fdn_vjp_gain': 0}
 
 #: sections per lane the segment kernels take (the Butterworth designs: 1
 #: for low/high-pass, 2 for band-pass/band-stop)
@@ -1177,20 +1178,43 @@ def fdn_advance(lines, inject, g, lengths):
     return _fdn_run(lines, inject, g, lengths)
 
 
-def _fdn_group(dev, lanes: int) -> int:
-    """Lanes a CTA of the FDN kernels works: one CTA per lane while the
-    lanes do not outnumber the SMs, else the fewest lanes a CTA (a power of
-    two, at most 8: a warp's reads of one line then fill whole 32-byte
-    sectors) that keep to one wave."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    group = 1
-    while group < 8 and -(-lanes // group) > sms:
-        group *= 2
-    return group
+#: CTAs (lanes) of a thread-block cluster of the forward kernel
+FDN_CLUSTER = 8
+
+
+def fdn_cluster(lanes: int) -> bool:
+    """Whether the forward kernel runs ``lanes`` lanes as clusters of
+    :data:`FDN_CLUSTER` CTAs (a CTA a lane; each stages its rows whole and
+    stores a share of 8 lanes' rows as whole 32-byte runs): from 8 lanes
+    on.  Below that one CTA a lane stores its own rows."""
+    return lanes >= FDN_CLUSTER
+
+
+def fdn_gain_chunks(T: int, lanes: int, sms: int) -> int:
+    """Chunks of the window's rows the gain kernel ``fdn_vjp_gain`` sums
+    apart (then adds in chunk order): about two CTAs an SM over the
+    ``ceil(8 lanes / 1024)`` pair groups, at least 32 products a thread."""
+    groups = -(-FDN_LINES * lanes // 1024)
+    per_sm = max(1, 2 * sms // groups)
+    return max(1, min(per_sm, T * FDN_LINES * lanes // (1024 * 32)))
 
 
 def _delays(lengths):
     return (ctypes.c_int * FDN_LINES)(*lengths)
+
+
+def _fdn_rings(lib, dev, lengths, ctas: int):
+    """The global scratch for the kernels' delay rings (``sum(lengths)``
+    floats a CTA), or None where they fit a block's shared memory."""
+    if lib.fdn_ring_shared(_delays(lengths)):
+        return None
+    return torch.empty(ctas * sum(lengths), dtype=torch.float32, device=dev)
+
+
+def _aligned(t):
+    """``t``, copied where its data is not 16-byte aligned (the one-lane
+    kernels move whole rows as float4)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _fdn_run(lines, inject, g, lengths):
@@ -1200,13 +1224,20 @@ def _fdn_run(lines, inject, g, lengths):
     lib = _build.library()
     L, n, lanes = lines.shape
     T = inject.shape[0]
+    dev = lines.device
     lines, inject, g = (t.contiguous() for t in (lines, inject, g))
-    tl = torch.empty((L + T, n, lanes), dtype=torch.float32,
-                     device=lines.device)
+    tl = torch.empty((L + T, n, lanes), dtype=torch.float32, device=dev)
+    cluster = fdn_cluster(lanes)
+    ctas = -(-lanes // FDN_CLUSTER) * FDN_CLUSTER if cluster else lanes
+    rings = _fdn_rings(lib, dev, lengths, ctas)
+    # the clusters' staged rows: two turns a CTA
+    stage = (torch.empty((ctas, 2, min(lengths), n), dtype=torch.float32,
+                         device=dev) if cluster else None)
     code = lib.fdn_advance_launch(
         lines.data_ptr(), inject.data_ptr(), g.data_ptr(), tl.data_ptr(),
-        L, T, lanes, _fdn_group(lines.device, lanes), float(H8[0, 0]),
-        _delays(lengths), _stream(lines.device))
+        None if rings is None else rings.data_ptr(),
+        None if stage is None else stage.data_ptr(), L, T, lanes,
+        int(cluster), float(H8[0, 0]), _delays(lengths), _stream(dev))
     _build.check(code, 'fdn_advance')
     LAUNCHES['fdn'] += 1
     return tl
@@ -1238,7 +1269,9 @@ def fdn_advance_vjp(tl, g, gtl, lengths, L: int):
     ``tl`` ``(L + T, 8, lanes)``, its gains ``g`` ``(8, lanes)`` (both at
     the full lane count) and the timeline's cotangent ``gtl``, the
     cotangents ``(glines (L, 8, lanes), ginject (T, lanes), gg (8,
-    lanes))``.  On a GPU the kernel ``fdn_advance_vjp`` of ``csrc/fdn.cu``,
+    lanes))``.  On a GPU two kernels of ``csrc/fdn.cu``: the serial chain
+    ``fdn_advance_vjp`` (``LAUNCHES['fdn_vjp']``), which writes ``H u`` of
+    the window's rows, then :func:`fdn_vjp_gain` (``'fdn_vjp_gain'``),
     which sums ``gg`` over time in a fixed order (the same bits on every
     run)."""
     lengths = tuple(int(d) for d in lengths)
@@ -1249,19 +1282,56 @@ def fdn_advance_vjp(tl, g, gtl, lengths, L: int):
     n, lanes = tl.shape[1], tl.shape[2]
     T = tl.shape[0] - L
     dev = tl.device
-    tl, g, gtl = (t.contiguous() for t in (tl, g, gtl))
-    ha = torch.empty((T, n, lanes), dtype=torch.float32, device=dev)
+    tl, g = tl.contiguous(), g.contiguous()
+    gtl = _aligned(gtl.contiguous())
+    hu = torch.empty((lanes, T, n), dtype=torch.float32, device=dev)
     glines = torch.empty((L, n, lanes), dtype=torch.float32, device=dev)
     ginject = torch.empty((T, lanes), dtype=torch.float32, device=dev)
-    gg = torch.empty((n, lanes), dtype=torch.float32, device=dev)
+    rings = _fdn_rings(lib, dev, lengths, lanes)
     code = lib.fdn_advance_vjp_launch(
-        tl.data_ptr(), g.data_ptr(), gtl.data_ptr(), ha.data_ptr(),
-        glines.data_ptr(), ginject.data_ptr(), gg.data_ptr(), L, T, lanes,
-        _fdn_group(dev, lanes), float(H8[0, 0]), _delays(lengths),
-        _stream(dev))
+        gtl.data_ptr(), g.data_ptr(),
+        None if rings is None else rings.data_ptr(), hu.data_ptr(),
+        glines.data_ptr(), ginject.data_ptr(), L, T, lanes,
+        float(H8[0, 0]), _delays(lengths), _stream(dev))
     _build.check(code, 'fdn_advance_vjp')
     LAUNCHES['fdn_vjp'] += 1
-    return glines, ginject, gg
+    return glines, ginject, fdn_vjp_gain(tl, hu, lengths, L)
+
+
+def fdn_vjp_gain_plain(tl, hu, lengths, L: int):
+    """Plain PyTorch version of :func:`fdn_vjp_gain`."""
+    T = hu.shape[1]
+    return torch.stack([(tl[L - d:L - d + T, j] * hu[:, :, j].T).sum(dim=0)
+                        for j, d in enumerate(lengths)])
+
+
+def fdn_vjp_gain(tl, hu, lengths, L: int):
+    """The gains' cotangent ``gg[j, c] = sum_t tl[L + t - d_j, j, c] *
+    hu[c, t, j]`` (``(8, lanes)``) from the forward's timeline ``tl`` and
+    ``hu`` ``(lanes, T, 8)``, the ``H u`` of the window's rows that the
+    adjoint's chain writes (lane-major: a row whole at any lane count).  On
+    a GPU the kernel ``fdn_vjp_gain`` of ``csrc/fdn.cu`` (then its chunk
+    sum): per chunk of rows a fixed-order sum, the chunks added in order,
+    so the same bits on every run."""
+    lengths = tuple(int(d) for d in lengths)
+    if _device_kind(tl, hu) == 'cpu':
+        return fdn_vjp_gain_plain(tl, hu, lengths, L)
+    from signals_tpu_torch.compiler import _build
+    lib = _build.library()
+    lanes, T, n = hu.shape
+    dev = hu.device
+    tl, hu = tl.contiguous(), hu.contiguous()
+    chunks = fdn_gain_chunks(
+        T, lanes, torch.cuda.get_device_properties(dev).multi_processor_count)
+    partial = torch.empty((chunks, lanes, n), dtype=torch.float32,
+                          device=dev)
+    gg = torch.empty((n, lanes), dtype=torch.float32, device=dev)
+    code = lib.fdn_vjp_gain_launch(
+        tl.data_ptr(), hu.data_ptr(), partial.data_ptr(), gg.data_ptr(), L,
+        T, lanes, chunks, _delays(lengths), _stream(dev))
+    _build.check(code, 'fdn_vjp_gain')
+    LAUNCHES['fdn_vjp_gain'] += 1
+    return gg
 
 
 class _FdnFn(torch.autograd.Function):

@@ -10,9 +10,17 @@ through both packages:
   the plain adjoint against ``torch.autograd`` of that loop within 1e-5 of
   the largest gradient: one lane at the reverb's delays, three lanes with
   per-lane gains, a window shorter than a turn, lines clamped to a block;
-* a numpy float32 model of the adjoint kernel's walk (turns aligned at the
-  timeline's end, straddling the carried rows; the Walsh-Hadamard
-  transform) against the plain adjoint;
+* a numpy float32 model of the forward kernel's walk (each line a ring
+  of ``d_j`` slots filled from the carried lines, frame ``t`` reading then
+  writing slot ``t mod d_j``, turns of ``min(d)`` frames; the rows stored
+  as they are made, or, as the clusters do, staged in two buffers by the
+  turn's parity and stored from there after the next turn has run)
+  against the plain network bit for bit, carry rows included;
+* a numpy float32 model of the adjoint kernels' walk (turns aligned at the
+  timeline's end, straddling the carried rows; ``H u`` in zeroed rings of
+  ``d_j`` slots, the Walsh-Hadamard transform; then the gain sums in the
+  gain kernel's order: slices of a chunk, the slices, the chunks) against
+  the plain adjoint;
 * the entry under ``vmap``: one plain call for three voices with per-voice
   gains, bit for bit the three calls, no per-voice fallback, and its
   gradients;
@@ -26,8 +34,11 @@ through both packages:
   fit through the reverb that lowers the loss.
 
 On the card (``-m cuda``, skipped here): both kernels against their plain
-versions at one lane and at 64 folded lanes with per-lane gains, the
-forward bit for bit, the adjoint within 1e-5 and the same bits twice.
+versions at one lane and at 3, 8 and 64 folded lanes with per-lane gains,
+at the clamped delays, over a window shorter than the longest delay, and
+at ``Reverb(size=4.0)``'s delays (rings in global memory), the forward bit
+for bit, the adjoint within 1e-5 and the same bits twice, the launches
+counted.
 """
 
 import importlib
@@ -80,7 +91,10 @@ FDN_CASES = {
     'lanes': (3, 5000, BUS_LENGTHS),
     'short': (2, 700, BUS_LENGTHS),
     'clamped': (1, 9 * 1024, (1024,) * 8),
+    'window': (2, 2000, BUS_LENGTHS),   # longer than a turn, < max(d)
 }
+#: the Hadamard matrix's signs, ``H8 / h``
+SIGNS = np.sign(K.H8).astype(np.float32)
 
 
 def fdn_inputs(name, seed=0):
@@ -149,54 +163,186 @@ def fwht8(v):
     return v
 
 
-def fdn_vjp_kernel_model(tl, g, gtl, lengths, L):
+def ring_offsets(lengths):
+    """Each line's first slot in a lane's ``sum(lengths)`` ring floats."""
+    return np.concatenate([[0], np.cumsum(lengths)[:-1]]).astype(np.int64)
+
+
+def fdn_ring_model(lines, inject, g, lengths, cluster=False):
+    """The walk of ``csrc/fdn.cu``'s ``fdn_advance`` in numpy float32: line
+    ``j`` a ring of ``d_j`` slots, slot ``s`` filled with row ``L - d_j +
+    s``; frame ``t`` reads slot ``t mod d_j``, mixes with the kernel's
+    operations (``h * (r * g)``, the sign-flipped sums in the order ``j =
+    0 .. 7``, then the inject) and writes its value to the same slot, in
+    turns of ``min(d)`` frames.  One CTA a lane stores each frame's row as
+    it is made; ``cluster``: turn ``k``'s rows go to staging buffer ``k %
+    2`` and are stored from there once turn ``k + 1`` has run (the export
+    of a turn overlaps the next turn, which fills the other buffer), the
+    last turn's after the loop."""
+    lines, inject, g = (np.asarray(a, np.float32) for a in (lines, inject, g))
+    L, n, lanes = lines.shape
+    T = inject.shape[0]
+    h = np.float32(K.H8[0, 0])
+    off = ring_offsets(lengths)
+    ring = np.full((sum(lengths), lanes), np.nan, np.float32)
+    for j, d in enumerate(lengths):
+        ring[off[j]:off[j] + d] = lines[L - d:L, j]
+    tl = np.full((L + T, n, lanes), np.nan, np.float32)
+    tl[:L] = lines
+    turn = min(lengths)
+    stage = np.full((2, turn, n, lanes), np.nan, np.float32)
+
+    def slots(f):
+        return [off[j] + f % d for j, d in enumerate(lengths)]
+
+    def export(k, f):
+        tl[L + f] = stage[k % 2, :len(f)]
+
+    pending = None
+    for k, t0 in enumerate(range(0, T, turn)):
+        f = np.arange(t0, min(t0 + turn, T))
+        at = slots(f)
+        hf = np.stack([h * (ring[at[j]] * g[j]) for j in range(n)], axis=1)
+        y = np.empty_like(hf)
+        for i in range(n):
+            acc = hf[:, 0]
+            for j in range(1, n):
+                acc = acc + SIGNS[i, j] * hf[:, j]
+            y[:, i] = acc + inject[f]
+        for i in range(n):
+            ring[at[i]] = y[:, i]
+        if not cluster:
+            tl[L + f] = y
+            continue
+        stage[k % 2, :len(f)] = y
+        if pending is not None:
+            export(*pending)
+        pending = k, f
+    if pending is not None:
+        export(*pending)
+    return tl
+
+
+@pytest.mark.parametrize('cluster', [False, True], ids=['cta', 'cluster'])
+@pytest.mark.parametrize('name', sorted(FDN_CASES))
+def test_fdn_ring_model_equals_plain(name, cluster):
+    lines, inject, g, lengths = fdn_inputs(name)
+    want = K.fdn_advance_plain(lines, inject, g, lengths)
+    got = fdn_ring_model(lines, inject, g, lengths, cluster)
+    assert np.array_equal(got, to_np(want))
+
+
+def fdn_gain_model(tl, ha, lengths, L, chunks):
+    """``fdn_vjp_gain`` then ``fdn_vjp_gain_sum`` in numpy float32: pair
+    ``q = c * 8 + j`` (lane-major, as the chain stores ``H u``); per chunk
+    of rows and group of up to 1024 pairs, ``S = 1024 // pairs`` slices,
+    slice ``s`` summing rows ``a + s, a + s + S, ...`` in order, then the
+    slices in order; then the chunks in order."""
+    T, n, lanes = ha.shape
+    P = n * lanes
+    prod = np.stack([tl[L - d:L - d + T, j] * ha[:, j]
+                     for j, d in enumerate(lengths)], axis=2).reshape(T, P)
+    partial = np.zeros((chunks, P), np.float32)
+    for q0 in range(0, P, 1024):
+        npair = min(1024, P - q0)
+        S = 1024 // npair
+        for c in range(chunks):
+            a, b = T * c // chunks, T * (c + 1) // chunks
+            rows = prod[a:b, q0:q0 + npair]
+            m = -(-(b - a) // S)
+            pad = np.zeros((m * S, npair), np.float32)
+            pad[:b - a] = rows
+            acc = np.zeros((S, npair), np.float32)
+            for blk in pad.reshape(m, S, npair):
+                acc = acc + blk
+            s = np.zeros(npair, np.float32)
+            for k in range(S):
+                s = s + acc[k]
+            partial[c, q0:q0 + npair] = s
+    gg = np.zeros(P, np.float32)
+    for c in range(chunks):
+        gg = gg + partial[c]
+    return gg.reshape(lanes, n).T
+
+
+def fdn_vjp_kernel_model(tl, g, gtl, lengths, L, chunks):
     """The walk of ``csrc/fdn.cu``'s ``fdn_advance_vjp`` in numpy float32:
     turns of ``min(lengths)`` rows from the timeline's end down to row 0
-    (a turn may hold carried rows and window rows), each row's cotangent
-    read from the rows ``d_j`` later through the stored ``H u``."""
+    (a turn may hold carried rows and window rows).  Line ``j``'s ``(H
+    u)_j`` lives in a ring of ``d_j`` slots, all zero at first: row ``p``
+    reads slot ``(p - L) mod d_j``, then writes its own ``(H u)_j`` there
+    (zero for a carried row); the chain writes ``H u`` into ``ha``, and
+    :func:`fdn_gain_model` forms the gain sums from it in ``chunks``
+    chunks."""
     tl, g, gtl = (np.asarray(a, np.float32) for a in (tl, g, gtl))
     T = tl.shape[0] - L
     lanes = tl.shape[2]
     h = np.float32(K.H8[0, 0])
-    ha = np.zeros((T, 8, lanes), np.float32)
-    glines = np.zeros((L, 8, lanes), np.float32)
-    ginject = np.zeros((T, lanes), np.float32)
-    gg = np.zeros((8, lanes), np.float32)
+    off = ring_offsets(lengths)
+    ring = np.zeros((sum(lengths), lanes), np.float32)
+    ha = np.full((T, 8, lanes), np.nan, np.float32)
+    glines = np.full((L, 8, lanes), np.nan, np.float32)
+    ginject = np.full((T, lanes), np.nan, np.float32)
     turn = min(lengths)
     p1 = L + T
     while p1 > 0:
         p0 = max(p1 - turn, 0)
         p = np.arange(p0, p1)
+        at = [off[j] + (p - L) % d for j, d in enumerate(lengths)]
         u = gtl[p0:p1].copy()
-        for j, d in enumerate(lengths):
-            q = p + d
-            ok = (q >= L) & (q < L + T)
-            u[ok, j] += g[j] * ha[q[ok] - L, j]
+        for j in range(8):
+            u[:, j] += g[j] * ring[at[j]]
         low = p < L
         glines[p[low]] = u[low]
         hi = ~low
         t = p[hi] - L
-        ginject[t] = u[hi].sum(axis=1)
+        s = u[hi, 0]
+        for j in range(1, 8):
+            s = s + u[hi, j]
+        ginject[t] = s
         hu = h * fwht8(u[hi])
         ha[t] = hu
-        for j, d in enumerate(lengths):
-            gg[j] += (tl[p[hi] - d, j] * hu[:, j]).sum(axis=0)
+        for j in range(8):
+            ring[at[j][low]] = 0.0
+            ring[at[j][hi]] = hu[:, j]
         p1 -= turn
-    return glines, ginject, gg
+    return glines, ginject, fdn_gain_model(tl, ha, lengths, L, chunks), ha
 
 
 @pytest.mark.parametrize('name', sorted(FDN_CASES))
 def test_fdn_vjp_kernel_model_matches_plain(name):
+    """At the gain kernel's chunking on a 132-SM card and at 7 chunks."""
     lines, inject, g, lengths = fdn_inputs(name)
-    L = lines.shape[0]
+    L, T, lanes = lines.shape[0], inject.shape[0], g.shape[1]
     gtl = torch.tensor(np.random.default_rng(2).standard_normal(
-        (L + inject.shape[0], 8, g.shape[1])), dtype=torch.float32)
+        (L + T, 8, lanes)), dtype=torch.float32)
     tl = K.fdn_advance(lines, inject, g, lengths)
     want = K.fdn_advance_vjp(tl, g, gtl, lengths, L)
-    got = fdn_vjp_kernel_model(tl, g, gtl, lengths, L)
-    for a, b in zip(got, want):
-        assert float(np.abs(a - to_np(b)).max()) <= (
-            1e-5 * float(b.abs().max()))
+    for chunks in (K.fdn_gain_chunks(T, lanes, 132), 7):
+        *got, ha = fdn_vjp_kernel_model(tl, g, gtl, lengths, L, chunks)
+        for a, b in zip(got, want):
+            assert np.isfinite(a).all()
+            assert float(np.abs(a - to_np(b)).max()) <= (
+                1e-5 * float(b.abs().max()))
+    # the gain step's wrapper (its plain version here) on the chain's H u,
+    # lane-major as the chain stores it
+    gg = K.fdn_vjp_gain(tl, torch.from_numpy(ha).permute(2, 0, 1), lengths,
+                        L)
+    assert float((gg - want[2]).abs().max()) <= 1e-5 * float(
+        want[2].abs().max())
+
+
+def test_fdn_kernel_plans():
+    """The forward's lane ranges (one CTA a lane below 8 lanes, clusters of
+    8 from 8 on) and the gain kernel's chunking (about two CTAs an SM, at
+    least 32 products a thread)."""
+    assert [K.fdn_cluster(n) for n in (1, 3, 7, 8, 64, 65)] == [
+        False, False, False, True, True, True]
+    assert K.fdn_gain_chunks(2584 * 1024, 1, 132) == 264
+    assert K.fdn_gain_chunks(2584 * 1024, 256, 132) == 132
+    assert K.fdn_gain_chunks(16 * F, 1, 132) == 1
+    assert K.fdn_gain_chunks(0, 1, 132) == 1
+    assert K.fdn_gain_chunks(5000, 3, 132) == 3
 
 
 def test_fdn_entry_under_vmap_is_one_call(monkeypatch):
@@ -462,50 +608,87 @@ def test_vmap_layout_fit_through_reverb_lowers_loss():
 
 # --- on the card ----------------------------------------------------------------
 
+#: the reverb's delays at 44.1 kHz, size 4.0: rings of 286 KiB a lane, more
+#: than a block's shared memory (the kernels keep them in global memory)
+SIZE4_LENGTHS = (5239, 6544, 7250, 7709, 9402, 10884, 12225, 14059)
+#: name: (lanes, window frames, delays)
+CARD_CASES = {
+    'bus': (1, 64 * 1024, BUS_LENGTHS),
+    'lanes3': (3, 16 * 1024, BUS_LENGTHS),
+    'lanes8': (8, 16 * 1024, BUS_LENGTHS),
+    'lanes64': (64, 16 * 1024, BUS_LENGTHS),
+    'clamped': (1, 9 * 1024, (1024,) * 8),
+    'clamped8': (8, 9 * 1024, (1024,) * 8),
+    'window': (1, 2000, BUS_LENGTHS),
+    'size4': (1, 64 * 1024, SIZE4_LENGTHS),
+    'size4_lanes8': (8, 16 * 1024, SIZE4_LENGTHS),
+}
 
-def card_inputs(lanes, T, seed):
+
+def card_inputs(name, seed):
+    lanes, T, lengths = CARD_CASES[name]
     rng = np.random.default_rng(seed)
-    lines = 0.2 * rng.standard_normal((max(BUS_LENGTHS), 8, lanes))
+    lines = 0.2 * rng.standard_normal((max(lengths), 8, lanes))
     inject = 0.1 * rng.standard_normal((T, lanes))
     g = rng.uniform(0.5, 0.99, (8, lanes))
     return [torch.tensor(a, dtype=torch.float32, device='cuda')
-            for a in (lines, inject, g)]
+            for a in (lines, inject, g)] + [lengths]
+
+
+def card_rings_shared(lengths):
+    from signals_tpu_torch.compiler import _build
+    return bool(_build.library().fdn_ring_shared(K._delays(lengths)))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('lanes,T', [(1, 64 * 1024), (64, 16 * 1024)])
-def test_cuda_fdn_advance_matches_plain(lanes, T):
-    """The kernel gives the plain turn loop's bits, one lane at the master
-    bus's delays and 64 lanes (folded voices) with per-lane gains."""
+@pytest.mark.parametrize('name', sorted(CARD_CASES))
+def test_cuda_fdn_advance_matches_plain(name):
+    """The kernel gives the plain turn loop's bits: one lane at the master
+    bus's delays, 3 lanes (a CTA each), 8 and 64 lanes (clusters) with
+    per-lane gains, the clamped delays (ring = turn), a window shorter
+    than the longest delay, and ``Reverb(size=4.0)``'s delays (rings in
+    global memory), the carry rows included; twice the same bits."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
-    lines, inject, g = card_inputs(lanes, T, 5)
+    lines, inject, g, lengths = card_inputs(name, 5)
+    assert card_rings_shared(lengths) == (not name.startswith('size4'))
+    assert K.fdn_cluster(g.shape[1]) == (g.shape[1] >= 8)
     K.reset_launch_counts()
-    got = K.fdn_advance(lines, inject, g, BUS_LENGTHS)
+    got = K.fdn_advance(lines, inject, g, lengths)
+    again = K.fdn_advance(lines, inject, g, lengths)
     torch.cuda.synchronize()
-    assert K.LAUNCHES['fdn'] == 1
-    assert torch.equal(got, K.fdn_advance_plain(lines, inject, g,
-                                                BUS_LENGTHS))
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {'fdn': 2}
+    assert torch.equal(got, K.fdn_advance_plain(lines, inject, g, lengths))
+    assert torch.equal(got, again)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('lanes,T', [(1, 64 * 1024), (64, 16 * 1024)])
-def test_cuda_fdn_advance_vjp_matches_plain(lanes, T):
-    """The adjoint kernel within 1e-5 of each plain output's largest value,
-    the same bits twice."""
+@pytest.mark.parametrize('name', sorted(CARD_CASES))
+def test_cuda_fdn_advance_vjp_matches_plain(name):
+    """The adjoint's chain and gain kernels within 1e-5 of each plain
+    output's largest value, the same bits twice."""
     if not torch.cuda.is_available():
         pytest.skip('needs an NVIDIA GPU')
-    lines, inject, g = card_inputs(lanes, T, 6)
+    lines, inject, g, lengths = card_inputs(name, 6)
     L = lines.shape[0]
-    tl = K.fdn_advance(lines, inject, g, BUS_LENGTHS)
+    tl = K.fdn_advance(lines, inject, g, lengths)
     gtl = torch.randn(tl.shape, device='cuda',
                       generator=torch.Generator('cuda').manual_seed(7))
     K.reset_launch_counts()
-    got = K.fdn_advance_vjp(tl, g, gtl, BUS_LENGTHS, L)
-    again = K.fdn_advance_vjp(tl, g, gtl, BUS_LENGTHS, L)
+    got = K.fdn_advance_vjp(tl, g, gtl, lengths, L)
+    again = K.fdn_advance_vjp(tl, g, gtl, lengths, L)
     torch.cuda.synchronize()
-    assert K.LAUNCHES['fdn_vjp'] == 2
-    want = K.fdn_advance_vjp_plain(tl, g, gtl, BUS_LENGTHS, L)
+    assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {
+        'fdn_vjp': 2, 'fdn_vjp_gain': 2}
+    want = K.fdn_advance_vjp_plain(tl, g, gtl, lengths, L)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         assert float((a - w).abs().max()) <= 1e-5 * float(w.abs().max())
+    ha = torch.randn((g.shape[1], tl.shape[0] - L, 8), device='cuda',
+                     generator=torch.Generator('cuda').manual_seed(8))
+    K.reset_launch_counts()
+    gg = K.fdn_vjp_gain(tl, ha, lengths, L)
+    assert torch.equal(gg, K.fdn_vjp_gain(tl, ha, lengths, L))
+    assert K.LAUNCHES['fdn_vjp_gain'] == 2
+    w = K.fdn_vjp_gain_plain(tl, ha, lengths, L)
+    assert float((gg - w).abs().max()) <= 1e-5 * float(w.abs().max())
