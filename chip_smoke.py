@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Twelve phases; any failure raises and exits non-zero:
+Thirteen phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
@@ -192,7 +192,13 @@ Twelve phases; any failure raises and exits non-zero:
    time and the wall of render + encode + fetch beside the f32 fetch's, and
    SLAC v2's peak memory; then the IMA kernel against its plain loop, byte
    for byte, at 1, 2, 16 and 64 channels and 1017 / 505 samples a block,
-   with its device time beside its bound and the loop's time; (b) the mono
+   with its device time beside its bound and the loop's time, and its
+   chains alone (``scripts/torch_ima_variants.py``'s chain-only patch:
+   the serial floor) at 1 and 64 channels, then at the edges of its tiles
+   (``IMA_EDGES``: 33
+   channels, 3 channels, a short last block, renders shorter than a
+   block) and on NaN samples (encoded as 0, as the JAX package's encoder
+   does), byte for byte; (b) the mono
    swept voice on the ``default`` sink at 2 channels: ``render_offline``
    for 60 s (``{K1: 1}``, 1e-5 of the oracle over 32 blocks),
    ``render_offline_encoded`` for every subtype from block 0 and from block
@@ -256,6 +262,18 @@ Twelve phases; any failure raises and exits non-zero:
    ``Reverb``, 60 s, in the vmap layout (one 64-lane ``fdn`` launch, the
    voices folded) and the channels layout, within 64 x 1e-5 of each
    other, with their peak memory.
+
+13. **The voice mesh on the card** (``[mesh]`` lines): a one-rank NCCL
+   process group (a ``file://`` store under ``build/``), the flagship (64
+   voices, 256 blocks) through ``PolyPatch(mesh=voice_mesh(1))`` in the
+   channels layout (mix epilogue) and the vmap layout, each with its
+   launch counts reset just before it and checked just after (``{K1:
+   1}``), bit for bit the same patch without a mesh (a sum over one rank is
+   a copy), the ``all_reduce``'s device time and both walls; a 3-step
+   sharded ``PolyPatch.fit`` (vmap layout, per-voice pitches and the shared
+   output gain, ``{K1: 3, B1: 3}``) whose losses and gradients are held to
+   the unsharded fit's within 1e-4 relative; the group torn down.  World
+   sizes above 1 need more GPUs than the card.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -3461,6 +3479,12 @@ NULL_SECONDS = 3.0          # (c) the static voice on the null sink
 #: update and clamp (4), the nibble packing (3), the loop (2)
 IMA_OPS = 40
 IMA_SHAPES = tuple((ch, spb) for ch in (1, 2, 16, 64) for spb in (1017, 505))
+#: (ch, spb, frames) at the edges of the kernel's tiles: a wide block in
+#: groups of 32 and 1 channels, 3 channels (10 whole blocks a tile, 2 lanes
+#: idle), a short last block, renders shorter than one block
+IMA_EDGES = ((33, 1017, 3 * 1017 - 339), (33, 505, 200), (3, 505, 40 * 505
+             - 168), (1, 1017, 500), (40, 9, 9 * 70 - 3), (2, 1017, 33 *
+             1017 - 1))
 
 
 def device_encoders():
@@ -3519,8 +3543,11 @@ def wall_ms(fn, reps=3):
 def ima_kernel(mix, card):
     """The IMA kernel against its plain loop at ``IMA_SHAPES`` (the mix's
     frames less 7, scaled per channel past full scale), byte for byte and
-    the same bytes twice, each with its device time beside its bound;
-    returns the kernel's record at the flagship mix (1 channel, 1017)."""
+    the same bytes twice, each with its device time beside its bound, and
+    the chains alone (:func:`ima_chain_only`) at 1 and 64 channels; then at
+    the tiles' edges (``IMA_EDGES``) and on NaN samples (encoded as 0),
+    byte for byte.  Returns the kernel's record at the flagship mix (1
+    channel, 1017), its chain floor in ``chain_floor_ms``."""
     import torch
     from signals_tpu_torch.compiler import kernels as K
     from signals_tpu_torch.runtime import codecs
@@ -3550,7 +3577,7 @@ def ima_kernel(mix, card):
         b_ms, b_by = bound(IMA_OPS * nb * (spb - 1) * ch,
                            frames * ch * 4 + got.numel())
         print(f'[out] IMA kernel, {frames} frames x {ch} ch, '
-              f'samples_per_block {spb} ({nb} blocks, {nb * ch} threads): '
+              f'samples_per_block {spb} ({nb} blocks, {nb * ch} chains): '
               f'{"byte-identical" if same else "DIFFERS"} to the plain loop, '
               f'the same bytes twice; device {dms:.4f} ms ({how}), bound '
               f'{b_ms:.5f} ms ({b_by}), plain loop {plain_ms:.1f} ms (CUDA '
@@ -3560,8 +3587,94 @@ def ima_kernel(mix, card):
             ms = cuda_ms(lambda: codecs.ima_encode(x), 20)
             record = dict(err=0.0, ms=ms, plain_ms=plain_ms, device_ms=dms,
                           device_ms_by=how, bound_ms=b_ms, bound_by=b_by)
+        if spb == 1017 and ch in (1, 64):
+            floor = device_ms(lambda: ima_chain_only(x, spb), 5,
+                              ('ima_encode',))
+            print(f'[out] IMA kernel, {ch} ch x {spb}: the chains alone '
+                  f'(samples from registers, nothing loaded; the serial '
+                  f'floor) device {floor:.4f} ms  [{card}]')
+            if ch == 1:
+                record['chain_floor_ms'] = floor
         del x, got, again, want
+    for ch, spb, n in IMA_EDGES:
+        x = (mix[:n] * torch.linspace(0.5, 2.5, ch, device=mix.device)
+             ).contiguous()
+        got = launched(f'IMA kernel, tile edge: {n} frames x {ch} ch, '
+                       f'samples_per_block {spb}',
+                       lambda: codecs.ima_encode(x, samples_per_block=spb),
+                       {'ima': 1}, quiet=True)
+        want = codecs.ima_encode_plain(x, samples_per_block=spb)
+        same = torch.equal(got, want)
+        print(f'[out] IMA kernel, tile edge: {n} frames x {ch} ch, '
+              f'samples_per_block {spb}: '
+              f'{"byte-identical" if same else "DIFFERS"} to the plain loop')
+        assert same, (ch, spb, n)
+    for ch, spb in ((1, 1017), (33, 505)):
+        # NaN samples: a block's first, its second and one inside it
+        x = (mix[:3 * spb + 5] * torch.linspace(0.5, 2.5, ch,
+                                                device=mix.device)
+             ).contiguous()
+        for at in (0, spb + 1, 2 * spb + spb // 2):
+            x[at, 0] = float('nan')
+            x[at + 3, -1] = float('nan')
+        got = launched(f'IMA kernel, NaN samples, {ch} ch x {spb}',
+                       lambda: codecs.ima_encode(x, samples_per_block=spb),
+                       {'ima': 1}, quiet=True)
+        want = codecs.ima_encode_plain(x, samples_per_block=spb)
+        zeroed, _ = codecs.ima_encode_np(
+            torch.nan_to_num(x, nan=0.0).cpu().numpy(),
+            samples_per_block=spb)
+        same = (torch.equal(got, want)
+                and np.array_equal(got.cpu().numpy(), zeroed))
+        print(f'[out] IMA kernel, NaN samples, {x.shape[0]} frames x {ch} '
+              f'ch, samples_per_block {spb}: '
+              f'{"byte-identical" if same else "DIFFERS"} to the plain loop '
+              f'and to the numpy encoder of the input with its NaNs set to '
+              f'0 (the JAX package\'s encoding of a NaN)')
+        assert same, ('nan', ch, spb)
     return record
+
+
+def ima_chain_only(x, spb):
+    """The IMA kernel patched by ``scripts/torch_ima_variants.py``'s
+    ``CHAIN_ONLY`` (its chains take their samples from registers and
+    nothing is loaded: the kernel's serial floor; the bytes are no
+    encoding), built at first call into ``build/ima_chain/``.  Returns its
+    payload."""
+    import ctypes
+    import importlib.util
+    import pathlib
+
+    import torch
+    from signals_tpu_torch.compiler import _build
+    global _IMA_CHAIN
+    if _IMA_CHAIN is None:
+        root = pathlib.Path(__file__).resolve().parent
+        spec = importlib.util.spec_from_file_location(
+            'torch_ima_variants', root / 'scripts' / 'torch_ima_variants.py')
+        variants = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(variants)
+        src = variants.patched('chain')
+        out = root / 'build' / 'ima_chain' / 'libima_chain.so'
+        out.parent.mkdir(parents=True, exist_ok=True)
+        run([_build.nvcc_path(), '-O3', '-std=c++17', *_build.ARCH_FLAGS,
+             '-Xcompiler', '-fPIC', '-shared', '-o', str(out), str(src)])
+        lib = ctypes.CDLL(str(out))
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.ima_encode_launch.argtypes = [p, q, i, i, i, p, p]
+        lib.ima_encode_launch.restype = i
+        _IMA_CHAIN = lib
+    nb = -(-x.shape[0] // spb)
+    out = torch.empty(nb * ((spb - 1) // 2 + 4) * x.shape[1],
+                      dtype=torch.uint8, device=x.device)
+    code = _IMA_CHAIN.ima_encode_launch(
+        x.data_ptr(), x.shape[0], x.shape[1], spb, nb, out.data_ptr(),
+        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    assert code == 0, f'chain-only IMA launch: CUDA error {code}'
+    return out
+
+
+_IMA_CHAIN = None
 
 
 def phase10_encoders(card, total):
@@ -4694,6 +4807,179 @@ def phase_reverb():
                   for name in how}
 
 
+# --- phase 13: the voice mesh on the card ------------------------------------
+
+MESH_BLOCKS = 256           # the sharded renders
+MESH_FIT_BLOCKS = 64        # the sharded fit's target
+MESH_FIT_STEPS = 3
+
+
+def mesh_poly(layout, mesh=None):
+    """``(PolyPatch, its pitch node, its output gain node)``: the flagship
+    (:func:`build_subtractive_voice`, V voices) in ``layout``, sharded over
+    ``mesh`` when given."""
+    from signals_tpu_torch.parallel import PolyPatch
+    root, hz = build_subtractive_voice()
+    kw = {'channels': 1} if layout == 'vmap' else {}
+    poly = PolyPatch(root, n_voices=V, overrides={(hz, 'value'):
+                                                  poly_freqs(V)},
+                     block_frames=F, rate=RATE, layout=layout, mesh=mesh,
+                     device='cuda', **kw)
+    return poly, hz, root._ports['right'].sig
+
+
+def mesh_fit(mesh, target, total):
+    """:data:`MESH_FIT_STEPS` steps of ``PolyPatch.fit`` (vmap layout, L2
+    against ``target``) of the per-voice pitches and the shared output
+    gain, with the launch counts asserted: ``(losses, {'hz': gradients a
+    step, 'gain': ...})``, the gradients those the updates used."""
+    import torch
+    from signals_tpu_torch import learn
+    poly, hz, gain = mesh_poly('vmap', mesh)
+    index = poly.compiled.index
+    role = {(index.info(hz).uid, 'value'): 'hz',
+            (index.info(gain).uid, 'value'): 'gain'}
+    seen = {'hz': [], 'gain': []}
+    descent = learn.fused_descent
+
+    def spy(loss_fn, train, **kw):
+        # a hook on each trained leaf sees the gradient the update uses
+        # (the shared one after the mesh's sum over the ranks)
+        hooks = [train[uid][k].register_hook(
+            lambda g, who=role[(uid, k)]:
+                seen[who].append(g.detach().reshape(-1).clone()))
+            for uid in train for k in train[uid]]
+        try:
+            return descent(loss_fn, train, **kw)
+        finally:
+            for h in hooks:
+                h.remove()
+
+    learn.fused_descent = spy
+    try:
+        res = launched(
+            f'voice mesh: PolyPatch.fit, vmap layout, '
+            f'{"sharded" if mesh is not None else "no mesh"}, '
+            f'{MESH_FIT_STEPS} steps', lambda: poly.fit(
+                target, [(hz, 'value'), (gain, 'value')],
+                steps=MESH_FIT_STEPS, learning_rate=0.01,
+                loss=lambda a, b: torch.mean((a - b) ** 2), apply=False),
+            {'segments_gen': MESH_FIT_STEPS,
+             'segments_gen_vjp': MESH_FIT_STEPS}, total)
+    finally:
+        learn.fused_descent = descent
+    return res.losses, {k: torch.stack(v).cpu().numpy()
+                        for k, v in seen.items()}
+
+
+def reduce_device_ms(fn):
+    """The device time of the mix's reduction in one call of ``fn`` (after a
+    warmup call): ``(ms, the events' names)`` of the NCCL kernels in a
+    ``torch.profiler`` trace, or of the device-to-device copies where NCCL
+    ran none (one rank)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    picked = [e for e in cuda if 'nccl' in e.name.lower()] or [
+        e for e in cuda if 'memcpy dtod' in e.name.lower()]
+    return (sum(e.time_range.elapsed_us() for e in picked) / 1e3,
+            sorted({e.name[:60] for e in picked}))
+
+
+def phase_mesh():
+    """The voice mesh on the card: a one-rank NCCL group (a ``file://``
+    store under ``build/``), the flagship rendered through ``PolyPatch(
+    mesh=voice_mesh(1))`` in both layouts and held bit for bit to the same
+    patch without a mesh (a sum over one rank is a copy), a sharded
+    ``PolyPatch.fit`` of a per-voice and a shared trainable against the
+    unsharded fit (1e-4 relative), the reduction's device time and the
+    walls.  Tears the group down.  Returns, per kernel, ``(launches, what
+    launched it)``."""
+    import os
+    import pathlib
+
+    import torch
+    import torch.distributed as dist
+    from signals_tpu_torch.parallel import voice_mesh
+    card = card_line()
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    store = (pathlib.Path(__file__).resolve().parent / 'build' /
+             f'mesh_store_{os.getpid()}')
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'file://{store}',
+                            world_size=1, rank=0)
+    try:
+        mesh = voice_mesh(1)
+        assert mesh.device_type == 'cuda' and mesh.size() == 1
+        print(f'[mesh] process group: {dist.get_backend()}, world size '
+              f'{dist.get_world_size()}; mesh {mesh}  [{card}]')
+        for layout in ('channels', 'vmap'):
+            plain, _, _ = mesh_poly(layout)
+            sharded, _, _ = mesh_poly(layout, mesh)
+            name = f'flagship, {layout} layout, {MESH_BLOCKS} blocks'
+            want = launched(f'voice mesh: {name}, no mesh',
+                            lambda: plain.render(n_blocks=MESH_BLOCKS)[0],
+                            {'segments_gen': 1})
+            got = launched(f'voice mesh: {name}, sharded over 1 rank',
+                           lambda: sharded.render(n_blocks=MESH_BLOCKS)[0],
+                           {'segments_gen': 1}, total)
+            assert got.shape == (MESH_BLOCKS * F, 1)
+            assert bool(torch.isfinite(got).all())
+            same = torch.equal(got, want)
+            w_plain = wall_ms(lambda: plain.render(n_blocks=MESH_BLOCKS)[0])
+            w_mesh = wall_ms(lambda: sharded.render(n_blocks=MESH_BLOCKS)[0])
+            red_ms, red_names = reduce_device_ms(
+                lambda: sharded.render(n_blocks=MESH_BLOCKS)[0])
+            print(f'[mesh] {name}: sharded over voice_mesh(1) '
+                  f'{"the same bits as" if same else "DIFFERS from"} the '
+                  f'render without a mesh; wall {w_mesh:.3f} ms (no mesh '
+                  f'{w_plain:.3f} ms, fastest of 3); the all_reduce of the '
+                  f'({MESH_BLOCKS * F}, 1) mix: device {red_ms:.4f} ms '
+                  f'({red_names})  [{card}]')
+            assert same, name
+            del plain, sharded, got, want
+        target, _ = mesh_poly('channels')[0].render(n_blocks=MESH_FIT_BLOCKS)
+        target = 0.5 * target
+        t0 = time.perf_counter()
+        losses, grads = mesh_fit(mesh, target, total)
+        fit_s = time.perf_counter() - t0
+        want_losses, want_grads = mesh_fit(None, target, collections.Counter())
+        loss_rel = rel_max(torch.as_tensor(np.asarray(losses)),
+                           torch.as_tensor(np.asarray(want_losses)))
+        print(f'[mesh] sharded PolyPatch.fit, {MESH_FIT_STEPS} steps, '
+              f'{MESH_FIT_BLOCKS} blocks: losses {list(losses)} vs no mesh '
+              f'{list(want_losses)}: relative {loss_rel!r} (tol 1e-4); '
+              f'{fit_s:.2f} s with the first step  [{card}]')
+        assert loss_rel <= 1e-4, loss_rel
+        for role in ('hz', 'gain'):
+            err = rel_max(torch.as_tensor(grads[role]),
+                          torch.as_tensor(want_grads[role]))
+            print(f'[mesh] sharded PolyPatch.fit: {role} gradients of '
+                  f'{MESH_FIT_STEPS} steps {grads[role].shape} vs no mesh: '
+                  f'relative {err!r} (tol 1e-4)')
+            assert err <= 1e-4, (role, err)
+    finally:
+        dist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+    print(f'[mesh] phase 13: {time.perf_counter() - t_phase:.1f} s')
+    return {'segments_gen': (total['segments_gen'], 'voice mesh: the '
+                             'sharded renders of both layouts and the '
+                             'sharded fit'),
+            'segments_gen_vjp': (total['segments_gen_vjp'],
+                                 'voice mesh: the sharded fit')}
+
+
 def match_stream(raw, want, block):
     """Whether a paced consumer's output ``raw`` (frames, ch) is ``want``
     in order with zero-filled underruns: each ``block``-frame block of
@@ -4764,6 +5050,7 @@ def main() -> int:
     fdn, reverb_launches = phase_reverb()
     kern.update(fdn)
     phases.append(reverb_launches)
+    phases.append(phase_mesh())
     for found in phases + [fit_launches]:
         for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths
@@ -4812,7 +5099,9 @@ def main() -> int:
          'ms': kernel_ms(kern['ima'])[0], 'ms_by': kernel_ms(kern['ima'])[1],
          'call_ms': kern['ima']['ms'], 'plain_ms': kern['ima']['plain_ms'],
          'bound_ms': kern['ima']['bound_ms'],
-         'bound_by': kern['ima']['bound_by'], 'library_ms': None}] + [
+         'bound_by': kern['ima']['bound_by'],
+         'chain_floor_ms': kern['ima']['chain_floor_ms'],
+         'library_ms': None}] + [
         # new work, no port of a Pallas kernel: the JAX package scans the
         # reverb's network block by block and differentiates the scan
         {'name': name, 'route': 'cuda', 'source': csrc + 'fdn.cu',

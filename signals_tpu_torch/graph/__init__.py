@@ -25,6 +25,7 @@ from __future__ import annotations
 import abc
 import collections
 import contextlib
+import enum
 import threading
 import typing
 
@@ -51,8 +52,8 @@ from signals_tpu_torch import registry as _registry
 from signals_tpu_torch.core.xp import NP
 
 __all__ = [
-    'Signal', 'Emitter', 'Receiver', 'port', 'ExplicitChannels',
-    'ExplicitChannelsEmitter', 'ImplicitChannels', 'PassThroughResult',
+    'Signal', 'Emitter', 'Receiver', 'port', 'RequestRate',
+    'ExplicitChannels', 'ExplicitChannelsEmitter', 'ImplicitChannels', 'PassThroughResult',
     'BlockCachingEmitter', 'StatefulEmitter', 'KernelCtx', 'PullCtx',
     'CycleError', 'BadChannels', 'Param', 'State', 'BadStateValue',
     'BadStateSchema', 'Wiring', 'frozen_wiring',
@@ -107,6 +108,15 @@ class BadChannels(ChainLayerError):
     def __init__(self, node, counts):
         super().__init__(f'{node.cls_name()!r} cannot infer channel count '
                          f'from inputs with channels {sorted(counts)}')
+
+
+class RequestRate(enum.Enum):
+    """Classification of the last request an emitter served, for UI display
+    (reference ``chain/__init__.py:173-177, 227-238``)."""
+    UNKNOWN = enum.auto()
+    BLOCK = enum.auto()
+    FRAME = enum.auto()
+    UNUSED_FRAME = enum.auto()
 
 
 class _Port(property):
@@ -299,6 +309,18 @@ class Emitter(Signal, abc.ABC):
         if wiring is not None:
             return wiring.outputs.get(id(self), self._outputs)
         return self._outputs
+
+    @property
+    def rate(self) -> RequestRate:
+        if self._last_request is None:
+            return RequestRate.UNKNOWN
+        frames = self._last_request.loc.shape.frames
+        if frames <= 0:
+            return RequestRate.UNKNOWN
+        elif frames == 1:
+            return RequestRate.BLOCK
+        else:
+            return RequestRate.FRAME
 
     @property
     @abc.abstractmethod

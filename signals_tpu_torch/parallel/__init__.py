@@ -16,12 +16,20 @@ instances, in one of the JAX package's two layouts:
   through their ``vmap`` rule, which folds the voices into the lanes: one
   launch for all voices (:mod:`signals_tpu_torch.compiler.kernels`).
 
-No device mesh is ported.
+Beyond one device the voice axis is sharded over a 1-D
+:class:`~torch.distributed.device_mesh.DeviceMesh` (:func:`voice_mesh`):
+one process a device on ``torch.distributed`` (NCCL for ``'cuda'``, gloo
+for ``'cpu'``) where the JAX package runs one SPMD program over a
+``jax.sharding.Mesh``.  Each rank renders its contiguous shard of the
+voices through the plan it would use without a mesh, and the master mix is
+summed over the ranks (one ``all_reduce`` of the mixed blocks, the only
+traffic between devices).  Carried state stays on its rank.
 """
 
 from __future__ import annotations
 
 import typing
+import warnings
 
 import numpy as np
 import torch
@@ -54,6 +62,17 @@ class PolyPatch:
     (:meth:`~signals_tpu_torch.compiler.CompiledPatch.mega_mix`); otherwise
     the plain plan renders every voice and sums them.
 
+    ``mesh`` (a 1-D ``DeviceMesh`` from :func:`voice_mesh`, of ``device``'s
+    type, its dimension named ``axis_name``; ``layout`` then defaults to
+    ``'vmap'``) shards the voices: this
+    process's rank ``r`` of ``W`` compiles and renders voices ``r * V / W``
+    to ``(r + 1) * V / W`` (``n_voices % W`` must be 0).  :meth:`params`,
+    :meth:`init_carry` and the live nodes' states hold the rank's slices
+    (shared leaves whole); :meth:`set_override` takes all ``V`` values and
+    keeps the rank's.  :meth:`render` sums the ranks' mixes, so every rank
+    returns the whole mix, and :meth:`fit` sums a shared trainable's
+    gradient over the ranks.  Every rank of the mesh makes the same calls.
+
     >>> # poly = PolyPatch(root, n_voices=64,
     >>> #                  overrides={(hz_node, 'value'): freqs},
     >>> #                  device='cuda')
@@ -70,8 +89,11 @@ class PolyPatch:
                  channels: typing.Optional[int] = None,
                  layout: typing.Optional[str] = None,
                  mix_epilogue: typing.Optional[bool] = None,
+                 mesh=None,
+                 axis_name: str = 'voices',
                  device='cuda'):
-        layout = 'channels' if layout is None else layout
+        if layout is None:
+            layout = 'vmap' if mesh is not None else 'channels'
         if layout not in ('channels', 'vmap'):
             raise ValueError(layout)
         self.device = check_device(device)
@@ -79,8 +101,11 @@ class PolyPatch:
             mix_epilogue = self.device.type == 'cuda'
         self.layout = layout
         self.n_voices = n_voices
+        self.mesh = mesh
+        self.axis_name = axis_name
         self._mix_epilogue = mix_epilogue and layout == 'channels'
         self._render_cache: dict[int, typing.Any] = {}
+        self._shard_mesh(mesh)
         if layout == 'vmap':
             self._build_vmap(root, overrides, block_frames, rate, channels)
             return
@@ -103,18 +128,52 @@ class PolyPatch:
                 stacked = np.ascontiguousarray(np.broadcast_to(
                     arr.reshape(n_voices, -1), (n_voices, old.shape[1])))
                 axis = 0
-            setattr(state, pname, stacked)
+            setattr(state, pname, self._local(stacked, axis))
             self._channel_overrides.append((node, pname, axis, stacked))
-        if root.channels != n_voices:
+        n_local = self._n_local
+        if root.channels != n_local:
             raise ValueError(
                 f'patch does not propagate the voice channel axis: root '
-                f'has {root.channels} channels, expected {n_voices}; use '
+                f'has {root.channels} channels, expected {n_local}; use '
                 f'layout="vmap"')
-        self._check_explicit_channels(root, n_voices)
+        self._check_explicit_channels(root, n_local)
         self.compiled: CompiledPatch = compile_node(
-            root, block_frames=block_frames, rate=rate, channels=n_voices,
+            root, block_frames=block_frames, rate=rate, channels=n_local,
             device=self.device)
         self._out_channels = 1 if channels is None else channels
+
+    def _shard_mesh(self, mesh) -> None:
+        """This rank's shard of the voices: ``_n_local`` voices from
+        ``_first``, and the mesh's process group (None without a mesh)."""
+        self._group = None
+        self._n_local, self._first = self.n_voices, 0
+        if mesh is None:
+            return
+        if mesh.ndim != 1:
+            raise ValueError(f'a voice mesh is 1-D, got {mesh.ndim} dims')
+        if mesh.device_type != self.device.type:
+            raise ValueError(f'a {mesh.device_type!r} mesh cannot shard a '
+                             f'PolyPatch on {self.device}')
+        if mesh.get_coordinate() is None:
+            raise ValueError('this process is not a rank of the mesh')
+        n_dev = mesh.size()
+        if n_dev > 1 and self.n_voices < n_dev * \
+                MIN_EFFICIENT_VOICES_PER_DEVICE:
+            _warn_narrow_shard(self.n_voices, n_dev, 'PolyPatch')
+        if self.n_voices % n_dev:
+            raise ValueError(f'n_voices={self.n_voices} not divisible by '
+                             f'the {n_dev}-device mesh')
+        self._group = mesh.get_group(self.axis_name)
+        self._n_local = self.n_voices // n_dev
+        self._first = mesh.get_local_rank(self.axis_name) * self._n_local
+
+    def _local(self, stacked: np.ndarray, axis: int) -> np.ndarray:
+        """The rank's slice of a stacked override (voices on ``axis``)."""
+        if self.mesh is None:
+            return stacked
+        cut = slice(self._first, self._first + self._n_local)
+        return np.ascontiguousarray(stacked[:, cut] if axis == 1
+                                    else stacked[cut])
 
     def _voice_array(self, pname: str, values) -> np.ndarray:
         arr = np.asarray(values, dtype=F32)
@@ -135,8 +194,8 @@ class PolyPatch:
             (index.info(node).uid, pname): self._voice_array(pname, values)
             for (node, pname), values in overrides.items()}
         #: a (V, 0) tensor vmapped on dim 0: the voice count of every
-        #: vmap, whatever else is batched
-        self._voices = torch.empty((self.n_voices, 0), device=self.device)
+        #: vmap (the rank's under a mesh), whatever else is batched
+        self._voices = torch.empty((self._n_local, 0), device=self.device)
 
     @staticmethod
     def _check_explicit_channels(root: Emitter, n_voices: int) -> None:
@@ -174,7 +233,10 @@ class PolyPatch:
             stack.extend(p.sig for p in ports.values() if p.sig is not None)
 
     def set_override(self, node, pname: str, values) -> None:
-        """Update a per-voice override's values live (no recompilation)."""
+        """Update a per-voice override's values live (no recompilation):
+        ``values`` holds all ``n_voices``; under a mesh the live node state
+        takes the rank's slice, so per-voice edits of the channels layout
+        go through here."""
         arr = self._voice_array(pname, values)
         if self.layout == 'vmap':
             key = (self.compiled.index.info(node).uid, pname)
@@ -188,7 +250,7 @@ class PolyPatch:
                        else np.ascontiguousarray(np.broadcast_to(
                            arr.reshape(self.n_voices, -1), stacked.shape)))
                 self._channel_overrides[i] = (n, p, axis, new)
-                setattr(node.get_state(), pname, new)
+                setattr(node.get_state(), pname, self._local(new, axis))
                 return
         raise KeyError((node, pname))
 
@@ -197,15 +259,18 @@ class PolyPatch:
         on the device and, for the vmap layout, the in-axes tree of the
         same structure (0 on the overridden leaves, stacked ``(V,
         *leaf)``; None on the shared ones), as the JAX package's
-        ``PolyPatch.params``; None for the channels layout."""
+        ``PolyPatch.params``; None for the channels layout.  Under a mesh
+        the overridden leaves hold the rank's voices."""
         base = self.compiled.params()
         if self.layout == 'channels':
             return base, None
+        n = self._n_local
         for (uid, pname), arr in self._overrides.items():
             leaf = base[uid][pname]
+            arr = arr[self._first:self._first + n]
             if arr.ndim == 1:          # (V,) scalars -> (V, 1, 1, ...)
-                arr = arr.reshape((self.n_voices,) + (1,) * leaf.dim())
-            stacked = np.broadcast_to(arr, (self.n_voices, *leaf.shape))
+                arr = arr.reshape((n,) + (1,) * leaf.dim())
+            stacked = np.broadcast_to(arr, (n, *leaf.shape))
             base[uid][pname] = torch.as_tensor(
                 np.array(stacked), dtype=leaf.dtype, device=self.device)
         return base, self._params_axes(base)
@@ -213,11 +278,12 @@ class PolyPatch:
     def init_carry(self) -> dict:
         """The initial carry: the compiled patch's ``carry0``, with each
         leaf stacked per voice ``(V, ...)`` in the vmap layout (the channels
-        layout's stateful nodes already carry V channels)."""
+        layout's stateful nodes already carry V channels); the rank's
+        voices under a mesh."""
         carry0 = self.compiled.carry0
         if self.layout == 'channels':
             return carry0
-        return {uid: {k: v.expand((self.n_voices,) + v.shape).clone()
+        return {uid: {k: v.expand((self._n_local,) + v.shape).clone()
                       for k, v in leaves.items()}
                 for uid, leaves in carry0.items()}
 
@@ -241,7 +307,9 @@ class PolyPatch:
         host inputs are shared), summed over the voice axis.  ``host``: the
         render's staged host inputs (:meth:`~signals_tpu_torch.compiler.
         CompiledPatch.host_inputs`).  Taps are neither returned nor
-        delivered, as in the JAX package's ``PolyPatch``."""
+        delivered, as in the JAX package's ``PolyPatch``.  Under a mesh
+        each rank renders its voices this way and the mix is summed over
+        the ranks (:class:`_MixSum`)."""
         if n_blocks in self._render_cache:
             return self._render_cache[n_blocks]
         compiled = self.compiled
@@ -259,10 +327,10 @@ class PolyPatch:
                 blocks, carry2 = torch.func.vmap(
                     voice, in_dims=(self._params_axes(params), 0, 0))(
                         params, carry, self._voices)
-                return blocks.sum(dim=0), carry2
+                return self._mix_sum(blocks.sum(dim=0)), carry2
         elif mixplan is not None:
             def render(params, carry, position0, host=None):
-                mix = mixplan(params, position0)            # (n, F, 1)
+                mix = self._mix_sum(mixplan(params, position0))  # (n, F, 1)
                 return torch.broadcast_to(mix, (n_blocks, F, out_ch)), carry
         else:
             whole = compiled.render_core(n_blocks)
@@ -270,12 +338,19 @@ class PolyPatch:
             def render(params, carry, position0, host=None):
                 blocks, carry2, _taps = whole(params, carry, position0,
                                               host)
-                mix = blocks.sum(dim=2, keepdim=True)
+                mix = self._mix_sum(blocks.sum(dim=2, keepdim=True))
                 return (torch.broadcast_to(mix, (n_blocks, F, out_ch)),
                         carry2)
 
         self._render_cache[n_blocks] = render
         return render
+
+    def _mix_sum(self, mix):
+        """The rank's mix summed over the mesh's ranks (unchanged without
+        a mesh)."""
+        if self._group is None:
+            return mix
+        return _MixSum.apply(mix, self._group)
 
     def render(self, *, position: int = 0, n_blocks: int = 1,
                params: typing.Optional[dict] = None,
@@ -317,7 +392,18 @@ class PolyPatch:
         :func:`signals_tpu_torch.learn.fit`.  With ``apply=True`` fitted
         overrides are written back through :meth:`set_override` and fitted
         shared params into the live node states.  Returns a
-        :class:`signals_tpu_torch.learn.FitResult`."""
+        :class:`signals_tpu_torch.learn.FitResult`.
+
+        Under a mesh each rank trains its voices' slice of a per-voice
+        override (its Adam moments stay with it) and differentiates the
+        summed mix: every rank computes the same loss, and the sum's
+        backward hands each rank's mix the loss's cotangent once.  A
+        shared trainable's gradient is summed over the ranks inside the
+        backward (:class:`_GradSum`: one ``all_reduce`` of the shared
+        gradients, flattened, a step), so every rank takes the same step.
+        ``apply`` gathers the per-voice slices, so every rank writes back
+        all the voices.
+        The result's params are the rank's (its voices' slices)."""
         from signals_tpu_torch import learn
         compiled = self.compiled
         F = compiled.block_frames
@@ -328,10 +414,27 @@ class PolyPatch:
         params, _ = self.params()
         carry0 = self.init_carry()
         index = compiled.index
-        train = learn._split_train(params, {(index.info(node).uid, pname)
-                                            for node, pname in trainable})
+        keys = [(index.info(node).uid, pname) for node, pname in trainable]
+        #: (uid, pname) of a per-voice trainable -> the voice axis of its leaf
+        if self.layout == 'vmap':
+            voice_axis = {k: 0 for k in keys if k in self._overrides}
+        else:
+            voice_axis = {(index.info(n).uid, p): axis
+                          for n, p, axis, _ in self._channel_overrides}
+        train = learn._split_train(params, set(keys))
+
+        shared = [(uid, p) for uid in train for p in train[uid]
+                  if (uid, p) not in voice_axis]
+        if self._group is None:
+            shared = []
 
         def loss_fn(tp, target, host, full_params):
+            if shared:
+                summed = _GradSum.apply(self._group,
+                                        *(tp[uid][p] for uid, p in shared))
+                tp = {uid: dict(leaves) for uid, leaves in tp.items()}
+                for (uid, p), leaf in zip(shared, summed):
+                    tp[uid][p] = leaf
             mix, _ = render(learn._merge_train(full_params, tp), carry0,
                             position, host)
             return loss(mix.reshape(n_blocks * F, self._out_channels),
@@ -346,19 +449,133 @@ class PolyPatch:
 
         final = learn._merge_train(params, train)
         if apply:
-            if self.layout == 'vmap':
-                axes = {(id(n), p): 0 for n, p in trainable
-                        if (index.info(n).uid, p) in self._overrides}
-            else:
-                axes = {(id(n), p): axis
-                        for n, p, axis, _ in self._channel_overrides}
             for node, pname in trainable:
-                fitted = final[index.info(node).uid][pname]
-                axis = axes.get((id(node), pname))
+                key = (index.info(node).uid, pname)
+                fitted = final[key[0]][pname].detach()
+                axis = voice_axis.get(key)
                 if axis is None:
                     learn.write_back(node, pname, fitted)
-                else:
-                    fitted = fitted.detach().cpu().numpy()
-                    self.set_override(node, pname,
-                                      fitted[0] if axis == 1 else fitted)
+                    continue
+                if self._group is not None:
+                    fitted = self._gather_voices(fitted, axis)
+                fitted = fitted.cpu().numpy()
+                self.set_override(node, pname,
+                                  fitted[0] if axis == 1 else fitted)
         return learn.FitResult(params=final, losses=np.asarray(losses))
+
+    def _gather_voices(self, local, axis: int):
+        """The ranks' slices of a per-voice leaf joined on its voice
+        ``axis``, in rank order."""
+        import torch.distributed as dist
+        parts = [torch.empty_like(local) for _ in range(self.mesh.size())]
+        dist.all_gather(parts, local.contiguous(), group=self._group)
+        return torch.cat(parts, dim=axis)
+
+
+class _GradSum(torch.autograd.Function):
+    """The identity forward on the shared trainables; backward, their
+    gradients summed over the ranks (one ``all_reduce`` of them flattened).
+    Each rank's gradient of a shared leaf holds only its voices' term, so
+    without the sum every rank would take a different step."""
+
+    @staticmethod
+    def forward(ctx, group, *leaves):
+        ctx.group = group
+        return tuple(leaf.view_as(leaf) for leaf in leaves)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        import torch.distributed as dist
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=ctx.group)
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].reshape(g.shape))
+            at += g.numel()
+        return (None, *out)
+
+
+class _MixSum(torch.autograd.Function):
+    """The ranks' mixes summed (``all_reduce``, SUM) forward; the identity
+    backward.  Every rank computes the same loss from the same summed mix,
+    so the cotangent each rank's own mix needs is the loss's cotangent of
+    the sum, once: summing the cotangents over the ranks again (the
+    backward of ``torch.distributed.nn.functional.all_reduce``) would
+    scale every gradient by the world size."""
+
+    @staticmethod
+    def forward(ctx, mix, group):
+        import torch.distributed as dist
+        out = mix.contiguous().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+#: The voices a device below which sharding is declined by
+#: :func:`voice_mesh` and warned about by :class:`PolyPatch`: the JAX
+#: package's policy, kept so that both packages decline the same meshes.
+#: Its knee was measured on another chip (narrow shards leave its vector
+#: lanes mostly empty); the H100's is unmeasured.
+MIN_EFFICIENT_VOICES_PER_DEVICE = 64
+
+
+def efficient_device_count(n_voices: int, available: int) -> int:
+    """Largest device count (>= 1, <= available) keeping voices/device
+    at or above :data:`MIN_EFFICIENT_VOICES_PER_DEVICE`."""
+    return max(1, min(available,
+                      n_voices // MIN_EFFICIENT_VOICES_PER_DEVICE))
+
+
+def _warn_narrow_shard(n_voices: int, n_devices: int, where: str) -> None:
+    per = n_voices / max(n_devices, 1)
+    warnings.warn(
+        f'{where}: {n_voices} voices over {n_devices} devices = '
+        f'{per:.0f} voices/device, below the lane-efficiency knee of the '
+        f'sharding policy ({MIN_EFFICIENT_VOICES_PER_DEVICE} voices/device; '
+        f'measured on another chip, unmeasured on this one) — use '
+        f'voice_mesh(n_voices={n_voices}) (caps at '
+        f'{efficient_device_count(n_voices, n_devices)} device(s) here) or '
+        f'fewer devices', RuntimeWarning, stacklevel=3)
+
+
+def voice_mesh(n_devices: typing.Optional[int] = None,
+               axis_name: str = 'voices',
+               device=None,
+               n_voices: typing.Optional[int] = None):
+    """A 1-D :class:`~torch.distributed.device_mesh.DeviceMesh` over the
+    voice axis: ranks ``0 .. n - 1`` of the initialised process group (all
+    of them by default), ``mesh_dim_names=(axis_name,)``, on ``device``'s
+    type (default ``'cuda'``: one process a GPU on NCCL; ``'cpu'`` on
+    gloo).  Every rank of the group calls it; a rank outside the mesh gets
+    a mesh it is no rank of.
+
+    ``n_voices`` engages the efficiency policy: with ``n_devices`` not
+    pinned, the mesh is capped at :func:`efficient_device_count` so every
+    shard keeps at least :data:`MIN_EFFICIENT_VOICES_PER_DEVICE` voices;
+    with ``n_devices`` pinned below the knee, a ``RuntimeWarning`` says
+    so."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    if not dist.is_initialized():
+        raise RuntimeError('voice_mesh needs an initialised process group '
+                           '(torch.distributed.init_process_group)')
+    device_type = torch.device('cuda' if device is None else device).type
+    world = dist.get_world_size()
+    if n_devices is not None:
+        if world < n_devices:
+            raise ValueError(f'need {n_devices} ranks, the process group '
+                             f'has {world}')
+        if (n_voices is not None and n_devices > 1
+                and n_voices < n_devices * MIN_EFFICIENT_VOICES_PER_DEVICE):
+            _warn_narrow_shard(n_voices, n_devices, 'voice_mesh')
+        size = n_devices
+    elif n_voices is not None:
+        size = efficient_device_count(n_voices, world)
+    else:
+        size = world
+    return DeviceMesh(device_type, list(range(size)),
+                      mesh_dim_names=(axis_name,))

@@ -852,6 +852,10 @@ def ima_encode_plain(x, *, samples_per_block: int = 1017):
     if pad:
         x = torch.cat([x, x[-1:].expand(pad, ch)])
     pcm = torch.clamp(torch.round(x * F32(32768.0)), -32768, 32767)
+    # a NaN sample quantizes to 0, as in the reference package's device
+    # encoder and the kernel's saturating conversion (a plain cast gives
+    # INT_MIN)
+    pcm = torch.nan_to_num(pcm, nan=0.0)
     s = pcm.to(torch.int32).reshape(nb, spb, ch)
     steps = torch.as_tensor(_IMA_STEPS, device=dev)
     itab = torch.as_tensor(_IMA_INDEX, device=dev)

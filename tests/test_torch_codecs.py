@@ -136,6 +136,179 @@ def test_ima_plain_loop_decodes():
     assert 10 * np.log10(np.mean(x ** 2) / np.mean(err ** 2)) > 24.0
 
 
+#: csrc/codecs.cu's tile geometry: chains a tile (one warp walks them),
+#: steps a staged chunk, floats a staged row
+IMA_LANES, IMA_CHUNK, IMA_ROW = 32, 32, 33
+
+
+def ima_tile_walk_model(x, spb):
+    """A numpy model of ``csrc/codecs.cu``'s ``ima_encode``: every tile at
+    once, each lane of its warp as an array column.
+
+    The warp stages chunk ``n`` (samples ``32 n .. 32 n + 31`` of each
+    chain) into buffer ``n & 1``: its copy ``l`` is step ``k`` of chain
+    ``j``, ``(k, j) = (l, lane)`` for a wide tile (ch >= 32: 32 channels of
+    one block, the last group narrower) and ``(lane, l)`` for a narrow one
+    (32 // ch whole blocks), the frame clamped to the last, written to slot
+    ``k * 33 + j``.  The slots no copy writes keep what an earlier chunk
+    (or the start, a sentinel) left there, as shared memory does.  The walk
+    reads chain ``lane``'s sample of step ``k`` at slot ``k * 33 + lane`` of
+    buffer ``n & 1`` and quantizes it: the header from samples 0 and 1 (a
+    7-step binary search for the starting index), then each step with the
+    index moved by arithmetic, one 32-bit word stored every 8 codes at the
+    byte the kernel stores it.  Returns the payload as uint8."""
+    x = np.atleast_2d(np.asarray(x, np.float32))
+    frames, ch = x.shape
+    nb = -(-frames // spb)
+    last = frames - 1
+    steps = codecs._IMA_STEPS.astype(np.int64)
+    bw = ((spb - 1) // 8 + 1) * ch                 # words a block
+    out = np.zeros(nb * bw, np.uint32)
+    wide = ch >= IMA_LANES
+    if wide:
+        groups = -(-ch // IMA_LANES)
+        t = np.arange(nb * groups)
+        b0, c0 = t // groups, (t % groups) * IMA_LANES
+        n_chains = np.minimum(IMA_LANES, ch - c0)
+    else:
+        per = IMA_LANES // ch
+        t = np.arange(-(-nb // per))
+        b0, c0 = t * per, np.zeros_like(t)
+        n_chains = np.minimum(per, nb - b0) * ch
+    lane = np.arange(IMA_LANES)
+    n_chunks = -(-spb // IMA_CHUNK)
+
+    # warp 0: (tile, l, lane) -> the chain, step and frame of each load
+    ll, ln = np.meshgrid(lane, lane, indexing='ij')          # (l, lane)
+    k_of = ll if wide else ln
+    j_of = ln if wide else ll
+    chain_b = (b0[:, None, None] if wide
+               else b0[:, None, None] + j_of[None] // ch)
+    chain_c = (c0[:, None, None] + j_of[None] if wide
+               else np.broadcast_to(j_of[None] % ch, chain_b.shape))
+    staged_ok = j_of[None] < n_chains[:, None, None]
+    tix = np.broadcast_to(t[:, None, None], staged_ok.shape)
+    bufs = np.full((2, t.size, IMA_CHUNK * IMA_ROW), 0.377, np.float32)
+
+    def stage(n):
+        f = np.minimum(chain_b * spb + n * IMA_CHUNK + k_of[None], last)
+        f = np.where(staged_ok, f, 0)
+        c = np.where(staged_ok, chain_c, 0)
+        slot = k_of[None] * IMA_ROW + j_of[None]
+        bufs[n & 1][tix[staged_ok], np.broadcast_to(
+            slot, staged_ok.shape)[staged_ok]] = x[f, c][staged_ok]
+
+    # warp 1: chain `lane` of each tile
+    active = lane[None] < n_chains[:, None]
+    b = b0[:, None] + (0 if wide else lane[None] // ch)
+    c = c0[:, None] + lane[None] if wide else np.broadcast_to(
+        lane[None] % ch, active.shape)
+    pred = np.zeros(active.shape, np.int64)
+    index = np.zeros(active.shape, np.int64)
+    word = np.zeros(active.shape, np.int64)
+
+    def store(at, value):
+        out[at[active]] = value[active]
+
+    for n in range(n_chunks):
+        stage(n)
+        col = bufs[n & 1]
+
+        def sample(k):
+            v = col[:, k * IMA_ROW + lane] * np.float32(32768.0)
+            # one saturating conversion: a NaN gives 0
+            return np.nan_to_num(np.clip(np.rint(v), -32768, 32767),
+                                 nan=0.0).astype(np.int64)
+
+        lo = 0
+        if n == 0:
+            pred = sample(0).copy()
+            if spb > 1:
+                d = np.abs(sample(1) - pred)
+                for half in (64, 32, 16, 8, 4, 2, 1):
+                    i = index + half
+                    ok = (i <= 88) & (steps[np.minimum(i, 88)] <= d)
+                    index = np.where(ok, i, index)
+            store(b * bw + c, (pred & 0xFFFF) | (index << 16))
+            lo = 1
+        for i in range(lo, min(IMA_CHUNK, spb - n * IMA_CHUNK)):
+            k = n * IMA_CHUNK + i
+            step = steps[index]
+            diff = sample(i) - pred
+            adiff = np.abs(diff)
+            b4 = adiff >= step
+            adiff = adiff - np.where(b4, step, 0)
+            b2 = adiff >= step >> 1
+            adiff = adiff - np.where(b2, step >> 1, 0)
+            b1 = adiff >= step >> 2
+            diffq = ((step >> 3) + np.where(b4, step, 0)
+                     + np.where(b2, step >> 1, 0)
+                     + np.where(b1, step >> 2, 0))
+            pred = np.clip(pred + np.where(diff < 0, -diffq, diffq),
+                           -32768, 32767)
+            moved = np.where(b4, index + 2 + 4 * b2 + 2 * b1, index - 1)
+            index = np.clip(moved, 0, 88)
+            code = (np.where(diff < 0, 8, 0) | 4 * b4 | 2 * b2 | b1)
+            j = k - 1
+            word = word | (code << (4 * (j & 7)))
+            if j & 7 == 7:
+                store(b * bw + ch + (j >> 3) * ch + c, word)
+                word = np.zeros_like(word)
+    return out.astype('<u4').view(np.uint8)
+
+
+#: (ch, spb, frames): two or more tiles at each width with a short last
+#: block, and a render shorter than one block
+IMA_MODEL_CASES = (
+    [(ch, spb, spb * (70 // ch + 2) - spb // 3)
+     for ch in (1, 2, 16, 33, 64) for spb in (9, 505, 1017)]
+    + [(ch, spb, spb // 2) for ch in (1, 33) for spb in (505, 1017)])
+
+
+@pytest.mark.parametrize('ch,spb,frames', IMA_MODEL_CASES)
+def test_ima_tile_walk_model_equals_numpy(ch, spb, frames):
+    """The kernel's tile walk (which staged chunk and slot each chain reads
+    at each step, which word lands at which byte) gives
+    ``ima_encode_np``'s bytes at 1, 2, 16, 33 and 64 channels: narrow
+    tiles of whole blocks, a wide block in groups of 32 and 1 channels,
+    a short last block and a render shorter than one block."""
+    x = tonal(frames, ch, 7 * ch + spb)
+    x[frames // 3] = 1.5                       # beyond full scale
+    want, _ = codecs.ima_encode_np(x, samples_per_block=spb)
+    assert np.array_equal(ima_tile_walk_model(x, spb), want)
+
+
+def with_nans(x, spb):
+    """``x`` with NaN samples where the encoder reads them differently:
+    a block's first sample (its header's predictor), its second (the
+    starting index) and one inside it, on the first channel and the
+    last."""
+    x = x.copy()
+    for at in (0, spb + 1, 2 * spb + spb // 2):
+        x[at % x.shape[0], 0] = np.nan
+        x[(at + 3) % x.shape[0], -1] = np.nan
+    return x
+
+
+@pytest.mark.parametrize('ch,spb', [(1, 9), (2, 505), (33, 1017)])
+def test_ima_nan_sample_encodes_as_the_jax_encoder(ch, spb):
+    """A NaN sample quantizes to 0 in the JAX package's ``ima_encode_jax``
+    (its float-to-int conversion), in the kernel's saturating conversion
+    (the tile-walk model) and in ``ima_encode_plain``, the CPU path of
+    ``ima_encode``: all three give the bytes of the input with its NaNs
+    set to 0."""
+    jax, jnp, jcodecs = jax_side()
+    frames = 3 * spb + 5
+    x = with_nans(tonal(frames, ch, 11 * ch + spb), spb)
+    want, _ = codecs.ima_encode_np(np.nan_to_num(x, nan=0.0),
+                                   samples_per_block=spb)
+    assert np.array_equal(np.asarray(jcodecs.ima_encode_jax(
+        x, samples_per_block=spb)), want)
+    assert np.array_equal(ima_tile_walk_model(x, spb), want)
+    assert np.array_equal(codecs.ima_encode(
+        torch.from_numpy(x), samples_per_block=spb).numpy(), want)
+
+
 SLAC_SIGNALS = sorted(SIGNALS) + ['empty']
 
 
@@ -248,15 +421,18 @@ def cuda_device():
 
 
 #: chip_smoke.py phase 10 (a): the IMA kernel at these channel counts and
-#: block sizes, frames not a multiple of the block
-IMA_CARD_SHAPES = [(ch, spb) for ch in (1, 2, 16, 64) for spb in (1017, 505)]
+#: block sizes, frames not a multiple of the block; then the edges of its
+#: tiles (``IMA_MODEL_CASES``: groups of 32 and 1 channels, a short last
+#: block, a render shorter than one block)
+IMA_CARD_SHAPES = ([(ch, spb, 64 * spb * 4 // ch + 333)
+                    for ch in (1, 2, 16, 64) for spb in (1017, 505)]
+                   + IMA_MODEL_CASES)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('ch,spb', IMA_CARD_SHAPES)
-def test_cuda_ima_kernel_matches_plain_loop(cuda_device, ch, spb):
+@pytest.mark.parametrize('ch,spb,frames', IMA_CARD_SHAPES)
+def test_cuda_ima_kernel_matches_plain_loop(cuda_device, ch, spb, frames):
     from signals_tpu_torch.compiler import kernels as K
-    frames = 64 * spb * 4 // ch + 333
     x = torch.from_numpy(tonal(frames, ch, ch + spb)).to(cuda_device)
     x[frames // 3] = 1.5                       # beyond full scale
     K.reset_launch_counts()
@@ -268,6 +444,23 @@ def test_cuda_ima_kernel_matches_plain_loop(cuda_device, ch, spb):
     assert torch.equal(got, want) and torch.equal(got, again)
     assert np.array_equal(got.cpu().numpy(), codecs.ima_encode_np(
         x.cpu().numpy(), samples_per_block=spb)[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('ch,spb', [(1, 9), (2, 505), (33, 1017)])
+def test_cuda_ima_kernel_encodes_nan_as_the_jax_encoder(cuda_device, ch,
+                                                        spb):
+    """NaN samples on the card: the kernel gives the bytes of the input
+    with its NaNs set to 0, as ``ima_encode_plain`` and the JAX package's
+    encoder do (``test_ima_nan_sample_encodes_as_the_jax_encoder``)."""
+    x = with_nans(tonal(3 * spb + 5, ch, 11 * ch + spb), spb)
+    got = codecs.ima_encode(torch.from_numpy(x).to(cuda_device),
+                            samples_per_block=spb)
+    want, _ = codecs.ima_encode_np(np.nan_to_num(x, nan=0.0),
+                                   samples_per_block=spb)
+    assert np.array_equal(got.cpu().numpy(), want)
+    assert torch.equal(got, codecs.ima_encode_plain(
+        torch.from_numpy(x).to(cuda_device), samples_per_block=spb))
 
 
 @pytest.mark.cuda

@@ -411,3 +411,36 @@ def test_command_layer_defaults_to_the_card():
                 make()
     if not torch.cuda.is_available():
         assert list(ctl.dump()) == []      # the failed sink left nothing
+
+
+PROBE_MESH = '''
+import sys
+from signals_tpu_torch import entry, parallel
+from signals_tpu_torch.parallel import (MIN_EFFICIENT_VOICES_PER_DEVICE,
+                                        PolyPatch, efficient_device_count,
+                                        voice_mesh)
+from signals_tpu_torch.graph import RequestRate
+from signals_tpu_torch.compiler import _build
+bad = sorted(n for n in sys.modules
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu'))
+assert not bad, bad
+assert _build._lib is None
+print('ok')
+'''
+
+
+def test_mesh_code_imports_no_jax():
+    """The voice mesh (``parallel.voice_mesh``, ``PolyPatch(mesh=...)``),
+    ``entry.dryrun_multichip`` and the mesh tests' rank worker import
+    neither JAX nor the JAX package and build nothing when imported."""
+    proc = subprocess.run([sys.executable, '-c', PROBE_MESH], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+    for path in (REPO / 'signals_tpu_torch' / 'parallel' / '__init__.py',
+                 REPO / 'signals_tpu_torch' / 'entry.py',
+                 REPO / 'tests' / 'torch_mesh_worker.py'):
+        text = path.read_text()
+        assert 'import jax' not in text and 'from jax' not in text, path
+        assert 'from signals_tpu.' not in text, path
+        assert 'import signals_tpu.' not in text, path
