@@ -5,7 +5,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-Thirteen phases; any failure raises and exits non-zero:
+Fifteen phases; any failure raises and exits non-zero:
 
 1. **Build** the CUDA kernels from ``signals_tpu_torch/compiler/csrc`` (one
    ``nvcc`` per source, all at once) and print the toolchain, the card and
@@ -274,6 +274,28 @@ Thirteen phases; any failure raises and exits non-zero:
    output gain, ``{K1: 3, B1: 3}``) whose losses and gradients are held to
    the unsharded fit's within 1e-4 relative; the group torn down.  World
    sizes above 1 need more GPUs than the card.
+
+14. **The realtime soak** (``[soak]`` lines): ``scripts/torch_soak.py``'s
+   mono voice for 65 s and its damped echo (a ``Delay`` of 11 blocks + 7
+   frames, a streaming LowPass in the loop) for 35 s on the realtime
+   ``null`` sink (native ring, paced consumer), a traced edit every 2 s and
+   two seeks, each with its launch counts reset just before it and held
+   just after to its kernels times its renders (the ``Transport``'s
+   batches, counted, and the warmup); held to ``tests/test_soak.py``'s
+   whole contract, with no retry: 0 underruns after the warmup outside the
+   seeks' recovery windows, both seeks, and for the voice at least 30
+   edits, a position past 95% of 65 s, more than 2000 blocks, p50 over 3x
+   realtime and p95 under one block.
+
+15. **The eight examples** (``[examples]`` lines): each
+   ``examples_torch/*.py``'s ``main(..., device='cuda')``, its outputs
+   under ``build/chip_smoke/examples/``, its launch counts reset just
+   before it and checked just after (:data:`EXAMPLES`), its wall printed;
+   then the same ``main`` on the CPU in this process, and the card's file
+   held to the CPU's (float32 WAVs within 1e-5 a voice, the pcm16 AIFF
+   within one LSB, ``midi_poly``'s score byte for byte), ``fit_patch``'s
+   fitted gain and pitch and its poly fit's first 50 losses within 1e-4
+   relative, ``play_sine``'s captured audio within 1e-5.
 
 Prints one JSON line describing the kernels, the card's name and power
 limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
@@ -4980,6 +5002,295 @@ def phase_mesh():
                                  'voice mesh: the sharded fit')}
 
 
+
+# --- phase 14: the realtime soak on the card ----------------------------------
+
+SOAK_VOICE_S = 65.0     # tests/test_soak.py's lengths
+SOAK_ECHO_S = 35.0
+#: the kernels one render of each soak's patch launches: one render a
+#: Transport batch and one for the warmup
+SOAK_KERNELS = {'voice': {'segments_gen': 1},
+                'echo': {'segments_gen': 1, 'stream': 1}}
+
+
+def load_script(rel):
+    """The module of the script at ``rel`` (from the repository root),
+    imported by path: its ``__main__`` block does not run."""
+    import importlib.util
+    import pathlib
+    path = pathlib.Path(__file__).resolve().parent / rel
+    spec = importlib.util.spec_from_file_location(
+        f'chip_smoke_{path.stem}', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def soak_run(soak, seconds, patch, card, total):
+    """``scripts/torch_soak.py``'s soak of ``patch`` on the card for
+    ``seconds``, its launch counts reset just before it and held just
+    after to :data:`SOAK_KERNELS` times the renders (the Transport's
+    batches, counted, and the warmup).  Returns the report."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.runtime import Transport
+    batches = []
+    render = Transport._render
+
+    def counted(self, n_blocks):
+        batches.append(n_blocks)
+        return render(self, n_blocks)
+
+    Transport._render = counted
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        report = soak.soak(seconds, patch=patch, device='cuda',
+                           progress=lambda msg: None)
+    finally:
+        Transport._render = render
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = dict(K.LAUNCHES)
+    renders = len(batches) + 1
+    want = {k: SOAK_KERNELS[patch].get(k, 0) * renders for k in counts}
+    print(f'[launches] soak, {patch}: {counts} ({len(batches)} batches of '
+          f'{min(batches)}-{max(batches)} blocks, {sum(batches)} blocks, '
+          f'and the warmup)')
+    lat = report['latency']
+    print(f'[soak] {patch}, {seconds} s ({wall:.1f} s wall): '
+          f'{report["underruns_after_warmup"]} underruns after the warmup '
+          f'(warmup {report["warmup_underruns"]}, seek windows '
+          f'{report["seek_window_underruns"]}), {report["edits"]} edits, '
+          f'seeks {report["seeks"]}, position {report["position_blocks"]} '
+          f'blocks; {lat["blocks"]} blocks rendered, p50 '
+          f'{lat["p50_ms"]!r} / p95 {lat["p95_ms"]!r} / worst '
+          f'{lat["worst_ms"]!r} ms a block, x_realtime_p50 '
+          f'{lat["x_realtime_p50"]!r}; kernels a batch '
+          f'{SOAK_KERNELS[patch]}  [{card}]')
+    print(f'[soak] report: {json.dumps(report)}')
+    assert counts == want, (patch, counts, want)
+    total.update(counts)
+    return report
+
+
+def phase_soak():
+    """The realtime soak on the card (``scripts/torch_soak.py``): the mono
+    voice for 65 s and the damped echo for 35 s through the realtime
+    ``null`` sink, the native ring and the paced consumer, under live
+    edits and two seeks, each held to ``tests/test_soak.py``'s whole
+    contract and its launch counts asserted.  Returns, per kernel,
+    ``(launches, what launched them)``."""
+    card = card_line()
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    soak = load_script('scripts/torch_soak.py')
+    block_ms = 1000.0 * F / RATE
+    voice = soak_run(soak, SOAK_VOICE_S, 'voice', card, total)
+    lat = voice['latency']
+    assert voice['underruns_after_warmup'] == 0, voice
+    assert voice['edits'] >= 30, voice
+    assert len(voice['seeks']) == 2, voice
+    assert voice['position_blocks'] > SOAK_VOICE_S * RATE / F * 0.95, voice
+    assert lat['blocks'] > 2000, lat
+    assert lat['x_realtime_p50'] > 3.0, lat
+    assert lat['p95_ms'] < block_ms, lat
+    echo = soak_run(soak, SOAK_ECHO_S, 'echo', card, total)
+    assert echo['underruns_after_warmup'] == 0, echo
+    assert echo['position_blocks'] > 0, echo
+    assert len(echo['seeks']) == 2, echo
+    print(f'[soak] phase 14: {time.perf_counter() - t_phase:.1f} s')
+    return {k: (n, 'realtime soak: the voice 65 s and the echo 35 s, one '
+                   'a render') for k, n in total.items() if n}
+
+
+# --- phase 15: the examples on the card ---------------------------------------
+
+#: ``examples_torch/*.py``: the files each ``main`` writes, the patch's
+#: voices (the tolerance against the CPU render is 1e-5 a voice; the pcm16
+#: AIFF one LSB) and the kernels a run launches
+#: (a static cutoff over fewer than 32 lanes takes K3, the segment gate)
+EXAMPLES = {
+    'feedback_echo': (['echo.wav'], 1, {'batch': 1}),
+    'poly_bounce': (['poly_bounce.wav'], 16, {'batch': 1}),
+    'melody': (['melody.wav'], 1, {'batch': 1}),
+    'midi_poly': (['demo.mid', 'midi_poly.wav'], 8, {'batch': 1}),
+    'modulation': (['modulation.wav'], 1, {}),
+    'space_echo': (['space_echo.aiff'], 1, {'batch': 1, 'fdn': 1}),
+    'fit_patch': ([], 1, {}),
+    'play_sine': ([], 1, {}),
+}
+
+
+def read_sound(path):
+    from signals_tpu_torch.runtime.sndfile import open_reader
+    r = open_reader(str(path))
+    try:
+        return r.read(0, r.frames)
+    finally:
+        r.close()
+
+
+@contextlib.contextmanager
+def recorded_fits(mod):
+    """Record each ``learn.fit`` and ``PolyPatch.fit`` that ``mod`` (the
+    ``fit_patch`` example) makes: ``[{'losses', 'value'}]``, float64
+    tensors of its losses and of the values fitted into its first
+    trainable."""
+    import torch
+    from signals_tpu_torch.parallel import PolyPatch
+    fits = []
+    if not hasattr(mod, 'fit'):
+        yield fits
+        return
+    fit, poly_fit = mod.fit, PolyPatch.fit
+
+    def record(result, value):
+        fits.append({k: torch.as_tensor(np.ravel(v).astype(np.float64))
+                     for k, v in (('losses', result.losses),
+                                  ('value', value))})
+        return result
+
+    def fit_recorded(root, target, trainable, **kw):
+        result = fit(root, target, trainable, **kw)
+        return record(result, trainable[0][0].get_state().value)
+
+    def poly_fit_recorded(self, target, trainable, **kw):
+        result = poly_fit(self, target, trainable, **kw)
+        node = trainable[0][0]
+        return record(result, next(s for n, _p, _a, s
+                                   in self._channel_overrides if n is node))
+
+    mod.fit, PolyPatch.fit = fit_recorded, poly_fit_recorded
+    try:
+        yield fits
+    finally:
+        mod.fit, PolyPatch.fit = fit, poly_fit
+
+
+def example_run(name, card, total):
+    """``examples_torch/<name>.py``'s ``main`` on the card, its outputs
+    under ``build/chip_smoke/examples/cuda``, its launch counts reset just
+    before it and checked just after; then on the CPU in this process
+    (``build/.../cpu``), and the card's file held to the CPU's.  Returns
+    the card run's wall (s)."""
+    import io
+    files, voices, expect = EXAMPLES[name]
+    mod = load_script(f'examples_torch/{name}.py')
+    out = {}
+    for device in ('cuda', 'cpu'):
+        d = work_dir() / 'examples' / device
+        d.mkdir(parents=True, exist_ok=True)
+        args = [str(d / f) for f in files]
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said), \
+                recorded_fits(mod) as fits:
+            t0 = time.perf_counter()
+            if device == 'cuda':
+                got = launched(f'example {name}',
+                               lambda: mod.main(*args, device=device),
+                               expect, total)
+            else:
+                got = mod.main(*args, device=device)
+            wall = time.perf_counter() - t0
+        out[device] = (args, got, fits, wall)
+        for line in said.getvalue().splitlines():
+            print(f'[examples] {name} ({device}, {wall:.2f} s wall): {line}')
+    (args, got, fits, wall), (cargs, cgot, cfits, _) = out['cuda'], out['cpu']
+    if files:
+        a, b = read_sound(args[-1]), read_sound(cargs[-1])
+        assert a.shape == b.shape and a.shape[0] > RATE, (a.shape, b.shape)
+        assert np.isfinite(a).all() and np.abs(b).max() > 0.1
+        err = float(np.abs(a.astype(np.float64) - b).max())
+        tol = 1.0 / 32768 if files[-1].endswith('.aiff') else voices * 1e-5
+        print(f'[examples] {name}: {files[-1]} on the card vs the CPU '
+              f'render: max abs {err!r} (tol {tol!r})  [{card}]')
+        assert err <= tol, (name, err)
+        if len(files) > 1:
+            assert open(args[0], 'rb').read() == open(cargs[0], 'rb').read()
+    elif name == 'fit_patch':
+        assert len(fits) == len(cfits) == 3
+        rels = [rel_max(g['value'], c['value'])
+                for g, c in zip(fits[:2], cfits[:2])]
+        rels.append(rel_max(fits[2]['losses'][:50], cfits[2]['losses'][:50]))
+        print(f'[examples] fit_patch: the gain and the pitch fitted on the '
+              f'card vs the CPU, and the poly fit\'s first 50 losses: '
+              f'relative {rels!r} (tol 1e-4); the card\'s values '
+              f'{[float(g["value"][0]) for g in fits[:2]]}, poly losses '
+              f'{float(fits[2]["losses"][0])!r} -> '
+              f'{float(fits[2]["losses"][-1])!r}  '
+              f'[{card}]')
+        assert max(rels) <= 1e-4, rels
+    else:                                   # play_sine: the captured audio
+        n = min(got.shape[0], cgot.shape[0])
+        err = float(np.abs(got[:n] - cgot[:n]).max())
+        print(f'[examples] play_sine: {got.shape[0]} frames captured on the '
+              f'card ({cgot.shape[0]} on the CPU), the first {n} within '
+              f'{err!r} of the CPU\'s (tol {TOL}), peak '
+              f'{float(np.abs(got).max())!r}')
+        assert n >= RATE and err <= TOL and np.abs(got).max() > 0.5
+    return wall
+
+
+def sink_fed_flagship(card, total):
+    """The flagship whose root also feeds a sink: the mix epilogue's
+    soundness walk stops at the sink (it raised there before) and rejects
+    the epilogue, so the patch takes the per-voice plan (one K1 launch
+    writing every lane, not the lanes' sums), within 64 x 1e-5 of the
+    same patch without a sink on the mix plan (one K1 launch summing the
+    lanes)."""
+    from signals_tpu_torch.nodes.dev import Rack, SinkDevice
+    from signals_tpu_torch.parallel import PolyPatch
+    rack = Rack()
+    rack.scan()
+    mixed = make_poly()
+    root, hz = build_subtractive_voice()
+    sink = SinkDevice(rack.get_sink('default'), realtime=False,
+                      device='cuda')
+    sink.get_state().channels = 1
+    sink.input = root
+    fed = PolyPatch(root, n_voices=V, overrides={(hz, 'value'): poly_freqs(V)},
+                    block_frames=F, rate=RATE, layout='channels',
+                    device='cuda')
+    assert fed._mix_epilogue and mixed.compiled.mega_mix(N_BLOCKS) is not None
+    want = launched('flagship, mix plan', lambda: mixed.render(
+        n_blocks=N_BLOCKS)[0], {'segments_gen': 1}, total)
+    plan = 'mix' if fed.compiled.mega_mix(N_BLOCKS) is not None else \
+        'per-voice'
+    got = launched('flagship feeding a sink', lambda: fed.render(
+        n_blocks=N_BLOCKS)[0], {'segments_gen': 1}, total)
+    err = float((got - want).abs().max())
+    print(f'[examples] the flagship feeding a sink, {N_BLOCKS} blocks: the '
+          f'{plan} plan, K1 x1; vs the mix plan without the sink: max abs '
+          f'{err!r} (tol {V * TOL})  [{card}]')
+    assert plan == 'per-voice' and err <= V * TOL, (plan, err)
+
+
+def phase_examples():
+    """The eight examples on the card (``examples_torch/``), each with its
+    launch counts asserted and its output held to the same script's CPU
+    run, and the flagship feeding a sink.  Returns, per kernel,
+    ``(launches, what launched them)``."""
+    card = card_line()
+    total = collections.Counter()
+    t_phase = time.perf_counter()
+    walls = {name: example_run(name, card, total) for name in EXAMPLES}
+    flagship = collections.Counter()
+    sink_fed_flagship(card, flagship)
+    print(f'[examples] walls on the card (s): '
+          f'{ {k: round(v, 3) for k, v in walls.items()} }  [{card}]')
+    print(f'[examples] phase 15: {time.perf_counter() - t_phase:.1f} s')
+    found = {k: (n, 'examples_torch: ' + ', '.join(
+        name for name, (_f, _v, e) in EXAMPLES.items() if k in e))
+        for k, n in total.items() if n}
+    for k, n in flagship.items():
+        if n:
+            m, how = found.get(k, (0, ''))
+            found[k] = (m + n, (how + '; ' if how else '') + 'the flagship '
+                        'feeding a sink, and without it')
+    return found
+
+
 def match_stream(raw, want, block):
     """Whether a paced consumer's output ``raw`` (frames, ch) is ``want``
     in order with zero-filled underruns: each ``block``-frame block of
@@ -5051,6 +5362,8 @@ def main() -> int:
     kern.update(fdn)
     phases.append(reverb_launches)
     phases.append(phase_mesh())
+    phases.append(phase_soak())
+    phases.append(phase_examples())
     for found in phases + [fit_launches]:
         for name, (n, how) in found.items():
             if name in launches:     # a kernel on several phases' paths

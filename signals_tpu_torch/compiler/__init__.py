@@ -169,11 +169,15 @@ def check_device(device) -> torch.device:
 
 def _downstream(node) -> dict:
     """``id -> node`` for ``node`` and every node whose output depends on
-    it."""
+    it.  A node with no outputs (a sink: a ``Receiver`` that is not an
+    ``Emitter``) ends its branch of the walk."""
     seen = {id(node): node}
     frontier = [node]
     while frontier:
-        for _pname, recv in frontier.pop().outputs_with_ports:
+        n = frontier.pop()
+        if not isinstance(n, Emitter):
+            continue
+        for _pname, recv in n.outputs_with_ports:
             if id(recv) not in seen:
                 seen[id(recv)] = recv
                 frontier.append(recv)

@@ -689,3 +689,129 @@ def test_compiled_patch_keeps_its_wiring_after_an_edit():
     hz.get_state().value = np.array([[880.0]], np.float32)   # traced edits
     moved, _ = old.render(n_blocks=3)                       # still apply
     assert not np.array_equal(moved.numpy(), before.numpy())
+
+
+# --- the downstream walk at a sink (compiler._downstream) --------------------
+
+
+def feedback_echo(pkg=PORT):
+    """``examples/feedback_echo.py``'s patch from ``pkg``'s nodes: a plucked
+    saw (LowPass 1800 Hz, ADSR gated at 1.25 Hz) into ``Mix`` <- 0.45 x
+    ``Delay`` (3/8 s) of the mix.  Returns the ``Mix``."""
+    mod = {m: importlib.import_module(f'{pkg}.nodes.{m}')
+           for m in ('delay', 'env', 'fx', 'osc')}
+    fx, osc = mod['fx'], mod['osc']
+    saw = osc.Sawtooth()
+    saw.hertz = fixed(220.0, pkg)
+    lp = fx.LowPass()
+    lp.input = saw
+    lp.cutoff = fixed(1800.0, pkg)
+    gate = osc.Square()
+    gate.hertz = fixed(1.25, pkg)
+    env = mod['env'].ADSR()
+    env.gate = gate
+    st = env.get_state()
+    st.attack, st.decay, st.sustain, st.release = 0.005, 0.12, 0.25, 0.08
+    pluck = fx.RingMod()
+    pluck.left = lp
+    pluck.right = env
+    mix = fx.Mix()
+    echo = mod['delay'].Delay()
+    echo.get_state().frames = int(0.375 * RATE)
+    fb = fx.Gain()
+    fb.left = echo
+    fb.right = fixed(0.45, pkg)
+    mix.left = pluck
+    mix.right = fb
+    mix.mix = fixed(0.55, pkg)
+    echo.input = mix
+    return mix
+
+
+def jax_sink_render(root, channels, **kw):
+    jdev = importlib.import_module('signals_tpu.nodes.dev')
+    jrack = jdev.Rack()
+    jrack.scan()
+    jsink = jdev.SinkDevice(jrack.get_sink('default'), realtime=False)
+    jsink.get_state().channels = channels
+    jsink.input = root
+    return np.asarray(jsink.render_offline(**kw))
+
+
+def test_feedback_echo_through_a_sink_matches_jax():
+    """The delay solver's cyclic branch walks the nodes downstream of the
+    delay; the sink that reads the loop has no outputs and ends the walk
+    (it raised ``AttributeError`` there).  2 s through
+    ``SinkDevice.render_offline`` within 1e-5 of the JAX package's."""
+    want = jax_sink_render(feedback_echo(JAX), 2, seconds=2.0)
+    sink = port_sink(realtime=False)
+    sink.get_state().channels = 2
+    sink.input = feedback_echo()
+    got = sink.render_offline(seconds=2.0).numpy()
+    assert got.shape == want.shape == (86 * 1024, 2)
+    assert np.isfinite(got).all() and np.abs(want).max() > 0.1
+    assert np.abs(got - want).max() <= 1e-5
+
+
+def test_feedback_echo_through_the_realtime_null_sink():
+    """The same patch played through the realtime ``null`` sink (the ring
+    and the paced consumer) for about a second: the captured frames are
+    the offline render's first frames within 1e-5."""
+    sink = port_sink('null', realtime=True)
+    sink.get_state().channels = 1
+    sink.input = feedback_echo()
+    sink.capture(True)
+    sink.start()
+    assert _wait(lambda: sink.captured().shape[0] >= RATE, 60)
+    tr = sink._transport
+    sink.stop()
+    sink.close()
+    assert tr.error is None
+    got = sink.captured()
+    n = got.shape[0]
+    assert n >= RATE and n % 1024 == 0
+    want = sink.render_offline(n_blocks=n // 1024).numpy()
+    assert np.isfinite(got).all() and np.abs(want).max() > 0.1
+    assert np.abs(got - want).max() <= 1e-5
+
+
+def test_mix_epilogue_poly_feeding_a_sink_matches_jax():
+    """A swept ``PolyPatch(mix_epilogue=True)`` whose root also feeds a
+    sink: the epilogue's soundness walk meets the sink, which is not
+    ``Mix`` / ``Gain`` / ``RingMod``, and rejects the epilogue, as the
+    reference's rule does; the patch takes the per-voice plan and its mix
+    is within V x 1e-5 of the JAX package's ``PolyPatch`` render (default
+    plan: the JAX package's own walk raises at a sink when asked for the
+    epilogue)."""
+    from test_torch_slice import build_voice, freqs
+    from signals_tpu.parallel import PolyPatch as JaxPolyPatch
+    from signals_tpu_torch.parallel import PolyPatch
+    V, NB = 4, 16
+    jroot, jhz = build_voice(JAX)
+    jdev = importlib.import_module('signals_tpu.nodes.dev')
+    jrack = jdev.Rack()
+    jrack.scan()
+    jsink = jdev.SinkDevice(jrack.get_sink('default'), realtime=False)
+    jsink.input = jroot
+    want, _ = JaxPolyPatch(jroot, n_voices=V,
+                           overrides={(jhz, 'value'): freqs(V)},
+                           block_frames=1024, rate=RATE).render(n_blocks=NB)
+    want = np.asarray(want)
+    root, hz = build_voice(PORT)
+    sink = port_sink(realtime=False)
+    sink.input = root
+    poly = PolyPatch(root, n_voices=V, overrides={(hz, 'value'): freqs(V)},
+                     block_frames=1024, rate=RATE, mix_epilogue=True,
+                     device='cpu')
+    assert poly.compiled.mega_mix(NB) is None      # the per-voice plan
+    got, carry = poly.render(n_blocks=NB)
+    got = got.numpy()
+    assert carry == {} and got.shape == want.shape == (NB * 1024, 1)
+    assert np.abs(want).max() > 0.1
+    assert np.abs(got - want).max() <= V * 1e-5
+    # the same voice without a sink takes the mix plan
+    root, hz = build_voice(PORT)
+    fresh = PolyPatch(root, n_voices=V, overrides={(hz, 'value'): freqs(V)},
+                      block_frames=1024, rate=RATE, mix_epilogue=True,
+                      device='cpu')
+    assert fresh.compiled.mega_mix(NB) is not None

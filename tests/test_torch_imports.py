@@ -444,3 +444,61 @@ def test_mesh_code_imports_no_jax():
         assert 'import jax' not in text and 'from jax' not in text, path
         assert 'from signals_tpu.' not in text, path
         assert 'import signals_tpu.' not in text, path
+
+
+#: import every port example and the port's soak script by path (their
+#: ``__main__`` blocks do not run) and read each one's ``--device`` default
+PROBE_EXAMPLES = '''
+import ast, importlib.util, pathlib, sys
+repo = pathlib.Path.cwd()
+paths = sorted((repo / 'examples_torch').glob('*.py')) + [
+    repo / 'scripts' / 'torch_soak.py']
+assert len(paths) == 9, paths
+for path in paths:
+    spec = importlib.util.spec_from_file_location('probe_' + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(n for n in sys.modules
+             if n.split('.')[0] in ('jax', 'jaxlib', 'optax', 'signals_tpu'))
+assert not bad, bad
+from signals_tpu_torch.compiler import _build
+assert _build._lib is None
+for path in paths:
+    defaults = [kw.value.value for node in ast.walk(ast.parse(path.read_text()))
+                if isinstance(node, ast.Call)
+                and getattr(node.func, 'attr', None) == 'add_argument'
+                and node.args and node.args[0].value == '--device'
+                for kw in node.keywords if kw.arg == 'default']
+    assert defaults == ['cuda'], (path, defaults)
+print('ok')
+'''
+
+
+def test_examples_and_soak_import_no_jax_and_default_to_the_card(tmp_path):
+    """``examples_torch/*.py`` and ``scripts/torch_soak.py`` import neither
+    JAX nor the JAX package and build nothing when imported; each one's
+    ``--device`` and its ``main``'s ``device`` default to ``'cuda'``, and
+    without a GPU asking for it raises instead of running on the CPU."""
+    import importlib.util
+    import inspect
+    proc = subprocess.run([sys.executable, '-c', PROBE_EXAMPLES], cwd=REPO,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith('ok')
+    paths = sorted((REPO / 'examples_torch').glob('*.py'))
+    for path in paths + [REPO / 'scripts' / 'torch_soak.py']:
+        text = path.read_text()
+        assert 'jax' not in text.lower(), path
+        assert 'signals_tpu.' not in text, path
+    for path in paths:
+        spec = importlib.util.spec_from_file_location(
+            'default_of_' + path.stem, path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        main = inspect.signature(mod.main).parameters
+        assert main['device'].default == 'cuda', path
+        import torch
+        if not torch.cuda.is_available():
+            args = [str(tmp_path / f'{path.stem}_{i}')
+                    for i in range(len(main) - 1 - ('seconds' in main))]
+            with pytest.raises(RuntimeError, match='CUDA'):
+                mod.main(*args)
