@@ -1,0 +1,10 @@
+"""Host milliseconds an optimizer step spends in the program's span
+``fit.forward``: the trainable leaves merged, the plan rendered, the loss
+(the spans slice of a traced run, ``lib/spans.py``; per ``fit.forward``
+span)."""
+
+from benchmark.lib import spans
+
+
+def read(rec):
+    return spans.per(rec, 'fit', 'fit.forward', 'fit.forward')

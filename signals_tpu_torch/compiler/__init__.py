@@ -78,7 +78,7 @@ import torch
 
 from signals_tpu_torch import PortName, SignalFlags
 from signals_tpu_torch.core import ChainLayerError
-from signals_tpu_torch.core.xp import NP, TorchXP
+from signals_tpu_torch.core.xp import NP, TorchXP, to_device
 from signals_tpu_torch.graph import (
     Emitter,
     KernelCtx,
@@ -87,6 +87,7 @@ from signals_tpu_torch.graph import (
     Wiring,
     frozen_wiring,
 )
+from signals_tpu_torch.utils import span
 
 F32 = np.float32
 
@@ -671,7 +672,7 @@ class _Compiler:
                         arr = np.asarray(v, dtype=np.int32)
                     else:
                         arr = np.asarray(v, dtype=F32)
-                    leaves[pname] = torch.as_tensor(arr, device=index.device)
+                    leaves[pname] = to_device(arr, index.device)
             if leaves:
                 params[index.info(node).uid] = leaves
         return params
@@ -698,7 +699,7 @@ class _Compiler:
                     c['hist'] = np.zeros((hist, node.channels), dtype=F32)
             else:
                 continue
-            carry[info.uid] = {k: torch.as_tensor(v, device=self.device)
+            carry[info.uid] = {k: to_device(v, self.device)
                                for k, v in c.items()}
         return carry
 
@@ -719,28 +720,28 @@ class _Compiler:
         const = self.node_const.get(id(node))
         if const is not None:
             return self._const(const)
-        if _is_host_source(node):
-            # a disabled reader is silent, as in the pull oracle
-            result = torch.where(
-                self.node_param(node, 'enabled'),
-                self.host[_host_key(self.index.info(node).uid, window)],
-                self._zero())
-        elif _is_delay(node):
-            result = self._lower_delay(node, window)
-        elif _is_grid_stateless(node):
-            ctx = LowerCtx(self, node, window)
-            result = torch.as_tensor(
-                node.grid_kernel(ctx, self.block_frames),
-                dtype=torch.float32, device=self.device)
-            result = torch.where(self.node_param(node, 'enabled'), result,
-                                 self._zero())
-        elif _is_stateful(node):
-            result = self._lower_stateful(node, window)
-        else:
-            ctx = LowerCtx(self, node, window)
-            result = torch.as_tensor(node.kernel(ctx), dtype=torch.float32,
-                                     device=self.device)
-            result = self._apply_enabled(node, window, result)
+        with span('lower.', type(node).__name__):
+            if _is_host_source(node):
+                # a disabled reader is silent, as in the pull oracle
+                result = torch.where(
+                    self.node_param(node, 'enabled'),
+                    self.host[_host_key(self.index.info(node).uid, window)],
+                    self._zero())
+            elif _is_delay(node):
+                result = self._lower_delay(node, window)
+            elif _is_grid_stateless(node):
+                ctx = LowerCtx(self, node, window)
+                result = to_device(node.grid_kernel(ctx, self.block_frames),
+                                   self.device, torch.float32)
+                result = torch.where(self.node_param(node, 'enabled'),
+                                     result, self._zero())
+            elif _is_stateful(node):
+                result = self._lower_stateful(node, window)
+            else:
+                ctx = LowerCtx(self, node, window)
+                result = to_device(node.kernel(ctx), self.device,
+                                   torch.float32)
+                result = self._apply_enabled(node, window, result)
         self._memo[key] = result
         return self._note_tap(node, window, result)
 
@@ -797,8 +798,7 @@ class _Compiler:
             step = (node.mega_step if main.frames > self.block_frames
                     else node.step)
             block, new_carry = step(ctx, carry)
-            block = torch.as_tensor(block, dtype=torch.float32,
-                                    device=self.device)
+            block = to_device(block, self.device, torch.float32)
             block = torch.broadcast_to(block, (main.frames, node.channels))
             block = torch.where(self.node_param(node, 'enabled'), block,
                                 self._zero())
@@ -983,19 +983,21 @@ class CompiledPatch:
         frames, ch)`` tensors, copied in ONE host-to-device transfer (from
         pinned memory, not blocking the host, on a GPU); ``{}`` for a patch
         without host inputs."""
-        staged = self.stage_host(position, n_blocks)
-        if not staged:
-            return {}
-        flat = np.concatenate([np.asarray(a, dtype=F32).reshape(-1)
-                               for a in staged.values()])
-        buf = torch.from_numpy(flat)
-        if self.device.type == 'cuda':
-            buf = buf.pin_memory().to(self.device, non_blocking=True)
-        out, at = {}, 0
-        for key, a in staged.items():
-            out[key] = buf[at:at + a.size].reshape(a.shape)
-            at += a.size
-        return out
+        with span('patch.host_inputs'):
+            staged = self.stage_host(position, n_blocks)
+            if not staged:
+                return {}
+            flat = np.concatenate([np.asarray(a, dtype=F32).reshape(-1)
+                                   for a in staged.values()])
+            buf = torch.from_numpy(flat)
+            if self.device.type == 'cuda':
+                buf = to_device(buf.pin_memory(), self.device,
+                                non_blocking=True)
+            out, at = {}, 0
+            for key, a in staged.items():
+                out[key] = buf[at:at + a.size].reshape(a.shape)
+                at += a.size
+            return out
 
     @staticmethod
     def _host_slice(host: dict, i: int) -> dict:
@@ -1314,7 +1316,8 @@ class CompiledPatch:
 
         def mix(params, position0: int):
             comp = self._compiler(params, position0, None, n_blocks)
-            ysum = f.family_sum(LowerCtx(comp, f, main), (F, n_blocks))
+            with span('lower.', type(f).__name__):
+                ysum = f.family_sum(LowerCtx(comp, f, main), (F, n_blocks))
             ys = torch.where(comp.node_param(f, 'enabled'),
                              ysum.reshape(n_blocks * F, 1),
                              torch.zeros((), device=self.device))
@@ -1469,15 +1472,16 @@ class CompiledPatch:
         host and handed to its ``consume_tap`` one block at a time, with
         their positions; a disabled tap forwards its audio and is handed
         nothing (the reference's PASSTHRU semantics)."""
-        self.check_position(position, n_blocks)
-        if carry is None:
-            carry = self.carry0
-        blocks, carry2, taps = self.render_core(n_blocks)(
-            self.params(), carry, position)
-        if deliver_taps:
-            self._deliver_taps(taps, position, n_blocks)
-        return (blocks.reshape(n_blocks * self.block_frames, self.channels),
-                carry2)
+        with span('patch.render'):
+            self.check_position(position, n_blocks)
+            if carry is None:
+                carry = self.carry0
+            blocks, carry2, taps = self.render_core(n_blocks)(
+                self.params(), carry, position)
+            if deliver_taps:
+                self._deliver_taps(taps, position, n_blocks)
+            return (blocks.reshape(n_blocks * self.block_frames,
+                                   self.channels), carry2)
 
     def _deliver_taps(self, taps: dict, position: int, n_blocks: int) -> None:
         """Copy each enabled tap's blocks to the host and hand them to its

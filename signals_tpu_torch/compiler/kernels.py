@@ -51,7 +51,8 @@ from signals_tpu_torch.compiler import filters as _filters
 from signals_tpu_torch.compiler.filters import (sosfilt_scan,
                                                  sosfilt_stream_scan)
 from signals_tpu_torch.core.mathx import _SIN2PI_COEFFS, sin2pi
-from signals_tpu_torch.core.xp import TorchXP
+from signals_tpu_torch.core.xp import (COPIES, TorchXP,  # noqa: F401
+                                       reset_copy_counts)
 
 OSC_SINE, OSC_SQUARE, OSC_SAW, OSC_TRIANGLE = 0, 1, 2, 3
 
@@ -65,6 +66,8 @@ LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0,
             'stream': 0, 'segments_gen_vjp': 0, 'segments_vjp': 0,
             'batch_vjp': 0, 'timeline_vjp': 0, 'stream_vjp': 0, 'ima': 0,
             'fdn': 0, 'fdn_vjp': 0, 'fdn_vjp_gain': 0}
+# beside it, COPIES and reset_copy_counts (from core.xp, whose to_device
+# makes them): the host-to-device copies of the render and fit paths
 
 #: sections per lane the segment kernels take (the Butterworth designs: 1
 #: for low/high-pass, 2 for band-pass/band-stop)

@@ -16,12 +16,41 @@ numpy arrays.  Reductions are called as functions with an ``axis``
 methods of the same names return other things.  Integer shifts, ``&`` and
 ``^`` are the operators themselves: ``>>`` is arithmetic on a signed
 integer in both namespaces.
+
+:func:`to_device` makes every tensor of host data that the render and fit
+paths put on a device, and counts the copies in :data:`COPIES`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+#: copies from host memory onto a device made through :func:`to_device`
+#: since :func:`reset_copy_counts`: how many, and their bytes
+COPIES = {'h2d_copies': 0, 'h2d_bytes': 0}
+
+
+def reset_copy_counts() -> None:
+    for k in COPIES:
+        COPIES[k] = 0
+
+
+def to_device(data, device, dtype=None, *, non_blocking: bool = False):
+    """``data`` (a number, an array or a tensor) as a tensor of ``dtype``
+    on ``device`` (``torch.as_tensor``; ``Tensor.to`` for a tensor, with
+    ``non_blocking``), counting in :data:`COPIES` a copy from the host onto
+    another device."""
+    if isinstance(data, torch.Tensor):
+        out = data.to(device=device, dtype=dtype, non_blocking=non_blocking)
+        if not data.is_cpu:
+            return out
+    else:
+        out = torch.as_tensor(data, dtype=dtype, device=device)
+    if not out.is_cpu:
+        COPIES['h2d_copies'] += 1
+        COPIES['h2d_bytes'] += out.nbytes
+    return out
 
 
 class _NumpyXP:
@@ -58,8 +87,8 @@ class TorchXP:
         if isinstance(x, torch.Tensor):
             return x
         if isinstance(x, float):
-            return torch.tensor(x, dtype=torch.float32, device=self.device)
-        return torch.as_tensor(np.asarray(x), device=self.device)
+            return to_device(x, self.device, torch.float32)
+        return to_device(np.asarray(x), self.device)
 
     def asarray(self, x, dtype=None):
         return self._t(x) if dtype is None else self._t(x).to(dtype)
@@ -72,9 +101,9 @@ class TorchXP:
         """Both operands as tensors; a scalar takes the other's dtype
         (numpy's weak-scalar rule)."""
         if not isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-            a = torch.tensor(a, dtype=b.dtype, device=b.device)
+            a = to_device(a, b.device, b.dtype)
         elif not isinstance(b, torch.Tensor) and isinstance(a, torch.Tensor):
-            b = torch.tensor(b, dtype=a.dtype, device=a.device)
+            b = to_device(b, a.device, a.dtype)
         return self._t(a), self._t(b)
 
     def where(self, cond, a, b):

@@ -26,7 +26,9 @@ import numpy as np
 import torch
 
 from signals_tpu_torch.compiler import CompiledPatch, compile_node
+from signals_tpu_torch.core.xp import to_device
 from signals_tpu_torch.graph import Emitter
+from signals_tpu_torch.utils import span
 
 F32 = np.float32
 
@@ -43,7 +45,7 @@ def _hanning(n: int, device: str) -> torch.Tensor:
     """numpy's symmetric Hann window (``jnp.hanning``): ``0.5 - 0.5 cos(2 pi
     k / (n - 1))``, computed in float64 and rounded once, on ``device``.
     (``torch.hann_window`` defaults to the periodic window.)"""
-    return torch.as_tensor(np.hanning(n).astype(F32), device=device)
+    return to_device(np.hanning(n).astype(F32), device)
 
 
 def _frames_half_hop(x, n: int):
@@ -159,8 +161,7 @@ def _conform_target(target, F: int, device):
             f'least one whole {F}-frame block (pad the audio or lower '
             'block_frames)')
     n_blocks = target.shape[0] // F
-    target = torch.as_tensor(target[:n_blocks * F], dtype=torch.float32,
-                             device=device)
+    target = to_device(target[:n_blocks * F], device, torch.float32)
     if target.dim() == 1:
         target = target[:, None]
     return target, n_blocks
@@ -203,7 +204,9 @@ def fused_descent(loss_fn, train, *, steps: int, learning_rate: float,
     ``lr_scale`` (``uid -> name -> tensor`` of per-leaf multipliers, or
     None), then added.  The losses stay on the device and are copied off
     once per chunk of ``steps_per_dispatch`` steps (one synchronisation a
-    chunk)."""
+    chunk).  Spans: each step's ``fit.forward`` (the loss), ``fit.backward``
+    (the gradient) and ``fit.update`` (Adam), and a chunk's ``fit.sync``
+    (the host waiting for its losses)."""
     leaves = _leaves(train)
     scale = None if lr_scale is None else _leaves(lr_scale, train)
     mu = [torch.zeros_like(p) for p in leaves]
@@ -217,13 +220,15 @@ def fused_descent(loss_fn, train, *, steps: int, learning_rate: float,
         k = min(K, remaining)
         values = []
         for _ in range(k):
-            value = loss_fn(train, *loss_args)
-            grads = torch.autograd.grad(value, leaves, allow_unused=True,
-                                        materialize_grads=True)
-            count += 1
-            bc1 = float(F32(1.0) - B1 ** F32(count))
-            bc2 = float(F32(1.0) - B2 ** F32(count))
-            with torch.no_grad():
+            with span('fit.forward'):
+                value = loss_fn(train, *loss_args)
+            with span('fit.backward'):
+                grads = torch.autograd.grad(value, leaves, allow_unused=True,
+                                            materialize_grads=True)
+            with span('fit.update'), torch.no_grad():
+                count += 1
+                bc1 = float(F32(1.0) - B1 ** F32(count))
+                bc2 = float(F32(1.0) - B2 ** F32(count))
                 for i, (p, g) in enumerate(zip(leaves, grads)):
                     mu[i] = float(F32(1.0) - B1) * g + float(B1) * mu[i]
                     nu[i] = float(F32(1.0) - B2) * g ** 2 + float(B2) * nu[i]
@@ -233,7 +238,8 @@ def fused_descent(loss_fn, train, *, steps: int, learning_rate: float,
                         u = u * scale[i]
                     p.add_(u)
             values.append(value.detach())
-        losses.extend(torch.stack(values).cpu().tolist())
+        with span('fit.sync'):
+            losses.extend(torch.stack(values).cpu().tolist())
         remaining -= k
     return train, losses
 

@@ -25,6 +25,7 @@ import torch
 from signals_tpu_torch import SignalFlags
 from signals_tpu_torch.core.state import Param, all_of, ge, in_range, \
     instance_of
+from signals_tpu_torch.core.xp import to_device
 from signals_tpu_torch.graph import KernelCtx, Receiver, port
 from signals_tpu_torch.nodes.fx import Effect
 from signals_tpu_torch.registry import register
@@ -158,8 +159,7 @@ class Convolve(Effect):
         key = (self._ir_key(), M, ch, xp.device)
         spec = self._spectra.get(key)
         if spec is None:
-            spec = self._spectra[key] = torch.as_tensor(host(),
-                                                        device=xp.device)
+            spec = self._spectra[key] = to_device(host(), xp.device)
         return spec
 
     # --- node protocol ------------------------------------------------------

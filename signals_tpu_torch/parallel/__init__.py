@@ -36,7 +36,9 @@ import torch
 
 from signals_tpu_torch.compiler import CompiledPatch, check_device, \
     compile_node
+from signals_tpu_torch.core.xp import to_device
 from signals_tpu_torch.graph import Emitter
+from signals_tpu_torch.utils import span
 
 F32 = np.float32
 
@@ -261,19 +263,20 @@ class PolyPatch:
         *leaf)``; None on the shared ones), as the JAX package's
         ``PolyPatch.params``; None for the channels layout.  Under a mesh
         the overridden leaves hold the rank's voices."""
-        base = self.compiled.params()
-        if self.layout == 'channels':
-            return base, None
-        n = self._n_local
-        for (uid, pname), arr in self._overrides.items():
-            leaf = base[uid][pname]
-            arr = arr[self._first:self._first + n]
-            if arr.ndim == 1:          # (V,) scalars -> (V, 1, 1, ...)
-                arr = arr.reshape((n,) + (1,) * leaf.dim())
-            stacked = np.broadcast_to(arr, (n, *leaf.shape))
-            base[uid][pname] = torch.as_tensor(
-                np.array(stacked), dtype=leaf.dtype, device=self.device)
-        return base, self._params_axes(base)
+        with span('poly.params'):
+            base = self.compiled.params()
+            if self.layout == 'channels':
+                return base, None
+            n = self._n_local
+            for (uid, pname), arr in self._overrides.items():
+                leaf = base[uid][pname]
+                arr = arr[self._first:self._first + n]
+                if arr.ndim == 1:          # (V,) scalars -> (V, 1, 1, ...)
+                    arr = arr.reshape((n,) + (1,) * leaf.dim())
+                stacked = np.broadcast_to(arr, (n, *leaf.shape))
+                base[uid][pname] = to_device(np.array(stacked), self.device,
+                                             leaf.dtype)
+            return base, self._params_axes(base)
 
     def init_carry(self) -> dict:
         """The initial carry: the compiled patch's ``carry0``, with each
@@ -309,7 +312,8 @@ class PolyPatch:
         CompiledPatch.host_inputs`).  Taps are neither returned nor
         delivered, as in the JAX package's ``PolyPatch``.  Under a mesh
         each rank renders its voices this way and the mix is summed over
-        the ranks (:class:`_MixSum`)."""
+        the ranks (:class:`_MixSum`).  A call is the span ``poly.plan``:
+        the plan's enqueue."""
         if n_blocks in self._render_cache:
             return self._render_cache[n_blocks]
         compiled = self.compiled
@@ -319,7 +323,7 @@ class PolyPatch:
         if self.layout == 'vmap':
             whole = compiled.render_core(n_blocks)
 
-            def render(params, carry, position0, host=None):
+            def plan(params, carry, position0, host=None):
                 def voice(p, c, _voice):
                     blocks, c2, _taps = whole(p, c, position0, host)
                     return blocks, c2
@@ -329,18 +333,22 @@ class PolyPatch:
                         params, carry, self._voices)
                 return self._mix_sum(blocks.sum(dim=0)), carry2
         elif mixplan is not None:
-            def render(params, carry, position0, host=None):
+            def plan(params, carry, position0, host=None):
                 mix = self._mix_sum(mixplan(params, position0))  # (n, F, 1)
                 return torch.broadcast_to(mix, (n_blocks, F, out_ch)), carry
         else:
             whole = compiled.render_core(n_blocks)
 
-            def render(params, carry, position0, host=None):
+            def plan(params, carry, position0, host=None):
                 blocks, carry2, _taps = whole(params, carry, position0,
                                               host)
                 mix = self._mix_sum(blocks.sum(dim=2, keepdim=True))
                 return (torch.broadcast_to(mix, (n_blocks, F, out_ch)),
                         carry2)
+
+        def render(params, carry, position0, host=None):
+            with span('poly.plan'):
+                return plan(params, carry, position0, host)
 
         self._render_cache[n_blocks] = render
         return render
@@ -361,16 +369,19 @@ class PolyPatch:
         :meth:`params`; pass e.g. :func:`signals_tpu_torch.interop.
         params_from_jax` output to replay another engine's values.
         ``carry`` defaults to :meth:`init_carry` (empty for a carry-free
-        voice); pass a returned carry to continue a render."""
-        self.compiled.check_position(position, n_blocks)
-        if params is None:
-            params, _ = self.params()
-        if carry is None:
-            carry = self.init_carry()
-        host = self.compiled.host_inputs(position, n_blocks)
-        mix, carry2 = self.render_fn(n_blocks)(params, carry, position, host)
-        F = self.compiled.block_frames
-        return mix.reshape(n_blocks * F, self._out_channels), carry2
+        voice); pass a returned carry to continue a render.  A call is the
+        span ``poly.render``, the root of its spans."""
+        with span('poly.render'):
+            self.compiled.check_position(position, n_blocks)
+            if params is None:
+                params, _ = self.params()
+            if carry is None:
+                carry = self.init_carry()
+            host = self.compiled.host_inputs(position, n_blocks)
+            mix, carry2 = self.render_fn(n_blocks)(params, carry, position,
+                                                   host)
+            F = self.compiled.block_frames
+            return mix.reshape(n_blocks * F, self._out_channels), carry2
 
     def fit(self, target, trainable, *, steps: int = 200,
             learning_rate: float = 0.02, loss=None,
@@ -403,65 +414,75 @@ class PolyPatch:
         gradients, flattened, a step), so every rank takes the same step.
         ``apply`` gathers the per-voice slices, so every rank writes back
         all the voices.
-        The result's params are the rank's (its voices' slices)."""
+        The result's params are the rank's (its voices' slices).
+
+        A call is the span ``poly.fit``: ``fit.prepare`` (the target, params,
+        carry and host inputs), the steps' spans of :func:`signals_tpu_torch.
+        learn.fused_descent`, then ``fit.apply`` (the write-back)."""
         from signals_tpu_torch import learn
-        compiled = self.compiled
-        F = compiled.block_frames
-        target, n_blocks = learn._conform_target(target, F, self.device)
-        compiled.check_position(position, n_blocks)
-        loss = learn.spectral_loss if loss is None else loss
-        render = self.render_fn(n_blocks)
-        params, _ = self.params()
-        carry0 = self.init_carry()
-        index = compiled.index
-        keys = [(index.info(node).uid, pname) for node, pname in trainable]
-        #: (uid, pname) of a per-voice trainable -> the voice axis of its leaf
-        if self.layout == 'vmap':
-            voice_axis = {k: 0 for k in keys if k in self._overrides}
-        else:
-            voice_axis = {(index.info(n).uid, p): axis
-                          for n, p, axis, _ in self._channel_overrides}
-        train = learn._split_train(params, set(keys))
+        with span('poly.fit'):
+            with span('fit.prepare'):
+                compiled = self.compiled
+                F = compiled.block_frames
+                target, n_blocks = learn._conform_target(target, F,
+                                                         self.device)
+                compiled.check_position(position, n_blocks)
+                render = self.render_fn(n_blocks)
+                params, _ = self.params()
+                carry0 = self.init_carry()
+                index = compiled.index
+                keys = [(index.info(node).uid, pname)
+                        for node, pname in trainable]
+                #: (uid, pname) of a per-voice trainable -> the voice axis
+                #: of its leaf
+                if self.layout == 'vmap':
+                    voice_axis = {k: 0 for k in keys if k in self._overrides}
+                else:
+                    voice_axis = {(index.info(n).uid, p): axis
+                                  for n, p, axis, _ in self._channel_overrides}
+                train = learn._split_train(params, set(keys))
+                lr_scale = (learn._relative_scale(train) if relative_lr
+                            else None)
+                host = compiled.host_inputs(position, n_blocks)
+            loss = learn.spectral_loss if loss is None else loss
+            shared = [(uid, p) for uid in train for p in train[uid]
+                      if (uid, p) not in voice_axis]
+            if self._group is None:
+                shared = []
 
-        shared = [(uid, p) for uid in train for p in train[uid]
-                  if (uid, p) not in voice_axis]
-        if self._group is None:
-            shared = []
+            def loss_fn(tp, target, host, full_params):
+                if shared:
+                    summed = _GradSum.apply(
+                        self._group, *(tp[uid][p] for uid, p in shared))
+                    tp = {uid: dict(leaves) for uid, leaves in tp.items()}
+                    for (uid, p), leaf in zip(shared, summed):
+                        tp[uid][p] = leaf
+                mix, _ = render(learn._merge_train(full_params, tp), carry0,
+                                position, host)
+                return loss(mix.reshape(n_blocks * F, self._out_channels),
+                            target)
 
-        def loss_fn(tp, target, host, full_params):
-            if shared:
-                summed = _GradSum.apply(self._group,
-                                        *(tp[uid][p] for uid, p in shared))
-                tp = {uid: dict(leaves) for uid, leaves in tp.items()}
-                for (uid, p), leaf in zip(shared, summed):
-                    tp[uid][p] = leaf
-            mix, _ = render(learn._merge_train(full_params, tp), carry0,
-                            position, host)
-            return loss(mix.reshape(n_blocks * F, self._out_channels),
-                        target)
+            train, losses = learn.fused_descent(
+                loss_fn, train, steps=steps, learning_rate=learning_rate,
+                steps_per_dispatch=steps_per_dispatch,
+                loss_args=(target, host, params), lr_scale=lr_scale)
 
-        host = compiled.host_inputs(position, n_blocks)
-        train, losses = learn.fused_descent(
-            loss_fn, train, steps=steps, learning_rate=learning_rate,
-            steps_per_dispatch=steps_per_dispatch,
-            loss_args=(target, host, params),
-            lr_scale=learn._relative_scale(train) if relative_lr else None)
-
-        final = learn._merge_train(params, train)
-        if apply:
-            for node, pname in trainable:
-                key = (index.info(node).uid, pname)
-                fitted = final[key[0]][pname].detach()
-                axis = voice_axis.get(key)
-                if axis is None:
-                    learn.write_back(node, pname, fitted)
-                    continue
-                if self._group is not None:
-                    fitted = self._gather_voices(fitted, axis)
-                fitted = fitted.cpu().numpy()
-                self.set_override(node, pname,
-                                  fitted[0] if axis == 1 else fitted)
-        return learn.FitResult(params=final, losses=np.asarray(losses))
+            with span('fit.apply'):
+                final = learn._merge_train(params, train)
+                if apply:
+                    for node, pname in trainable:
+                        key = (index.info(node).uid, pname)
+                        fitted = final[key[0]][pname].detach()
+                        axis = voice_axis.get(key)
+                        if axis is None:
+                            learn.write_back(node, pname, fitted)
+                            continue
+                        if self._group is not None:
+                            fitted = self._gather_voices(fitted, axis)
+                        fitted = fitted.cpu().numpy()
+                        self.set_override(node, pname,
+                                          fitted[0] if axis == 1 else fitted)
+            return learn.FitResult(params=final, losses=np.asarray(losses))
 
     def _gather_voices(self, local, axis: int):
         """The ranks' slices of a per-voice leaf joined on its voice
