@@ -11,14 +11,16 @@ Kernels call ``xp.where``, ``xp.floor``, ``xp.maximum``, ``xp.sign``,
 ``xp.broadcast_to``, ``xp.astype(x, dtype)`` and friends; dtypes are
 ``xp.float32`` / ``xp.float64`` / ``xp.int32``.  Python and numpy scalars
 mix with tensors as weak scalars (the tensor's dtype wins), as they do with
-numpy arrays.  Reductions are called as functions with an ``axis``
-(``xp.sum(x, axis=1)``, ``xp.min`` / ``xp.max`` / ``xp.mean``): the tensor
-methods of the same names return other things.  Integer shifts, ``&`` and
-``^`` are the operators themselves: ``>>`` is arithmetic on a signed
-integer in both namespaces.
+numpy arrays; such a scalar stays on the host and rides in the kernel's
+arguments, so it costs no copy and no wait for the device.  Reductions are
+called as functions with an ``axis`` (``xp.sum(x, axis=1)``, ``xp.min`` /
+``xp.max`` / ``xp.mean``): the tensor methods of the same names return
+other things.  Integer shifts, ``&`` and ``^`` are the operators
+themselves: ``>>`` is arithmetic on a signed integer in both namespaces.
 
 :func:`to_device` makes every tensor of host data that the render and fit
-paths put on a device, and counts the copies in :data:`COPIES`.
+paths put on a device, and counts the copies in :data:`COPIES`; a scalar
+that has to live on the device by itself is filled there instead.
 """
 
 from __future__ import annotations
@@ -81,34 +83,53 @@ class TorchXP:
     def __init__(self, device):
         self.device = torch.device(device)
 
-    def _t(self, x):
-        """Tensor view of ``x``: numpy values keep their dtype, Python
-        floats become f32 (the engines' audio dtype)."""
-        if isinstance(x, torch.Tensor):
-            return x
-        if isinstance(x, float):
-            return to_device(x, self.device, torch.float32)
-        return to_device(np.asarray(x), self.device)
+    def _t(self, x, dtype=None):
+        """Tensor view of ``x``, of ``dtype`` when one is given: numpy
+        values keep their dtype, Python floats become f32 (the engines'
+        audio dtype).  A host array is copied onto the device; a scalar is
+        filled there (a launch, not a copy)."""
+        if not isinstance(x, torch.Tensor):
+            if np.ndim(x):
+                x = to_device(np.asarray(x), self.device)
+            else:
+                v = (torch.tensor(x, dtype=torch.float32)
+                     if isinstance(x, float)
+                     else torch.as_tensor(np.asarray(x)))
+                v = v if dtype is None else v.to(dtype)
+                return torch.full((), v.item(), dtype=v.dtype,
+                                  device=self.device)
+        return x if dtype is None else x.to(dtype)
 
     def asarray(self, x, dtype=None):
-        return self._t(x) if dtype is None else self._t(x).to(dtype)
+        return self._t(x, dtype)
 
     @staticmethod
     def astype(x, dtype):
         return x.to(dtype)
 
-    def _pair(self, a, b):
+    def _pair(self, a, b, number=False):
         """Both operands as tensors; a scalar takes the other's dtype
-        (numpy's weak-scalar rule)."""
-        if not isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-            a = to_device(a, b.device, b.dtype)
-        elif not isinstance(b, torch.Tensor) and isinstance(a, torch.Tensor):
-            b = to_device(b, a.device, a.dtype)
+        (numpy's weak-scalar rule) and stays on the host: a 0-dim CPU
+        tensor, which torch's kernels take as an argument beside a tensor
+        on any device, or with ``number`` a Python number of that dtype,
+        for ops that would copy such a tensor onto the device."""
+        if isinstance(a, torch.Tensor) != isinstance(b, torch.Tensor):
+            if isinstance(a, torch.Tensor):
+                return a, self._like(b, a, number)
+            return self._like(a, b, number), b
         return self._t(a), self._t(b)
 
+    def _like(self, x, other, number=False):
+        """``x`` against the tensor ``other``, in its dtype: a host array
+        copied onto its device, a scalar kept on the host (see
+        :meth:`_pair`)."""
+        if np.ndim(x):
+            return to_device(x, other.device, other.dtype)
+        v = torch.as_tensor(np.asarray(x)).to(other.dtype)
+        return v.item() if number else v
+
     def where(self, cond, a, b):
-        a, b = self._pair(a, b)
-        return torch.where(self._t(cond), a, b)
+        return torch.where(self._t(cond), *self._pair(a, b, number=True))
 
     def maximum(self, a, b):
         return torch.maximum(*self._pair(a, b))
@@ -120,7 +141,10 @@ class TorchXP:
         return torch.abs(x)
 
     def clip(self, x, lo, hi):
-        return torch.clamp(self._t(x), lo, hi)
+        x = self._t(x)
+        lo, hi = (b if b is None or isinstance(b, torch.Tensor)
+                  else self._like(b, x, True) for b in (lo, hi))
+        return torch.clamp(x, lo, hi)
 
     def floor(self, x):
         return torch.floor(x)
