@@ -136,7 +136,8 @@ def make_loss_core(compiled: CompiledPatch, n_blocks: int, *,
     ``host`` is the render's staged host inputs on the device
     (:meth:`~signals_tpu_torch.compiler.CompiledPatch.host_inputs`), an
     argument as in the JAX package so that one staging serves every step;
-    None stages them in the call."""
+    None stages them in the call.  The loss's call is the span
+    ``fit.loss``."""
     F = compiled.block_frames
     loss = spectral_loss if loss is None else loss
     compiled.check_position(position, n_blocks)
@@ -146,7 +147,8 @@ def make_loss_core(compiled: CompiledPatch, n_blocks: int, *,
     def loss_fn(params, target, host=None):
         blocks, _, _ = many(params, carry0, position, host)
         audio = blocks.reshape(n_blocks * F, compiled.channels)
-        return loss(audio, target)
+        with span('fit.loss'):
+            return loss(audio, target)
 
     return loss_fn
 
@@ -310,31 +312,41 @@ def fit(root: Emitter,
     steps)``); the steps are the same whatever it is.  ``relative_lr=True``
     makes ``learning_rate`` a relative step: each parameter steps
     ``learning_rate * max(|p0|, 0.01)`` per update, so one rate serves
-    parameters of any scale (a 0.8 gain and a 2000 Hz cutoff)."""
-    compiled = compile_node(root, block_frames=block_frames, rate=rate,
-                            device=device)
-    target, n_blocks = _conform_target(target, compiled.block_frames,
-                                       compiled.device)
-    core = make_loss_core(compiled, n_blocks, loss=loss)
-    params = compiled.params()
-    index = compiled.index
-    train_keys = {(index.info(node).uid, pname)
-                  for node, pname in trainable}
-    train = _split_train(params, train_keys)
+    parameters of any scale (a 0.8 gain and a 2000 Hz cutoff).
 
-    def loss_train(tp, target, host, full_params):
-        return core(_merge_train(full_params, tp), target, host)
+    A call is the span ``learn.fit``: ``fit.prepare`` (the compile, the
+    target, the loss core, the params and their split, the host inputs),
+    the steps' spans of :func:`fused_descent` (each ``fit.forward`` holds
+    the loss's ``fit.loss``), then ``fit.apply`` (the write-back)."""
+    with span('learn.fit'):
+        with span('fit.prepare'):
+            compiled = compile_node(root, block_frames=block_frames,
+                                    rate=rate, device=device)
+            target, n_blocks = _conform_target(target, compiled.block_frames,
+                                               compiled.device)
+            core = make_loss_core(compiled, n_blocks, loss=loss)
+            params = compiled.params()
+            index = compiled.index
+            train_keys = {(index.info(node).uid, pname)
+                          for node, pname in trainable}
+            train = _split_train(params, train_keys)
+            lr_scale = _relative_scale(train) if relative_lr else None
+            # host-fed inputs are staged and copied to the device once per
+            # fit
+            host = compiled.host_inputs(0, n_blocks)
 
-    # host-fed inputs are staged and copied to the device once per fit
-    host = compiled.host_inputs(0, n_blocks)
-    train, losses = fused_descent(
-        loss_train, train, steps=steps, learning_rate=learning_rate,
-        steps_per_dispatch=steps_per_dispatch,
-        loss_args=(target, host, params),
-        lr_scale=_relative_scale(train) if relative_lr else None)
+        def loss_train(tp, target, host, full_params):
+            return core(_merge_train(full_params, tp), target, host)
 
-    final = _merge_train(params, train)
-    if apply:
-        for node, pname in trainable:
-            write_back(node, pname, final[index.info(node).uid][pname])
-    return FitResult(params=final, losses=np.asarray(losses))
+        train, losses = fused_descent(
+            loss_train, train, steps=steps, learning_rate=learning_rate,
+            steps_per_dispatch=steps_per_dispatch,
+            loss_args=(target, host, params), lr_scale=lr_scale)
+
+        with span('fit.apply'):
+            final = _merge_train(params, train)
+            if apply:
+                for node, pname in trainable:
+                    write_back(node, pname,
+                               final[index.info(node).uid][pname])
+        return FitResult(params=final, losses=np.asarray(losses))

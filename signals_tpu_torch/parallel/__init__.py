@@ -418,7 +418,9 @@ class PolyPatch:
 
         A call is the span ``poly.fit``: ``fit.prepare`` (the target, params,
         carry and host inputs), the steps' spans of :func:`signals_tpu_torch.
-        learn.fused_descent`, then ``fit.apply`` (the write-back)."""
+        learn.fused_descent` (each ``fit.forward`` holds the render's
+        ``poly.plan`` and the loss's ``fit.loss``), then ``fit.apply`` (the
+        write-back)."""
         from signals_tpu_torch import learn
         with span('poly.fit'):
             with span('fit.prepare'):
@@ -459,8 +461,9 @@ class PolyPatch:
                         tp[uid][p] = leaf
                 mix, _ = render(learn._merge_train(full_params, tp), carry0,
                                 position, host)
-                return loss(mix.reshape(n_blocks * F, self._out_channels),
-                            target)
+                with span('fit.loss'):
+                    return loss(mix.reshape(n_blocks * F,
+                                            self._out_channels), target)
 
             train, losses = learn.fused_descent(
                 loss_fn, train, steps=steps, learning_rate=learning_rate,

@@ -1,7 +1,8 @@
 """``signals_tpu_torch.utils``' spans and the copy counter: off by default
 and then free of records, nesting, roots and threads, self time, the
 counter and its reset, the documented spans of ``PolyPatch.render`` (both
-layouts) and of ``PolyPatch.fit``, and ``trace``'s file with the spans on
+layouts), of ``PolyPatch.fit`` and of ``learn.fit``, a fit bit for bit the
+same with spans on, and ``trace``'s file with the spans on
 its timeline.  The ``cuda`` tests run on the card: a span holds the
 launch of the kernel it issued once the profiler's events are on the
 spans' clock, and a flagship render's copies are the ones its parameter
@@ -247,11 +248,89 @@ def test_a_fit_yields_each_steps_spans(steps_per_dispatch, syncs):
     steps = [n for n in top if n in FIT_STEP]
     assert steps == FIT_STEP * 2
     assert names.count('fit.sync') == syncs
-    # each step's forward renders through the plan and lowers the patch
+    # each step's forward renders through the plan, lowering the patch,
+    # then calls the loss
     forward = [i for i, r in enumerate(recs) if r.name == 'fit.forward']
     for i in forward:
         inner = [r.name for r in recs if r.parent == i]
-        assert inner == ['poly.plan']
+        assert inner == ['poly.plan', 'fit.loss']
+
+
+def stems():
+    """Two voices of the benchmark's stem patch (sine partials at F0 and
+    3 F0 -> Mix -> LowPass -> Gain) on the CPU; ``(root, [(node, 'value')
+    ...] of its hertz, cutoff and gain rows, target)``."""
+    from benchmark.lib import harness
+    mod = harness.load_file(harness.BENCH / 'configs' / 'stems.py')
+    cfg = dict(harness.read_json(harness.BENCH / 'configs' / 'stems.json'),
+               voices=2, block_frames=256, context=256)
+    root, rows = mod.patch(cfg)
+    values = {'hz': [220.0, 330.0], 'cutoff': [900.0, 1500.0],
+              'gain': [0.25, 0.5]}
+    for r, node in rows.items():
+        node.get_state().value = np.float32([values[r]])
+    target = compile_node(root, block_frames=256, rate=44100, device=CPU) \
+        .render(n_blocks=4)[0].detach() * 1.5
+    return root, [(node, 'value') for node in rows.values()], target
+
+
+def learn_fit(root, trainable, target, **kw):
+    from signals_tpu_torch import learn
+    return learn.fit(root, target, trainable, block_frames=256, steps=2,
+                     learning_rate=0.01, relative_lr=True, device=CPU,
+                     loss=learn.per_channel_spectral_loss, **kw)
+
+
+@pytest.mark.parametrize('steps_per_dispatch, syncs', [(None, 1), (1, 2)])
+def test_learn_fit_yields_its_documented_spans(steps_per_dispatch, syncs):
+    root, trainable, target = stems()
+    recs = recorded(lambda: learn_fit(root, trainable, target,
+                                      steps_per_dispatch=steps_per_dispatch))
+    (spans,) = calls(recs, 'learn.fit')
+    assert len(spans) == len(recs)
+    top = [r.name for r in spans if r.parent == 0]
+    assert top[0] == 'fit.prepare' and top[-1] == 'fit.apply'
+    assert [n for n in top if n in FIT_STEP] == FIT_STEP * 2
+    assert top.count('fit.sync') == syncs
+    # each step's forward lowers the patch from its root, then calls the
+    # loss
+    forward = [i for i, r in enumerate(recs) if r.name == 'fit.forward']
+    assert len(forward) == 2
+    for i in forward:
+        inner = [r.name for r in recs if r.parent == i]
+        assert inner == ['lower.Gain', 'fit.loss']
+    assert [recs[r.parent].name for r in recs
+            if r.name == 'fit.loss'] == ['fit.forward'] * 2
+
+
+@pytest.mark.parametrize('which', ['learn', 'poly'])
+def test_spans_on_leave_a_fit_bit_for_bit(which):
+    """The same fit with spans off and on: the same losses and the same
+    fitted values, bit for bit."""
+    def run(on):
+        if which == 'learn':
+            root, trainable, target = stems()
+            fit = lambda: learn_fit(root, trainable, target)  # noqa: E731
+        else:
+            p, gain = poly('channels', swept=False)
+            target = p.render(n_blocks=4)[0].detach() * 1.5
+            fit = lambda: p.fit(target, [(gain, 'value')],  # noqa: E731
+                                steps=2, learning_rate=0.01)
+        if on:
+            utils.enable()
+        try:
+            res = fit()
+        finally:
+            utils.disable()
+        assert bool(utils.drain()) == on
+        return res
+
+    off, on = run(False), run(True)
+    assert np.array_equal(off.losses, on.losses)
+    assert off.params.keys() == on.params.keys()
+    for uid, leaves in off.params.items():
+        for name, value in leaves.items():
+            assert torch.equal(value, on.params[uid][name]), (uid, name)
 
 
 def test_spans_stay_off_and_cost_no_records_in_a_plain_render():
