@@ -11,9 +11,8 @@ The numpy pull engine evaluates the JAX package's literal form, a
 ``(frames, C, E)`` comparison of every frame with every event.  Over a
 whole render window that tensor does not fit a device (a 60 s window of 64
 voices and 300 events is ~51 GB as bool), so the compiled engine evaluates
-the same function from the SORTED events with ``searchsorted``: memory
-``O(C·(frames + E))``, the same bits (a gate is 0 or 1, a pitch one of the
-track's values).
+the same function from the SORTED events: memory ``O(C·(frames + E))``,
+the same bits (a gate is 0 or 1, a pitch one of the track's values).
 
 * ``GateSeq``: an event is active on ``[start, end)``; events with ``end <=
   start`` never are.  Over the valid events, ``#{start <= n} - #{end <=
@@ -23,13 +22,30 @@ track's values).
   (the pad events at ``-1e9`` of :mod:`~signals_tpu_torch.parallel.voices`
   win only before the first real note).  A stable sort keeps equal starts
   in index order, so the first of them is where ``searchsorted(side=
-  'left')`` finds their start.
+  'left')`` finds their start; the value after the first ``k`` sorted
+  starts is one entry of a ``(C, E + 1)`` table.
+
+A pitch is constant between sorted starts: an entry of the table numbered
+by the count of starts at or before the frame.  A track that does not loop
+reads frame times that never decrease (a dense window, a block-rate
+sample), so its pitch is COUNTED: one search of the starts into the frames
+gives each start's first frame (exact for any float32 frame times; past
+2**24 consecutive frames round to one value), then a short window compares
+every frame with every start, and a long one is filled tile by tile and
+each start's run written over it (:func:`_hold`), no pass over the window
+but the fill.  A looped track's frame times wrap, so its pitch is
+SEARCHED: a binary search of the sorted starts a frame.  A gate is always
+searched (its lookups read the ADSR's grid, a few hundred frames, where the
+searches cost less than the count).  :data:`LOOKUPS` counts both.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
 from signals_tpu_torch import SignalFlags
 from signals_tpu_torch.core.state import Param, all_of, array_2d, ge, \
@@ -38,6 +54,7 @@ from signals_tpu_torch.graph import BlockCachingEmitter, Emitter, KernelCtx
 from signals_tpu_torch.registry import register
 
 F32 = np.float32
+INF = float('inf')
 
 
 def _empty_track() -> np.ndarray:
@@ -49,15 +66,78 @@ def _track(v):
             if isinstance(v, (np.ndarray, list, tuple)) else v)
 
 
+#: lookups of an event track since :func:`reset_lookup_counts`:
+#: ``counted`` (a pitch track that does not loop: frame times that never
+#: decrease) and ``searched`` (a looped pitch track, and every gate)
+LOOKUPS = {'counted': 0, 'searched': 0}
+
+
+def reset_lookup_counts() -> None:
+    for k in LOOKUPS:
+        LOOKUPS[k] = 0
+
+
 def _frames_by_row(n, rows: int):
     """The frame times ``n`` ``(F, 1)`` as ``(rows, F)`` contiguous rows —
     ``searchsorted``'s values, one row per event row."""
     return n.reshape(1, -1).expand(rows, n.shape[0]).contiguous()
 
 
+def _edge_frames(edges, n):
+    """Each of the ``(C, M)`` edges' first frame among the frame times
+    ``n`` ``(F, 1)``, which never decrease: the first ``i`` with ``n[i] >=
+    edge``, ``F`` past them (and for +inf).  ``M`` queries of the frames,
+    ``(C, M)`` int64, sorted where the edges are."""
+    return torch.searchsorted(n.reshape(-1), edges)
+
+
+#: most frame-edge comparisons a row for a window to count its edges
+#: densely (:func:`_hold`)
+_DENSE = 1 << 20
+
+
+def _hold(first, table, frames: int):
+    """``(C, frames)``: at frame ``i`` the entry of ``table`` ``(C, M + 1)``
+    numbered by ``#{first <= i}``, for ``first`` ``(C, M)`` sorted along
+    its rows (:func:`_edge_frames`).
+
+    A short window (``M frames <= _DENSE``) compares every frame with every
+    edge.  A long one is cut into tiles of ``T`` frames, which take the
+    entry at their start (``#{first < t T}``, a search of the tiles' starts
+    into the edges); then each edge writes its entry over its run, up to
+    the next edge and ``T`` frames at most: a frame past that lies in a
+    later tile than its edge, whose start holds the edge's entry.  Tied
+    edges' runs are empty but the last's; an empty slot goes to a slot
+    past the window (``nt T > frames``), whose cotangent is 0: a slot in
+    the window would take that frame's gradient once for each empty slot.
+    So the rows come back as a slice of longer rows, not contiguous.  ``T``
+    balances the tiles' search against the runs, and no pass over the
+    window is made but the tiles' fill."""
+    rows, m = first.shape
+    dev = first.device
+    if m * frames <= _DENSE:
+        at = first[:, None, :] <= torch.arange(frames, device=dev)[:, None]
+        return torch.gather(table, 1, at.sum(-1))
+    tile = max(1, math.isqrt(frames // m))
+    ticks = torch.arange(0, frames + 1, tile, device=dev)
+    # the tiles' starts on every row (searchsorted's contiguous values)
+    ticks = torch.add(ticks, first[:, :1], alpha=0)
+    held = torch.gather(table, 1, torch.searchsorted(first, ticks))
+    nt = held.shape[1]
+    out = held[:, :, None].expand(rows, nt, tile).contiguous() \
+        .view(rows, nt * tile)
+    slot = first[:, :, None] + torch.arange(tile, device=dev)
+    stop = nnf.pad(first[:, 1:], (0, 1), value=frames)[:, :, None]
+    out.index_put_((torch.arange(rows, device=dev)[:, None, None],
+                    torch.where(slot < stop, slot, frames)),
+                   table[:, 1:, None])
+    return out[:, :frames]
+
+
 def gate_sorted(starts, ends, n):
     """``GateSeq``'s value at frame times ``n`` ``(F, 1)`` from ``(C, E)``
     tracks, through the sorted events: ``(F, C)`` float32 of 0 / 1."""
+    LOOKUPS['searched'] += 1
     inf = torch.full((), float('inf'), dtype=starts.dtype,
                      device=starts.device)
     valid = ends > starts                 # NaN and empty events: never
@@ -69,23 +149,27 @@ def gate_sorted(starts, ends, n):
     return active.to(torch.float32).T
 
 
-def pitch_sorted(starts, values, n):
+def pitch_sorted(starts, values, n, *, ascending: bool = False):
     """``PitchSeq``'s value at frame times ``n`` ``(F, 1)`` from ``(C, E)``
-    tracks, through the sorted events: ``(F, C)``."""
-    inf = torch.full((), float('inf'), dtype=starts.dtype,
-                     device=starts.device)
-    # a NaN start never starts: as +inf it sorts and counts like one
-    s, order = torch.sort(torch.where(torch.isnan(starts), inf, starts),
-                          dim=1, stable=True)
-    nt = _frames_by_row(n, starts.shape[0])
-    k = torch.searchsorted(s, nt, right=True)          # #{start <= n}
-    last = torch.gather(s, 1, torch.clamp(k - 1, min=0))
-    first = torch.searchsorted(s, last)                # first of its ties
-    idx = torch.gather(order, 1, first)
-    # nothing started, or only events at -inf (whose argmax key ties with
-    # the unstarted ones): argmax's first index, event 0
-    idx = torch.where((k > 0) & (last > -inf), idx, torch.zeros_like(idx))
-    return torch.gather(values, 1, idx).T
+    tracks, through the sorted events: ``(F, C)``, an entry of a ``(C, E +
+    1)`` table numbered by the count of starts at or before each frame.
+    With ``ascending`` (``n`` never decreases) the entry is held between
+    the starts (:func:`_hold`); else each frame searches the starts.
+
+    A NaN start never starts, and one at -inf is never the latest (its
+    ``argmax`` key ties with the unstarted ones'): both +inf, sorted last
+    and never counted.  Entry ``k`` is the value of the first index among
+    the ``k``-th sorted start's ties; entry 0 (nothing started) event 0's."""
+    s, order = torch.sort(torch.nan_to_num(starts, nan=INF, posinf=INF,
+                                           neginf=INF), dim=1, stable=True)
+    table = torch.cat([values[:, :1], torch.gather(
+        values, 1, torch.gather(order, 1, torch.searchsorted(s, s)))], dim=1)
+    if ascending:
+        LOOKUPS['counted'] += 1
+        return _hold(_edge_frames(s, n), table, n.shape[0]).T
+    LOOKUPS['searched'] += 1
+    k = torch.searchsorted(s, _frames_by_row(n, s.shape[0]), right=True)
+    return torch.gather(table, 1, k).T
 
 
 class _SeqBase(BlockCachingEmitter):
@@ -168,7 +252,8 @@ class PitchSeq(_SeqBase):
         if starts.shape[1] == 0:
             return np.zeros((1, 1), dtype=F32)
         if xp.is_torch:
-            return pitch_sorted(starts, values, self._timeline(ctx))
+            return pitch_sorted(starts, values, self._timeline(ctx),
+                                ascending=self._state.loop == 0)
         n = self._timeline(ctx)[:, :, None]   # (F, 1, 1)
         started = n >= starts                 # (F, C, E)
         key = np.where(started, starts, F32(-np.inf))

@@ -5,10 +5,13 @@ Every test of ``tests/test_seq.py`` and ``tests/test_voices.py`` has a
 counterpart here that runs both packages on the same numbers (``TOL =
 1e-5``, the reference tests' own); the voice allocator, the padded tracks
 and the MIDI reader are held to the JAX package's output exactly.  The
-compiled ``GateSeq`` / ``PitchSeq`` evaluate the sorted events
-(``searchsorted``) instead of the JAX package's literal ``(frames, C, E)``
-comparison: the two give the same bits on tracks with ties, pads, ``loop``
-and overlapping events, and gradients still reach ``values``.
+compiled ``GateSeq`` / ``PitchSeq`` evaluate the sorted events instead of
+the JAX package's literal ``(frames, C, E)`` comparison, a pitch counted
+where the track does not loop and searched where it does, a gate searched:
+the forms give the same bits on tracks with ties, pads, ``loop`` and
+overlapping events, at frame times past 2**24 and on a grid's stride, under
+``torch.func.vmap``, and gradients still reach ``values``; the card case
+holds the benchmark's 64-voice score to it.
 
 The vmap layout vmaps the one-voice plan over the voices
 (``torch.func.vmap``); its mix is held to the channels layout, to the sum
@@ -23,6 +26,7 @@ relative of the JAX package's.
 
 import importlib
 import struct
+import sys
 import warnings
 
 import numpy as np
@@ -85,8 +89,9 @@ def poly_kw(pkg):
 def _fresh_caches():
     yield
     TC._compile_cache.clear()
-    import signals_tpu.compiler as JC
-    JC._compile_cache.clear()
+    JC = sys.modules.get('signals_tpu.compiler')   # none on a card's host
+    if JC is not None:
+        JC._compile_cache.clear()
 
 
 # --- GateSeq / PitchSeq ---------------------------------------------------------
@@ -253,7 +258,7 @@ def test_seq_nodes_sorted_render_equals_jax_literal():
         assert np.array_equal(a, b)
 
 
-def test_pitch_sorted_gradient_reaches_values():
+def test_pitch_sorted_gradient_reaches_values(monkeypatch):
     starts, _, values = tricky_tracks()
     n = np.arange(0, 1200, dtype=np.float32)[:, None]
     v = torch.from_numpy(values).requires_grad_()
@@ -266,6 +271,240 @@ def test_pitch_sorted_gradient_reaches_values():
     for c in range(3):
         np.add.at(want[c], idx[:, c], 1.0)
     assert np.array_equal(v.grad.numpy(), want)
+    # the counted form's gradient, with the starts counted densely (this
+    # short window) and by tiles and runs (a long one's way, forced): the
+    # searched form's bits, under integer cotangents too (their sums are
+    # exact in either order)
+    seq = mod(PKGS[1], 'nodes.seq')
+    w = torch.from_numpy(np.random.default_rng(3).integers(
+        -4, 5, (1200, 3)).astype(np.float32))
+
+    def grads(ascending):
+        out = []
+        for cot in (None, w):
+            v.grad = None
+            p = pitch_sorted(torch.from_numpy(starts), v, torch.from_numpy(n),
+                             ascending=ascending)
+            (p.sum() if cot is None else (p * cot).sum()).backward()
+            out.append(v.grad.clone())
+        return out
+    searched = grads(False)
+    assert torch.equal(searched[0], torch.from_numpy(want))
+    for dense in (seq._DENSE, 0):
+        monkeypatch.setattr(seq, '_DENSE', dense)
+        for got, exp in zip(grads(True), searched):
+            assert torch.equal(got, exp)
+
+
+#: window offsets of the counted lookup's tests: from 2**24 on, float32
+#: frame times tie (consecutive frames round to one value)
+WINDOW_OFFSETS = (0, 1000, 2 ** 24 - 50, 2 ** 24 + 7, 3 * 2 ** 24)
+
+
+def shifted_tricky_tracks(offset, stride):
+    """:func:`tricky_tracks` on frames ``offset + stride * i`` (the pads and
+    -inf stay)."""
+    starts, ends, values = tricky_tracks()
+
+    def move(a):
+        return np.where(np.abs(a) < 1e8, a * stride + offset,
+                        a).astype(np.float32)
+    return move(starts), move(ends), values
+
+
+def random_tracks(rng, offset, span):
+    """Three rows of ten events about a window ``span`` frames wide at
+    ``offset``: starts before, inside and after it, tied starts, a pad at
+    -1e9, a start at -inf and a NaN one, empty and inverted events."""
+    starts = offset + rng.integers(-span // 2, span + span // 2,
+                                   (3, 10)).astype(np.float64)
+    starts[:, 1] = starts[:, 4]
+    starts[0, 2], starts[1, 3], starts[2, 5] = -1e9, -np.inf, np.nan
+    ends = starts + rng.integers(-span // 8, span // 2, (3, 10))
+    values = rng.standard_normal((3, 10))
+    return (starts.astype(np.float32), ends.astype(np.float32),
+            values.astype(np.float32))
+
+
+@pytest.mark.parametrize('stride', [1, 7])
+@pytest.mark.parametrize('offset', WINDOW_OFFSETS)
+@pytest.mark.parametrize('tracks', ['tricky', 'random'])
+@pytest.mark.parametrize('count', ['dense', 'tiled'])
+def test_counted_lookup_equals_searched_and_literal(count, tracks, offset,
+                                                    stride, monkeypatch):
+    """A pitch track read at frame times that never decrease (one that
+    does not loop) is counted, not searched: the same bits as the searched
+    form and the JAX package's literal form, where float32 frame times tie
+    (past 2**24) and on a grid's stride, with the starts counted densely (a
+    short window) or by tiles and runs (a long one); the searched gate
+    holds to the literal form there too; 20 random track sets a case."""
+    seq = mod(PKGS[1], 'nodes.seq')
+    if count == 'tiled':
+        monkeypatch.setattr(seq, '_DENSE', 0)
+    frames = offset + stride * np.arange(-20, 1300, dtype=np.int64)
+    n = frames.astype(np.float32)[:, None]
+    rng = np.random.default_rng([offset, stride])
+    sets = ([shifted_tricky_tracks(offset, stride)] if tracks == 'tricky'
+            else [random_tracks(rng, offset, 1320 * stride)
+                  for _ in range(20)])
+    t = torch.from_numpy
+    seq.reset_lookup_counts()
+    for starts, ends, values in sets:
+        gate = gate_sorted(t(starts), t(ends), t(n))
+        pitch = [pitch_sorted(t(starts), t(values), t(n), ascending=a)
+                 for a in (True, False)]
+        assert torch.equal(pitch[0], pitch[1])
+        with np.errstate(invalid='ignore'):
+            assert np.array_equal(gate.numpy(), literal_gate(starts, ends, n))
+            assert np.array_equal(pitch[0].numpy(),
+                                  literal_pitch(starts, values, n))
+    assert seq.LOOKUPS == {'counted': len(sets), 'searched': 2 * len(sets)}
+
+
+@pytest.mark.parametrize('loop', [0, 333])
+@pytest.mark.parametrize('kind', ['GateSeq', 'PitchSeq'])
+def test_looped_track_is_searched(kind, loop):
+    """The compiled ``PitchSeq`` counts when its track does not loop and
+    searches when it does (the frame times wrap); the ``GateSeq`` searches
+    either way: one lookup a render, the literal form's bits."""
+    seq = mod(PKGS[1], 'nodes.seq')
+    starts, ends, values = tricky_tracks()
+    node = getattr(seq, kind)()
+    st = node.get_state()
+    st.starts, st.ends, st.loop = starts, ends, loop
+    if kind == 'PitchSeq':
+        st.values = values
+    compiled = compile_port(node, channels=3)
+    seq.reset_lookup_counts()
+    got, _ = compiled.render(n_blocks=6)
+    counted = int(kind == 'PitchSeq' and not loop)
+    assert seq.LOOKUPS == {'counted': counted, 'searched': 1 - counted}
+    frames = np.arange(6 * F)
+    if loop:
+        frames = frames % loop
+    n = frames.astype(np.float32)[:, None]
+    want = (literal_gate(starts, ends, n) if kind == 'GateSeq'
+            else literal_pitch(starts, values, n))
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize('over', ['voices', 'blocks'])
+@pytest.mark.parametrize('count', ['dense', 'tiled'])
+def test_counted_lookup_under_vmap(count, over, monkeypatch):
+    """Both pitch forms, and the gate, under ``torch.func.vmap``, over the
+    voices' tracks (the vmap layout: the frame times shared) or over the
+    blocks' frame times (the stateless plan: the tracks shared), with no
+    fallback to a per-voice loop: the same bits, and the vmap layout's the
+    channels layout's."""
+    if count == 'tiled':
+        monkeypatch.setattr(mod(PKGS[1], 'nodes.seq'), '_DENSE', 0)
+    rng = np.random.default_rng(5)
+    V, E, nf = 8, 12, 5000
+    starts = rng.integers(-500, 6500, (V, 1, E)).astype(np.float32)
+    starts[:, 0, 3] = starts[:, 0, 7]
+    ends = starts + rng.integers(-5, 900, (V, 1, E)).astype(np.float32)
+    values = rng.standard_normal((V, 1, E)).astype(np.float32)
+    starts, ends, values = map(torch.from_numpy, (starts, ends, values))
+    n = torch.arange(1000, 1000 + nf, dtype=torch.float32)[:, None]
+    out = {}
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings('error', message='.*performance drop.*')
+            for a in (True, False):
+                if over == 'voices':
+                    out[a] = (torch.func.vmap(lambda s, e: gate_sorted(
+                                  s, e, n))(starts, ends),
+                              torch.func.vmap(lambda s, v: pitch_sorted(
+                                  s, v, n, ascending=a))(starts, values))
+                else:
+                    blocks = n.reshape(8, -1, 1)
+                    out[a] = (torch.func.vmap(lambda m: gate_sorted(
+                                  starts[:, 0], ends[:, 0], m))(blocks),
+                              torch.func.vmap(lambda m: pitch_sorted(
+                                  starts[:, 0], values[:, 0], m,
+                                  ascending=a))(blocks))
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    for got, want in zip(out[True], out[False]):
+        assert torch.equal(got, want)
+    if over == 'voices':
+        chan = (gate_sorted(starts[:, 0], ends[:, 0], n),
+                pitch_sorted(starts[:, 0], values[:, 0], n, ascending=True))
+        for got, want in zip(out[True], chan):
+            assert torch.equal(got[:, :, 0].T, want)
+
+
+def score_of(device, **sizes):
+    """The benchmark's ``score`` configuration (sizes changed by
+    ``sizes``), built by its ``build`` from a seed."""
+    import json
+    from benchmark.lib import harness
+    score = harness.load_file(harness.BENCH / 'configs' / 'score.py')
+    cfg = json.loads((harness.BENCH / 'configs' / 'score.json').read_text())
+    cfg.update(sizes)
+    return score.build(cfg, 2 ** 31 + 11, device,
+                       {'kind': 'render', 'blocks': 8})
+
+
+@pytest.mark.parametrize('layout', ['vmap', 'channels'])
+def test_score_render_counts_its_lookups(layout, monkeypatch):
+    """The benchmark's score voice at a tiny size: of its four lookups a
+    render, the pitch track's two at block rate (one sample, and the
+    blocks' grid) and the velocity's at every frame are counted, the
+    gate's on the ADSR's grid searched, and the render is the searched
+    form's bit for bit."""
+    seq = mod(PKGS[1], 'nodes.seq')
+    sc = score_of('cpu', voices=4, score_seconds=2.0, melody_notes=8,
+                  chords=2, layout=layout)
+    seq.reset_lookup_counts()
+    counted = sc.render(0, 8)
+    assert seq.LOOKUPS == {'counted': 3, 'searched': 1}
+    force_searched(monkeypatch)
+    seq.reset_lookup_counts()
+    searched = sc.render(0, 8)
+    assert seq.LOOKUPS == {'counted': 0, 'searched': 4}
+    assert torch.equal(counted, searched)
+
+
+def force_searched(monkeypatch):
+    """Every compiled ``PitchSeq`` searched, looped or not."""
+    seq = mod(PKGS[1], 'nodes.seq')
+    pitch = seq.pitch_sorted
+    monkeypatch.setattr(seq, 'pitch_sorted', lambda s, v, n, ascending:
+                        pitch(s, v, n, ascending=False))
+
+
+@pytest.mark.cuda
+def test_cuda_score_render_counted_equals_searched(monkeypatch):
+    """The benchmark's 64-voice score over its 2584 blocks on the card: the
+    counted lookups give the searched form's render bit for bit, and the
+    velocity lookup (every frame of every voice) makes no synchronizing
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU')
+    seq = mod(PKGS[1], 'nodes.seq')
+    sc = score_of('cuda')
+    nb = 2584
+    counted = sc.render(0, nb)
+    vel = sc.poly.compiled.root.right.sig
+    assert isinstance(vel, seq.PitchSeq)
+    params, _ = sc.poly.params()
+    leaf = params[sc.poly.compiled.index.info(vel).uid]
+    n = torch.arange(nb * 1024, dtype=torch.int32,
+                     device='cuda').to(torch.float32)[:, None]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        torch.func.vmap(lambda s, v: seq.pitch_sorted(
+            s, v, n, ascending=True))(leaf['starts'], leaf['values'])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    force_searched(monkeypatch)
+    seq.reset_lookup_counts()
+    searched = sc.render(0, nb)
+    assert seq.LOOKUPS == {'counted': 0, 'searched': 4}
+    assert torch.equal(counted, searched)
 
 
 def test_multichannel_seq_tracks_pull_vs_compiled():
