@@ -109,10 +109,10 @@ Fifteen phases; any failure raises and exits non-zero:
    step and carried-state shapes, the streaming fit's (8192, 16), the
    echo's segment (16384, 1) and 2^20 rows at two sections, whose
    checkpoints outgrow shared memory: held to a float64 reference,
-   :func:`exact_rows_vjp`) — and its device time beside its bound and
-   beside commit bef113c's (the serial walk through a scratch buffer; B1
-   at the flagship fit and c8, B2 at c9, B3 at every shape), B2's peak
-   memory at c9 and B3's memory over its inputs at each shape;
+   :func:`torch_refs.exact_rows_vjp`) — and its device time beside its
+   bound and beside commit bef113c's (the serial walk through a scratch
+   buffer; B1 at the flagship fit and c8, B2 at c9, B3 at every shape),
+   B2's peak memory at c9 and B3's memory over its inputs at each shape;
    (b) c8 (``bench.py:449-546``: 64 saws -> LowPass with a trainable
    ``Fixed`` cutoff -> gain 1/64, 43 blocks): one loss-and-gradient call
    whose cutoff gradient is within 1e-4 of the same call on the plain
@@ -298,7 +298,10 @@ Fifteen phases; any failure raises and exits non-zero:
    relative, ``play_sine``'s captured audio within 1e-5.
 
 Prints one JSON line describing the kernels, the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.
+limit, and last ``{"ok": true, "device": {...}}``.  Imports no JAX.  The
+references and patch builders that the CPU tests share with it are in
+``tests/torch_refs.py``; the roofline counts and the profiler's reading are
+``benchmark/lib``'s.
 """
 
 from __future__ import annotations
@@ -306,6 +309,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -313,10 +317,15 @@ import time
 
 import numpy as np
 
-RATE = 44100
-F = 1024            # block frames (the carry grid)
-V = 64              # voices
-C = 512             # LowPass.context_for(550 Hz)
+from benchmark.lib import roofline, trace
+from benchmark.lib.roofline import CASCADE_FLOP, VJP_FLOP
+
+sys.path.append(str(pathlib.Path(__file__).resolve().parent / 'tests'))
+from torch_refs import (  # noqa: E402
+    B3_PLAIN_ROWS, C, F, RATE, V, b3_calls, build_subtractive_voice,
+    envelope, exact_design, fixed, match_stream, poly_freqs, pull_oracle,
+    swept_voice_sigs)
+
 M = 8               # blocks per carry segment
 N_BLOCKS = 256      # the main-path render
 ORACLE_BLOCKS = 32
@@ -325,115 +334,12 @@ SECONDS = 60.0
 STATIC_CH = 16      # the render-ahead voice's width
 STATIC_C = 128      # LowPass.context_for(2000 Hz)
 AHEAD = 8           # Transport.blocks_per_call
-# NVIDIA H100 SXM peaks (data sheet, 700 W): f32 outside the tensor cores,
-# HBM3 bandwidth
-PEAK_F32 = 67e12
-PEAK_BYTES = 3.35e12
-CASCADE_FLOP = 12   # per section and row: y (5), s1' (4), s2' (3)
-SAW_FLOP = 13       # nodes/osc.py's saw: 3 frac (2 each) and 7 mul/add
-SAW_PH0_FLOP = 10   # the same without frac(turns + ph): phase 0, hz >= 0
 SEG_KERNELS = ('seg_cascade', 'sum_partials')   # K1/K2's kernel names
 
 
 def run(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
-
-
-def poly_freqs(n):
-    return (110.0 * 2 ** (np.arange(n) % 12 / 12.0)
-            * (1 + 0.001 * np.arange(n))).astype(np.float32)
-
-
-def fixed(value):
-    from signals_tpu_torch.nodes.fixed import Fixed
-    f = Fixed()
-    f.get_state().value = np.atleast_2d(np.float32(value))
-    return f
-
-
-def envelope(filtered, gain):
-    """``filtered`` -> RingMod with an ADSR gated by a 2 Hz Square -> Gain
-    ``gain``."""
-    from signals_tpu_torch.nodes.env import ADSR
-    from signals_tpu_torch.nodes.fx import Gain, RingMod
-    from signals_tpu_torch.nodes.osc import Square
-    gate = Square()
-    gate.hertz = fixed(2.0)
-    env = ADSR()
-    env.gate = gate
-    st = env.get_state()
-    st.attack, st.decay, st.sustain, st.release = 0.01, 0.08, 0.6, 0.1
-    voiced = RingMod()
-    voiced.left = filtered
-    voiced.right = env
-    out = Gain()
-    out.left = voiced
-    out.right = fixed(gain)
-    return out
-
-
-def build_subtractive_voice(gain=1.0 / V, peak=False):
-    """Saw -> LowPass (cutoff 2000 + 900*Sine(0.5 Hz)/2 via Gain/Mix) ->
-    RingMod with an ADSR gated by a 2 Hz Square -> Gain ``gain``.  With
-    ``peak`` a Peak (+6 dB, Q 1, its freq that same 1000 ± 450 Hz sweep) in
-    place of the LowPass (phase 8)."""
-    from signals_tpu_torch.nodes.fx import Gain, LowPass, Mix, Peak
-    from signals_tpu_torch.nodes.osc import Sawtooth, Sine
-
-    hz = fixed(110.0)
-    saw = Sawtooth()
-    saw.hertz = hz
-    lfo = Sine()
-    lfo.hertz = fixed(0.5)
-    depth = Gain()
-    depth.left = lfo
-    depth.right = fixed(900.0)
-    cutoff = Mix()
-    cutoff.left = depth
-    cutoff.right = fixed(2000.0)
-    cutoff.mix = fixed(0.5)
-    if peak:
-        lp = Peak()
-        lp.freq = cutoff
-        lp.gain = fixed(6.0)
-        lp.q = fixed(1.0)
-    else:
-        lp = LowPass()
-        lp.cutoff = cutoff
-    lp.input = saw
-    lp.get_state().context = LowPass.context_for(550.0, RATE)
-    return envelope(lp, gain), hz
-
-
-def swept_voice_sigs(sink='default', cutoff=2000.0, gain=1.0):
-    """:func:`build_subtractive_voice` (at ``gain``, cutoff centre
-    ``cutoff``) as the lines of a ``.sigs`` patch feeding a ``sink`` at 9a,
-    with the reference's ``signals.chain.*`` names where it has them: the
-    pitch at 1a, the cutoff centre's ``Fixed`` at 3a, the sink at 9a."""
-    return [
-        f'sink 9a {sink}',
-        '+ 1a signals.chain.fixed.Fixed value=[[110]]',
-        '+ 1b signals.chain.osc.Sawtooth',
-        '+ 2a signals.chain.fixed.Fixed value=[[0.5]]',
-        '+ 2b signals.chain.osc.Sine',
-        '+ 2c signals.chain.fixed.Fixed value=[[900]]',
-        '+ 2d signals.chain.fx.Gain',
-        f'+ 3a signals.chain.fixed.Fixed value=[[{cutoff!r}]]',
-        '+ 3b signals.chain.fixed.Fixed value=[[0.5]]',
-        '+ 3c signals.chain.fx.Mix',
-        f'+ 4a signals.chain.fx.LowPass context={C}',
-        '+ 5a signals.chain.fixed.Fixed value=[[2]]',
-        '+ 5b signals.chain.osc.Square',
-        '+ 5c signals_tpu.nodes.env.ADSR attack=0.01 decay=0.08 sustain=0.6 '
-        'release=0.1',
-        '+ 6a signals.chain.fx.RingMod',
-        f'+ 6b signals.chain.fixed.Fixed value=[[{gain!r}]]',
-        '+ 7a signals.chain.fx.Gain',
-        '> 1a 1b.hertz', '> 2a 2b.hertz', '> 2b 2d.left', '> 2c 2d.right',
-        '> 2d 3c.left', '> 3a 3c.right', '> 3b 3c.mix', '> 1b 4a.input',
-        '> 3c 4a.cutoff', '> 5a 5b.hertz', '> 5b 5c.gate', '> 4a 6a.left',
-        '> 5c 6a.right', '> 6a 7a.left', '> 6b 7a.right', '> 7a 9a.input']
 
 
 def build_static_voice(band=False, streaming=False):
@@ -665,18 +571,17 @@ def device_ms(fn, reps, kernels):
     events (their count is not a multiple of ``reps``) is taken again, up
     to five times; None when no trace holds them all."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    def calls():
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == DeviceType.CUDA
-              and any(k in e.name for k in kernels)]
+        us = [d for _, _, d in trace.matching(trace.profile(calls)[1],
+                                              kernels)]
         if us and len(us) % reps == 0:
             return sum(us) / reps / 1e3
     return None
@@ -720,20 +625,17 @@ def profiled(fn):
     ``(wall ms, device ms, device events)``, the device time the sum of
     every kernel's and copy's duration on the card."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def call():
         fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == DeviceType.CUDA]
-    return wall, sum(us) / 1e3, len(us)
+
+    call()
+    t0 = time.perf_counter()
+    call()
+    wall = (time.perf_counter() - t0) * 1e3
+    _, events = trace.profile(call)
+    return wall, sum(d for _, _, d in events) / 1e3, len(events)
 
 
 def phase_build():
@@ -815,24 +717,10 @@ def card_line() -> str:
 
 
 def bound(flops, nbytes):
-    """``(ms, 'operations' | 'bytes')``: the least time the card could take
-    for ``flops`` f32 operations and ``nbytes`` bytes moved, and which of
-    the two sets it."""
-    ops_ms, bytes_ms = flops / PEAK_F32 * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms,
-                                                                 'bytes')
-
-
-def synth_flop(lanef, toff, n_units, ctx, unit_frames):
-    """The f32 operations of the saw source that ``n_units`` carry segments
-    of ``ctx + unit_frames`` rows a lane need: rows with a frame index >= 0
-    (the rest are zeros), at 10 or 13 operations (phase 0 and hz >= 0 or
-    not)."""
-    lf, t0 = lanef.cpu().numpy(), toff.cpu().numpy().astype(np.int64)
-    first = np.arange(n_units)[:, None] * unit_frames + t0[None, :]
-    rows = np.clip(first + ctx + unit_frames, 0, ctx + unit_frames).sum(axis=0)
-    per_row = np.where((lf[1] == 0) & (lf[0] >= 0), SAW_PH0_FLOP, SAW_FLOP)
-    return int((rows * per_row).sum())
+    """``(ms, 'operations' | 'bytes')``: :func:`roofline.bound_s` in
+    milliseconds."""
+    s, by = roofline.bound_s(flops, nbytes)
+    return s * 1e3, by
 
 
 def segment_cases(rng, nb):
@@ -859,10 +747,14 @@ def segment_cases(rng, nb):
                           context=C, osc_code=K.OSC_SAW, rate=RATE)[0]
     lane_rows = nb // M * V * (C + M * F)      # the rows the algorithm runs
     co_bytes = co.numel() * 4
-    synth = synth_flop(lanef, toff, nb // M, C, M * F)
 
     def out_bytes(g):
         return nb * F * (V // g if g else V) * 4
+
+    def k1_work(g):
+        return roofline.k1_work(blocks=nb, voices=V, context=C,
+                                blocks_per_seg=M, block_frames=F,
+                                summed=bool(g))
 
     return co, toff, lanef, gen, {
         'segments_gen': (
@@ -870,9 +762,8 @@ def segment_cases(rng, nb):
                                                sum_groups=g),
             lambda g=0: K.sosfilt_segments_gen_plain(co, toff, lanef, **gen,
                                                      sum_groups=g),
-            lambda g: (lane_rows * (CASCADE_FLOP + (1 if g else 0))
-                       + synth),
-            lambda g: co_bytes + 4 * V * 4 + out_bytes(g)),
+            lambda g: k1_work(g)[0],
+            lambda g: k1_work(g)[1]),
         'segments': (
             lambda g=0: K.sosfilt_segments(co, x, **geo, sum_groups=g),
             lambda g=0: K.sosfilt_segments_plain(co, x, **geo, sum_groups=g),
@@ -1043,7 +934,6 @@ def zero_state_kernels(rng, dev, card, results):
                          .astype(np.float32), device=dev)
     x3 = xt.unfold(0, L, F).permute(2, 0, 1)             # (L, 8, 16) view
     xs = xt.unfold(0, STATIC_C + 1, F).permute(2, 0, 1)  # (C + 1, 8, 16)
-    xt_bytes = xt.numel() * 4
     rows, cos = {}, {}
     for nsec, btype in ((1, 'lp'), (2, 'bp')):
         lo = torch.as_tensor(rng.uniform(300.0, 3000.0, (1, lanes3))
@@ -1059,8 +949,8 @@ def zero_state_kernels(rng, dev, card, results):
             f'{F}), {nsec} section(s)',
             lambda co3=co3: K.sosfilt_batch(co3, x3, tail=F),
             lambda co3=co3: K.sosfilt_batch_plain(co3, x3, tail=F),
-            L * lanes3 * CASCADE_FLOP * nsec,
-            xt_bytes + F * lanes3 * 4 + co3.numel() * 4)
+            *roofline.k3_work(windows=AHEAD, lanes=STATIC_CH,
+                              context=STATIC_C, tail=F, nsec=nsec))
         rows[f'timeline/{nsec}'] = (
             f'step ({L}, {STATIC_CH}), {nsec} section(s)',
             lambda co3=co3, x4=x4: K.sosfilt_timeline(co3[0], x4),
@@ -1334,29 +1224,6 @@ def plain_fdn():
         K.fdn_advance = saved
 
 
-@contextlib.contextmanager
-def exact_design():
-    """Within this block the numpy filter design is not rounded to float32:
-    the pull oracle filters with the float64 coefficients as designed.  The
-    oracle's context windows otherwise run scipy on the float32-rounded b/a
-    form, whose rounding moves poles near the unit circle (a 60 Hz notch)
-    far more than the coupled form's the kernels run on (phase 8)."""
-    from signals_tpu_torch.compiler import filters
-    design = filters.design_coupled
-
-    def unrounded(xp, btype, crits, nyquist):
-        if xp.is_torch:
-            return design(xp, btype, crits, nyquist)
-        return filters.coupled64(xp, filters._design64(xp, btype, crits,
-                                                       nyquist))
-
-    filters.design_coupled = unrounded
-    try:
-        yield
-    finally:
-        filters.design_coupled = design
-
-
 def phase_render():
     """The flagship through the port's entry points.  Returns, per kernel,
     ``(launches, render)``: its launch count in the render that proves it
@@ -1420,19 +1287,6 @@ def phase_render():
                              variants[0][0]),
             'segments': (counts[variants[2][0]]['segments'],
                          variants[2][0])}
-
-
-def pull_oracle(root, n_blocks, channels, start=0):
-    """The port's numpy pull oracle: blocks ``start`` .. ``start + n_blocks
-    - 1`` of ``root`` in order (the ADSR's pull evaluation is
-    block-monotonic)."""
-    from signals_tpu_torch.core import BlockLoc, Request, Shape
-    out = []
-    for i in range(start, start + n_blocks):
-        loc = BlockLoc(position=i * F, rate=RATE, shape=Shape(F, channels))
-        b = root.respond(Request(requestor=None, port='oracle', loc=loc))
-        out.append(np.broadcast_to(b, (F, channels)))
-    return np.concatenate(out)
 
 
 def launched(name, fn, expect, total=None, quiet=False):
@@ -1862,16 +1716,13 @@ C9_SECONDS = 12.0
 C9_C = 1024               # c9's LowPass context (the node's default)
 FIT_BLOCKS = 64           # the flagship fit (PolyPatch.fit, mix plan)
 FIT_CHECK_BLOCKS = 16     # its gradient against the plain kernels
-VJP_FLOP = 38             # per section and row: the forward row again (12)
-                          # and its adjoint (26: 14 for the five gradient
-                          # sums, 2 for the input's cotangent, 10 for lambda)
 VJP_KERNELS = {'segments_gen_vjp': ('seg_cascade_vjp',),
                'segments_vjp': ('seg_cascade_vjp',),
                'rows_vjp': ('rows_cascade_vjp',)}
 # The backward kernels' device ms at the timed shapes at commit bef113c
 # (one thread per (segment or window, lane) walking its rows forward into a
-# scratch buffer and back), printed beside this run's: PERF.md section 6,
-# phase 7 and scripts/torch_vjp_variants.py on an H100 80GB HBM3 at 700 W
+# scratch buffer and back), printed beside this run's: PERF.md section 6
+# (phase 7 and an A/B in one process) on an H100 80GB HBM3 at 700 W
 # (the streaming fit's: 2.113-2.122 in the fit's profile, 1.916 alone)
 VJP_BEFORE_MS = {'flagship fit': '3.308-3.380', 'c8': '1.094-1.107',
                  'c9': '2.031-2.115', 'render-ahead': '0.2735-0.2798',
@@ -1892,7 +1743,6 @@ B3_SHAPES = {
                      True),
     'past shared memory': ('stream', 2, 1, 1, 1 << 20, 1 << 20, True),
 }
-B3_PLAIN_ROWS = 20000     # longer windows: exact_rows_vjp, not the plain loop
 # The edges of B1 / B2's time-sliced adjoint scan (tests/test_torch_vjp.py
 # GEN_VJP_CASES, SEG_VJP_CASES): oscillator (None: B2 on a noise timeline),
 # lanes, blocks, F, C, m, sum group, sections, LowPass cutoffs (None: a
@@ -1995,137 +1845,6 @@ def c9_blocks():
 def rel_max(got, want):
     """max |got - want| over max |want|."""
     return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
-
-
-def exact_rows_vjp(coeffs, x_t, gy, tail, zi=None, gzf=None):
-    """``kernels.sosfilt_batch_vjp``'s ``(gcoeffs, gx, gzi)`` in float64 on
-    ``x_t``'s device, for windows too long for the plain adjoint's frame
-    loop (~0.3 ms a row on the card): per lane and section the forward
-    state and the adjoint's lambda are complex first-order recurrences,
-    s_t = p s_{t-1} + v_t and lambda_{t-1} = conj(p) lambda_t + (d1 + i
-    d2) ybar_t with p = rc + i rs, run by ``scipy.signal.lfilter``, and the
-    gradients are float64 sums over the rows."""
-    from scipy.signal import lfilter
-    co = coeffs.detach().double().cpu().numpy()
-    x = x_t.detach().double().cpu().numpy()
-    L, B, ch = x.shape
-    nsec = co.shape[1]
-    g = np.zeros((L, B, ch))
-    g[L - tail:] = gy.detach().double().cpu().numpy()
-
-    def states(z):
-        if z is None:
-            return np.zeros((B, nsec, ch), complex)
-        z = z.detach().double().cpu().numpy()
-        return z[:, :, 0] + 1j * z[:, :, 1]
-
-    z0, zf = states(zi), states(gzf)
-    gco = np.zeros((B, nsec, ch, 11))
-    gx = np.zeros((L, B, ch))
-    gzi = np.zeros((B, nsec, ch), complex)
-    for b in range(B):
-        for c in range(ch):
-            rc, rs, d0, d1, d2 = co[b, :, c, 6:11].T
-            v, lagged = [x[:, b, c]], []
-            for s in range(nsec):
-                p = rc[s] + 1j * rs[s]
-                after = lfilter([1.0], [1.0, -p], v[s],
-                                zi=[p * z0[b, s, c]])[0]
-                sp = np.concatenate([[z0[b, s, c]], after[:-1]])
-                lagged.append(sp)
-                v.append(d0[s] * v[s] + d1[s] * sp.real + d2[s] * sp.imag)
-            yb = g[:, b, c]
-            for s in range(nsec - 1, -1, -1):
-                p, sp = rc[s] + 1j * rs[s], lagged[s]
-                w = (d1[s] + 1j * d2[s]) * yb
-                lam = lfilter([1.0], [1.0, -np.conj(p)],
-                              np.concatenate([[zf[b, s, c]], w[:0:-1]]))[::-1]
-                gco[b, s, c, 6:] = (
-                    np.sum(lam.real * sp.real + lam.imag * sp.imag),
-                    np.sum(lam.imag * sp.real - lam.real * sp.imag),
-                    np.sum(yb * v[s]), np.sum(yb * sp.real),
-                    np.sum(yb * sp.imag))
-                gzi[b, s, c] = np.conj(p) * lam[0] + w[0]
-                yb = d0[s] * yb + lam.real
-            gx[:, b, c] = yb
-    import torch
-    out = [torch.from_numpy(gco), torch.from_numpy(gx),
-           None if zi is None else torch.from_numpy(
-               np.stack([gzi.real, gzi.imag], axis=2))]
-    return tuple(None if t is None else t.to(x_t.device) for t in out)
-
-
-def b3_inputs(rng, dev, nsec, B, ch, L, tail, state, cuts=(500.0, 5000.0),
-              layout='dense'):
-    """B3's inputs at one shape, ``(coeffs (B, nsec, ch, 11), x_t (L, B,
-    ch), gy (tail, B, ch), zi, gzf, flops, bytes)``.  Per window and lane a
-    LowPass a section, its cutoff drawn from ``cuts``; ``layout``
-    ``'unfold'``: windows of one timeline ``tail`` rows apart, read in
-    place; ``'broadcast'``: one channel under every lane; ``state``: a
-    start state and the end state's cotangent (else None).  Bytes: x (its
-    distinct elements), gy and gx once, the coefficients read and their
-    gradient written, and the states; operations: ``VJP_FLOP`` a
-    section-row."""
-    import torch
-    from signals_tpu_torch.compiler.filters import design_coupled
-    from signals_tpu_torch.core.xp import TorchXP
-
-    def randn(*shape):
-        return torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
-                               device=dev)
-
-    cut = torch.as_tensor(rng.uniform(*cuts, (1, nsec * B * ch)).astype(
-        np.float32), device=dev)
-    co = design_coupled(TorchXP(dev), 'lp', (cut,), np.float32(RATE / 2))
-    co = co.reshape(nsec, B, ch, 11).permute(1, 0, 2, 3).contiguous()
-    if layout == 'unfold':
-        xt = randn(L - tail + B * tail, ch)
-        x = xt.unfold(0, L, tail)[:B].permute(2, 0, 1)
-    else:
-        xt = randn(L, B, 1 if layout == 'broadcast' else ch)
-        x = xt.expand(L, B, ch)
-    gy = randn(tail, B, ch)
-    zi = 0.5 * randn(B, nsec, 2, ch) if state else None
-    gzf = randn(B, nsec, 2, ch) if state else None
-    flops = L * B * ch * nsec * VJP_FLOP
-    nbytes = 4 * (xt.numel() + gy.numel() + L * B * ch + 2 * co.numel()
-                  + (3 * zi.numel() if state else 0))
-    return co, x, gy, zi, gzf, flops, nbytes
-
-
-def b3_calls(rng, dev, entry, nsec, B, ch, L, tail, state, *args):
-    """B3 through the ``entry``'s backward (``'batch'``, ``'timeline'`` or
-    ``'stream'``) on :func:`b3_inputs` (the other arguments): ``(kernel
-    call, reference call, flops, bytes)``.  The reference is the entry's
-    plain adjoint, or past ``B3_PLAIN_ROWS`` rows :func:`exact_rows_vjp`."""
-    from signals_tpu_torch.compiler import kernels as K
-    co, x, gy, zi, gzf, flops, nbytes = b3_inputs(rng, dev, nsec, B, ch, L,
-                                                  tail, state, *args)
-    if entry == 'batch':
-        call = lambda: K.sosfilt_batch_vjp(            # noqa: E731
-            co, x, gy, tail=tail, zi=zi, gzf=gzf)
-        plain = lambda: K.sosfilt_batch_vjp_plain(     # noqa: E731
-            co, x, gy, tail=tail, zi=zi, gzf=gzf)
-    elif entry == 'timeline':
-        call = lambda: K.sosfilt_timeline_vjp(         # noqa: E731
-            co[0], x[:, 0], gy[:, 0])
-        plain = lambda: K.sosfilt_timeline_vjp_plain(  # noqa: E731
-            co[0], x[:, 0], gy[:, 0])
-    else:
-        call = lambda: K.sosfilt_stream_vjp(           # noqa: E731
-            co[0], x[:, 0], zi[0], gy[:, 0], gzf[0])
-        plain = lambda: K.sosfilt_stream_vjp_plain(    # noqa: E731
-            co[0], x[:, 0], zi[0], gy[:, 0], gzf[0])
-    if L <= B3_PLAIN_ROWS:
-        return call, plain, flops, nbytes
-
-    def exact():
-        gco, gx, gzi = exact_rows_vjp(co, x, gy, tail, zi, gzf)
-        if entry == 'batch':
-            return gco, gx, gzi
-        return (gco[0], gx[:, 0]) + (() if entry == 'timeline'
-                                     else (gzi[0],))
-    return call, exact, flops, nbytes
 
 
 def memory_over_inputs(call) -> int:
@@ -2234,17 +1953,19 @@ def vjp_edges(rng, dev):
     return errs
 
 
-def seg_vjp_work(n_blocks, m, ctx, lanes, nsec, gy_width, *, synth,
-                 x_bytes, gx_bytes):
-    """``(flops, bytes)`` of a segment-kernel backward: the forward rows
-    again and their adjoint, ``synth`` operations of source synthesis (B1:
-    once, as :func:`synth_flop` counts it), the coefficients and cotangents
-    read once, the gradients written once."""
-    rows = n_blocks // m * lanes * (ctx + m * F)
-    flops = rows * nsec * VJP_FLOP + synth
-    co = n_blocks * nsec * lanes * 11 * 4
-    nbytes = 2 * co + n_blocks * F * gy_width * 4 + x_bytes + gx_bytes
-    return flops, nbytes
+def b1_work(n_blocks, m, ctx, gy_width):
+    """``(flops, bytes)`` of a B1 call at one section over V lanes from
+    frame 0 with no source cotangent: the forward rows again and their
+    adjoint, the saw synthesised once at phase 0 (the lanes of
+    :func:`segment_cases`; :func:`roofline.synth_rows`), the coefficients,
+    the output cotangent and the lanes' oscillator parameters read once,
+    the coefficients' gradient written once."""
+    n_seg = n_blocks // m
+    flops = (n_seg * V * (ctx + m * F) * VJP_FLOP
+             + roofline.synth_rows(n_seg, ctx + m * F, ctx, 0, V)
+             * roofline.SAW_PH0_FLOP)
+    co = n_blocks * V * 11 * 4
+    return flops, 2 * co + n_blocks * F * gy_width * 4 + 16 * V
 
 
 def vjp_kernels(card):
@@ -2252,6 +1973,7 @@ def vjp_kernels(card):
     its device time at the fits' shapes beside its bound.  Returns per
     kernel ``{err, ms, plain_ms, device_ms, bound_ms, bound_by}``."""
     import torch
+    from benchmark.metrics import B2_roofline
     from signals_tpu_torch.compiler import kernels as K
     from signals_tpu_torch.compiler.filters import design_coupled
     from signals_tpu_torch.core.xp import TorchXP
@@ -2294,10 +2016,7 @@ def vjp_kernels(card):
         f'of {V}, no source cotangent', call,
         lambda: K.sosfilt_segments_gen_vjp_plain(co, toff, lanef, gy, **kw))
     errs.append(err)
-    fl, nb_ = seg_vjp_work(FIT_BLOCKS, M, C, V, 1, 1,
-                           synth=synth_flop(lanef, toff, FIT_BLOCKS // M, C,
-                                            M * F),
-                           x_bytes=16 * V, gx_bytes=0)
+    fl, nb_ = b1_work(FIT_BLOCKS, M, C, 1)
     dms, b_ms, b_by = vjp_time(
         f'B1 at the flagship fit ({FIT_BLOCKS} blocks, m {M}, C {C}, sum of '
         f'{V})', call, VJP_KERNELS['segments_gen_vjp'], fl, nb_, card,
@@ -2321,9 +2040,7 @@ def vjp_kernels(card):
                                                  **c8kw, source_grad=False))
     errs.append(err)
     out['segments_gen_vjp']['err'] = max(errs)
-    fl, nb_ = seg_vjp_work(C8_BLOCKS, 1, C8_C, V, 1, V,
-                           synth=synth_flop(lanef, c8toff, C8_BLOCKS, C8_C, F),
-                           x_bytes=16 * V, gx_bytes=0)
+    fl, nb_ = b1_work(C8_BLOCKS, 1, C8_C, V)
     vjp_time(f'B1 at c8 ({C8_BLOCKS} blocks, m 1, C {C8_C}, per lane)',
              lambda: K.sosfilt_segments_gen_vjp(
                  c8co, c8toff, lanef, c8gy, **c8kw, source_grad=False),
@@ -2343,8 +2060,8 @@ def vjp_kernels(card):
         lambda: K.sosfilt_segments_vjp(co, x, gy, **kw),
         lambda: K.sosfilt_segments_vjp_plain(co, x, gy, **kw))
     call = lambda: K.sosfilt_segments_vjp(co, x, gy, **kw)   # noqa: E731
-    fl, nb_ = seg_vjp_work(nb, 1, C9_C, V, 1, V, synth=0,
-                           x_bytes=x.numel() * 4, gx_bytes=x.numel() * 4)
+    fl, nb_ = B2_roofline.work(dict(block_frames=F, context=C9_C, blocks=nb,
+                                    voices=V, nsec=1))
     dms, b_ms, b_by = vjp_time(f'B2 at c9 ({nb} blocks)', call,
                                VJP_KERNELS['segments_vjp'], fl, nb_, card,
                                'c9')
@@ -2413,28 +2130,25 @@ def fit_steps(name, run, n, expect, total, card, audio_s):
     step, device ms a step and the busy share; returns ``run(n)``'s
     result."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    run(1)
-    torch.cuda.synchronize()
+
+    def step():
+        run(1)
+        torch.cuda.synchronize()
+
+    step()
     t0 = time.perf_counter()
     res = launched(f'{name}, {n} steps', lambda: run(n),
                    {k: n * v for k, v in expect.items()}, total)
     wall = (time.perf_counter() - t0) * 1e3 / n
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        run(1)
-        torch.cuda.synchronize()
+    _, events = trace.profile(step)
     by_name = collections.Counter()
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name[:60]] += e.time_range.elapsed_us()
-    n_events = sum(1 for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    for kernel, _, us in events:
+        by_name[kernel[:60]] += us
     dev_ms = sum(by_name.values()) / 1e3
     print(f'[fit] {name}: {n} steps at {1e3 / wall:.2f} steps/s, '
           f'{wall:.3f} ms a step ({audio_s / (wall / 1e3):.2f} s of audio '
           f'differentiated per s); one step: device {dev_ms:.3f} ms in '
-          f'{n_events} kernels and copies, busy share {dev_ms / wall:.3f}  '
+          f'{len(events)} kernels and copies, busy share {dev_ms / wall:.3f}  '
           f'[{card}]')
     top = ', '.join(f'{k} {v / 1e3:.3f}' for k, v in by_name.most_common(4))
     print(f'[fit] {name}: device ms by kernel, largest: {top}')
@@ -4900,18 +4614,17 @@ def reduce_device_ms(fn):
     ``torch.profiler`` trace, or of the device-to-device copies where NCCL
     ran none (one rank)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def call():
         fn()
         torch.cuda.synchronize()
-    cuda = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    picked = [e for e in cuda if 'nccl' in e.name.lower()] or [
-        e for e in cuda if 'memcpy dtod' in e.name.lower()]
-    return (sum(e.time_range.elapsed_us() for e in picked) / 1e3,
-            sorted({e.name[:60] for e in picked}))
+
+    call()
+    _, cuda = trace.profile(call)
+    picked = [e for e in cuda if 'nccl' in e[0].lower()] or [
+        e for e in cuda if 'memcpy dtod' in e[0].lower()]
+    return (sum(us for _, _, us in picked) / 1e3,
+            sorted({name[:60] for name, _, _ in picked}))
 
 
 def phase_mesh():
@@ -5289,37 +5002,6 @@ def phase_examples():
             found[k] = (m + n, (how + '; ' if how else '') + 'the flagship '
                         'feeding a sink, and without it')
     return found
-
-
-def match_stream(raw, want, block):
-    """Whether a paced consumer's output ``raw`` (frames, ch) is ``want``
-    in order with zero-filled underruns: each ``block``-frame block of
-    ``raw`` either equals the next ``block`` frames of ``want`` or holds
-    the next ``g < block`` of them and then zeros.  Where ``want`` holds
-    zeros itself ``g`` is ambiguous, so every consistent reading is
-    followed.  Returns ``(frames of want consumed, underrun blocks)`` of the
-    reading that consumed most, with the fewest underruns; raises if none
-    fits."""
-    states = {0: 0}                       # position in want -> underruns
-    for b0 in range(0, len(raw), block):
-        blk = raw[b0:b0 + block]
-        nz = np.flatnonzero(blk.any(axis=1))
-        z = int(nz[-1]) + 1 if nz.size else 0
-        nxt = {}
-        for at, und in states.items():
-            seg = want[at:at + len(blk)]
-            same = np.all(seg == blk[:len(seg)], axis=1)
-            g = len(seg) if same.all() else int(np.argmin(same))
-            if g == len(blk):
-                nxt[at + g] = min(nxt.get(at + g, und), und)
-            for gg in range(z, min(g, len(blk) - 1) + 1):
-                nxt[at + gg] = min(nxt.get(at + gg, und + 1), und + 1)
-        if not nxt:
-            raise AssertionError(f'stream block at frame {b0} is not the '
-                                 f'rendered audio')
-        states = dict(sorted(nxt.items())[-256:])
-    at = max(states)
-    return at, states[at]
 
 
 def kernel_ms(k):

@@ -85,7 +85,7 @@
 // refused).  B2's overlapping windows are folded into the timeline by the
 // caller (kernels._fold_windows: shifted adds, no atomics).  Measured on an
 // H100 80GB HBM3 at 700 W, against the serial walk they replaced in the
-// same process (scripts/torch_vjp_variants.py, PERF.md): B1 at the
+// same process (PERF.md section 6): B1 at the
 // flagship fit (64 blocks, m 8, C 512, sum of 64) 0.0561 ms (3.209
 // before), at c8 (43 blocks, C 1024, per lane) 0.0490 ms (1.114); B2 at c9
 // (517 windows x 64 lanes, C 1024) 0.4288 ms (2.112), 778 MiB over its
@@ -110,7 +110,7 @@
 // Measured on an H100 80GB HBM3 at 700 W against the serial walk it
 // replaced (one thread per (window, lane) through a scratch buffer of
 // 3 NSEC - 1 floats a row and lane), in the same process
-// (scripts/torch_vjp_variants.py, PERF.md): the render-ahead batch 0.0088
+// (PERF.md section 6): the render-ahead batch 0.0088
 // ms (0.2742 before), the streaming fit's (8192, 16) 0.0334 ms (1.916),
 // the echo's (16384, 1) 0.0563 ms (1.847), 2^20 rows at two sections
 // 4.22 ms (285.2).  Its bound is bytes (x, gy and gx once: 0.00047 ms at

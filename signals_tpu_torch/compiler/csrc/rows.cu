@@ -30,8 +30,8 @@
 // roofline bound (0.3 us of bytes) is below a launch's own cost.  What
 // costs is the serial chain: the row loop this kernel replaced gave one
 // thread per lane and walked all L rows (16 threads for a 16-channel step,
-// one for a mono step), ~80 cycles a row (scripts/torch_rows_variants.py,
-// PERF.md).  So the rows are cut into slices, as segments.cu does (the
+// one for a mono step), ~80 cycles a row (PERF.md section 6).  So the
+// rows are cut into slices, as segments.cu does (the
 // scan's pieces are scan.cuh's): one section is s' = p*s + x over complex
 // numbers, so a slice of rows is an affine map.  One thread per (slice,
 // lane), lanes fastest so that row loads and stores coalesce:

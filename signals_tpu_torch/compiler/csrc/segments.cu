@@ -30,7 +30,7 @@
 // lane-row and pass).  Measured on an H100 SXM (700 W), sum of 64: 256
 // blocks 0.061 ms, 2584 blocks 0.353 ms (0.345 ms in the render); its
 // roofline bound is 0.0061 / 0.0618 ms of f32 operations (chip_smoke.py
-// phase 2, scripts/torch_profile_flagship.py).
+// phase 2, PERF.md section 6).
 //
 // The design: one section is a complex first-order recurrence.  With
 // s = s1 + i*s2 and p = rc + i*rs, cascade.cuh's step is s' = p*s + x, an
@@ -350,7 +350,7 @@ seg_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
             // pass of inputs for a second pass of group sums: a win for K2
             // at every geometry measured and for K1 from h = 16 on; at
             // h = 8 K1's replay is faster, but a test of h here slowed K1
-            // at h = 32 (scripts/torch_seg_variants.py, PERF.md).
+            // at h = 32 (PERF.md section 6).
             const Cplx a = walk<GEN, OSC, 1, 1, true, EMIT_SET>(
                 cas, sl, g, coeffs, x, gen, red, out);
             set_state(cas, 0, slice_start(a, Cplx{cas.s1[0], cas.s2[0]},

@@ -41,7 +41,7 @@ from signals_tpu_torch.runtime.portaudio import HardwareCapture, HardwareOutput
 from signals_tpu_torch.runtime.ring import (PacedConsumer, RingBuffer,
                                             native_available)
 
-import chip_smoke
+import torch_refs
 from test_hardware_audio import make_fake_sd
 
 RATE = 44100
@@ -340,7 +340,7 @@ def test_realtime_sink_pcm16_pipe_equals_the_captured_blocks():
     want = np.clip(np.rint(cap * np.float32(32767.0)), -32768,
                    32767).astype(np.int16)
     assert raw.shape[0] % 512 == 0 and raw.shape[0] > 0
-    at, _ = chip_smoke.match_stream(raw, want, 512)
+    at, _ = torch_refs.match_stream(raw, want, 512)
     assert at > 0
     offline = sink.render_offline(n_blocks=cap.shape[0] // 512).numpy()
     assert np.abs(offline - cap).max() <= 1e-5

@@ -307,9 +307,9 @@ def test_low_poles_follow_the_float64_design(kind, freq, q, gain):
     """Poles near the unit circle (the bounce's 120 Hz shelf and 60 Hz
     notch, a 55 Hz saw through them): the port within 1e-5 of the JAX
     render and of the oracle with its design kept in float64
-    (``chip_smoke.exact_design``); the oracle on its float32-rounded b/a
+    (``torch_refs.exact_design``); the oracle on its float32-rounded b/a
     coefficients lies further off the float64 design than the port."""
-    import chip_smoke
+    import torch_refs
     F, nb = 1024, 4
 
     def build(pkg):
@@ -319,7 +319,7 @@ def test_low_poles_follow_the_float64_design(kind, freq, q, gain):
     got, _ = port_compile(build(PORT), F, 1).render(n_blocks=nb)
     want, _ = jax_compile(build(JAX), F, 1).render(n_blocks=nb)
     assert err(got, want) <= TOL
-    with chip_smoke.exact_design():
+    with torch_refs.exact_design():
         exact = pull_oracle(PORT, build(PORT), nb, 1, F)
     assert err(got, exact) <= TOL
     rounded = pull_oracle(PORT, build(PORT), nb, 1, F)

@@ -667,15 +667,16 @@ def test_cuda_1024_voice_flagship_mix_plan(cuda_device):
     """The flagship at 1024 voices renders through the mix plan (one K1
     launch with a 1024-lane group sum) and agrees with the per-voice plan
     within V x 1e-5 raw max-abs."""
-    import chip_smoke as cs
+    import torch_refs as refs
     from signals_tpu_torch.parallel import PolyPatch
     V, nb = 1024, 16
 
     def poly(**kw):
-        root, hz = cs.build_subtractive_voice()
+        root, hz = refs.build_subtractive_voice()
         return PolyPatch(root, n_voices=V,
-                         overrides={(hz, 'value'): cs.poly_freqs(V)},
-                         block_frames=cs.F, rate=cs.RATE, device='cuda', **kw)
+                         overrides={(hz, 'value'): refs.poly_freqs(V)},
+                         block_frames=refs.F, rate=refs.RATE, device='cuda',
+                         **kw)
 
     mix_plan = poly()
     assert mix_plan.compiled.mega_mix(nb) is not None
@@ -685,7 +686,7 @@ def test_cuda_1024_voice_flagship_mix_plan(cuda_device):
     torch.cuda.synchronize()
     assert K.LAUNCHES == dict.fromkeys(K.LAUNCHES, 0) | {'segments_gen': 1}
     want, _ = poly(mix_epilogue=False).render(n_blocks=nb)
-    assert got.shape == (nb * cs.F, 1) and bool(torch.isfinite(got).all())
+    assert got.shape == (nb * refs.F, 1) and bool(torch.isfinite(got).all())
     assert float(want.abs().max()) > 0.1
     assert float((got - want).abs().max()) <= V * TOL
 

@@ -188,7 +188,7 @@ def build_saw_lowpass(pkg):
 
 
 def build_flagship(pkg):
-    """chip_smoke.build_subtractive_voice at 4 pitches: saw -> LowPass swept
+    """torch_refs.build_subtractive_voice at 4 pitches: saw -> LowPass swept
     by 2000 + 450 Sine(0.5 Hz) (context 512) -> RingMod(ADSR) -> gain."""
     mod = nodes(pkg)
     hz = fixed(mod, (110.0 * 2 ** (np.arange(4) / 12.0)).reshape(1, 4))

@@ -29,7 +29,7 @@ import matplotlib
 
 matplotlib.use('Agg')
 
-import chip_smoke  # noqa: E402
+import torch_refs  # noqa: E402
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 FIXTURES = REPO / 'tests' / 'fixtures'
@@ -579,13 +579,13 @@ def test_sine_bounce_every_subtype_is_the_jax_file(tmp_path):
 
 def test_swept_bounce_matches_jax_and_the_oracle(tmp_path):
     """The bench's swept mono voice written as a ``.sigs`` patch
-    (:func:`chip_smoke.swept_voice_sigs`) and bounced for 8 blocks: the
+    (:func:`torch_refs.swept_voice_sigs`) and bounced for 8 blocks: the
     float32 file within 1e-5 of the JAX package's and of the port's numpy
     pull oracle; each encoded file byte for byte what the port's numpy
     encoder makes of the port's own float32 audio."""
     from signals_tpu_torch.runtime import codecs, sndfile
     from signals_tpu_torch.runtime.wavio import read_wav
-    lines = chip_smoke.swept_voice_sigs()
+    lines = torch_refs.swept_voice_sigs()
     seconds = 8 * 1024 / 44100
     want, _ = bounce_files('signals_tpu', lines, tmp_path, seconds,
                            ('float32',))
@@ -598,7 +598,7 @@ def test_swept_bounce_matches_jax_and_the_oracle(tmp_path):
     for line in lines:
         ctl.default(line)
     root = ctl.map.find(at(PKGS[1], '9a')).input.sig
-    oracle = chip_smoke.pull_oracle(root, 8, 1)
+    oracle = torch_refs.pull_oracle(root, 8, 1)
     assert float(np.abs(audio - oracle).max()) <= 1e-5
     assert np.abs(audio).max() > 0.05
     for sub in SUBTYPES[1:]:

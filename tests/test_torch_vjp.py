@@ -23,7 +23,7 @@ logic).  Held here:
   the edges of each scan (:data:`MODEL_CASES`, :data:`ROWS_MODEL_CASES`),
   and against the JAX package's gradients within 1e-3 at the kernels' own
   slicing;
-* ``chip_smoke.exact_rows_vjp``, the float64 reference B3 is held to on
+* ``torch_refs.exact_rows_vjp``, the float64 reference B3 is held to on
   the card where a window is too long for the plain adjoint, against the
   plain adjoint.
 
@@ -1030,12 +1030,12 @@ def test_rows_adjoint_model_matches_jax(entry):
 @pytest.mark.parametrize('nsec,tail,state', [(1, 300, True), (2, 100, True),
                                               (3, 300, False)])
 def test_exact_rows_vjp_matches_plain(nsec, tail, state):
-    """``chip_smoke.exact_rows_vjp`` (the float64 reference B3 is held to
+    """``torch_refs.exact_rows_vjp`` (the float64 reference B3 is held to
     on the card where a window is too long for the plain adjoint's frame
     loop) against the plain adjoint on float64 inputs: within 1e-6 of each
     output's largest |value| (the plain adjoint keeps its gradient sums in
     float32)."""
-    import chip_smoke
+    import torch_refs
     rng = np.random.default_rng(40 + nsec)
     B, ch, L = 2, 3, 300
     co = torch.tensor(np.concatenate([lowpass(rng, B, ch)] * nsec, axis=1))
@@ -1047,7 +1047,7 @@ def test_exact_rows_vjp_matches_plain(nsec, tail, state):
     def f64(t):
         return None if t is None else t.double()
 
-    got = chip_smoke.exact_rows_vjp(co, x, gy, tail, zi, gzf)
+    got = torch_refs.exact_rows_vjp(co, x, gy, tail, zi, gzf)
     want = K.sosfilt_batch_vjp_plain(f64(co), f64(x), f64(gy), tail=tail,
                                      zi=f64(zi), gzf=f64(gzf))
     for name, a, b in zip(('gcoeffs', 'gx', 'gzi'), got, want):
@@ -1210,8 +1210,8 @@ ROWS_VJP_CASES = {
     'stream_16384x1': ('stream', 1, 1, 1, 16384, 16384, True,
                        (500.0, 5000.0), 'dense'),
     # 2048-row slices: the checkpoints outgrow shared memory and go to the
-    # call's buffer; held to chip_smoke.exact_rows_vjp (float64): the plain
-    # adjoint's frame loop would take minutes (chip_smoke.b3_calls)
+    # call's buffer; held to torch_refs.exact_rows_vjp (float64): the plain
+    # adjoint's frame loop would take minutes (torch_refs.b3_calls)
     'stream_2pow20_2sec': ('stream', 2, 1, 1, 1 << 20, 1 << 20, True,
                            (500.0, 5000.0), 'dense'),
 }
@@ -1229,9 +1229,9 @@ def test_cuda_rows_vjp_matches_plain(gpu, case):
     (16384, 1) and 2^20 rows at two sections (checkpoints in the call's
     buffer); each output within 1e-5 of its largest, two calls the same
     bits."""
-    import chip_smoke
+    import torch_refs
     rng = np.random.default_rng(20 + list(ROWS_VJP_CASES).index(case))
-    call, plain, _, _ = chip_smoke.b3_calls(rng, gpu, *ROWS_VJP_CASES[case])
+    call, plain, _, _ = torch_refs.b3_calls(rng, gpu, *ROWS_VJP_CASES[case])
     got, again = call(), call()
     torch.cuda.synchronize()
     held_on_card(got, plain())
