@@ -647,9 +647,10 @@ def phase_build():
     for line in out.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling' in line:
             print(f'[build] ptxas: {line.strip()}')
-    for nsec, (regs, spills) in sorted(b3_ptxas(out).items()):
-        print(f'[build] B3 rows_cascade_vjp<{nsec}>: {regs} registers, '
-              f'{spills}')
+    for name, kernel in (('K3', 'rows_cascade'), ('B3', 'rows_cascade_vjp')):
+        for nsec, (regs, spills) in sorted(rows_ptxas(out, kernel).items()):
+            print(f'[build] {name} {kernel}<{nsec}>: {regs} registers, '
+                  f'{spills}')
     for name, (regs, smem, spills) in sorted(fdn_ptxas(out).items()):
         print(f'[build] FDN {name}: {regs} registers, {smem} bytes static '
               f'shared memory (+ the rings: dynamic), {spills}')
@@ -660,15 +661,15 @@ def phase_build():
     print(f'[build] card: {card_line()}')
 
 
-def b3_ptxas(out: str) -> dict:
-    """``{sections: (registers, spills)}`` of each ``rows_cascade_vjp``
-    instance from ``nvcc -Xptxas -v``'s report (an entry's 'Compiling
-    entry function' line, then its stack and spill line and its 'Used N
-    registers' line)."""
+def rows_ptxas(out: str, kernel: str) -> dict:
+    """``{sections: (registers, spills)}`` of each instance of the template
+    ``kernel`` (``rows_cascade``, ``rows_cascade_vjp``) from ``nvcc -Xptxas
+    -v``'s report (an entry's 'Compiling entry function' line, then its
+    stack and spill line and its 'Used N registers' line)."""
     found, nsec = {}, None
     for line in out.splitlines():
         if 'Compiling entry function' in line:
-            m = re.search(r'rows_cascade_vjpILi(\d)E', line)
+            m = re.search(kernel + r'ILi(\d)E', line)
             nsec = int(m.group(1)) if m else None
         elif nsec is not None and 'spill stores' in line:
             found[nsec] = (None, line.strip())
@@ -841,6 +842,7 @@ def phase_kernels():
     noise_shape_kernel(rng, dev, card, results)
     zero_state_kernels(rng, dev, card, results)
     carried_state_kernels(rng, dev, card, results)
+    score_layout_kernel(rng, dev, card)
     return results
 
 
@@ -1012,6 +1014,47 @@ def zero_state_kernels(rng, dev, card, results):
           f'({seg_how}) vs batch {bat_ms:.4f} ms ({bat_how}) device, both '
           f'reading the timeline in place; outputs agree to {err!r}  '
           f'[{card}]')
+
+
+def score_layout_kernel(rng, dev, card):
+    """K3 at the 64-voice score's shape (the benchmark's ``score``: the
+    60 s bounce's blocks as windows of context 1024 + F rows read in place
+    from each voice's timeline, the vmap layout's voice-major one, 64
+    voices folded one lane each, tail F, one LowPass at SCORE_CUT shared by
+    the voices) in both output layouts: the same bits, each layout's device
+    time beside the bound of ``roofline.k3_work`` (one count for both)."""
+    import torch
+    from signals_tpu_torch.compiler import kernels as K
+    from signals_tpu_torch.compiler.filters import design_coupled
+    from signals_tpu_torch.core.xp import TorchXP
+    nb, voices, ctx = n_blocks_60s(), 64, 1024
+    t = torch.arange(ctx + nb * F, device=dev, dtype=torch.float32)[None]
+    hz = torch.as_tensor(rng.uniform(60.0, 900.0, (voices, 1))
+                         .astype(np.float32), device=dev)
+    xv = 2.0 * torch.remainder(t * hz / RATE, 1.0) - 1.0   # (64, C + nb F)
+    x = xv.t().unfold(0, ctx + F, F).permute(2, 0, 1)    # (C + F, nb, 64)
+    cut = torch.full((1, 1), SCORE_CUT, dtype=torch.float32, device=dev)
+    co = design_coupled(TorchXP(dev), 'lp', (cut,), np.float32(RATE / 2))
+    co = co[None].expand(nb, 1, voices, 11)
+    calls = {name: (lambda tm=tm: K.sosfilt_batch(co, x, tail=F,
+                                                  time_major=tm))
+             for name, tm in (('lane-major', False), ('time-major', True))}
+    lane, tm = (call() for call in calls.values())
+    torch.cuda.synchronize()
+    same = torch.equal(lane, tm)
+    assert same and tm.stride() == (1, F, nb * F), same
+    del lane, tm
+    flops, nbytes = roofline.k3_work(windows=nb, lanes=voices, context=ctx,
+                                     tail=F)
+    b_ms, b_by = bound(flops, nbytes)
+    for name, call in calls.items():
+        dev_ms, how = kernel_device_ms(call, 20, ('rows_cascade',))
+        print(f'[kernels] batch at the score shape ({ctx + F} rows, {nb} x '
+              f'{voices} lanes, tail {F}), {name}: device {dev_ms:.4f} ms '
+              f'({how}), bound {b_ms:.4f} ms ({b_by}: {flops / 1e9:.3f} '
+              f'GFLOP, {nbytes / 1e6:.1f} MB), share {b_ms / dev_ms:.4f}; '
+              f'the two layouts\' bits equal  [{card}]')
+    torch.cuda.empty_cache()
 
 
 def carried_state_kernels(rng, dev, card, results):
@@ -2902,6 +2945,7 @@ def phase9_score(card, total, within, timed):
     import torch
     from signals_tpu_torch import learn
     from signals_tpu_torch.compiler import compile_node
+    from signals_tpu_torch.compiler import kernels as K
     from signals_tpu_torch.parallel.voices import (allocate_voices,
                                                    score_tracks)
     from signals_tpu_torch.utils.midifile import read_midi
@@ -2944,6 +2988,11 @@ def phase9_score(card, total, within, timed):
         base = torch.cuda.memory_allocated()
         mix = launched(f'score, {layout} layout, {n60} blocks, plan {plan}',
                        lambda: poly.render(n_blocks=n60)[0], expect, total)
+        if layout == 'vmap':
+            # one lane a voice: K3 writes each voice's rows consecutively
+            assert K.ROWS_OUT == {'time_major': 1, 'lane_major': 0}, \
+                K.ROWS_OUT
+            print(f'[score] vmap layout: K3 calls by layout {K.ROWS_OUT}')
         peak = torch.cuda.max_memory_allocated() - base
         print(f'[score] {layout} layout: peak memory of the render '
               f'{peak / 2**30:.3f} GiB over {base / 2**30:.3f} GiB held  '

@@ -114,11 +114,11 @@ def load(path: pathlib.Path) -> ctypes.CDLL:
     lib.sosfilt_segments_gen_launch.argtypes = [p, p, p, f, i, p, p, p, i, i,
                                                 i, i, i, i, i, p]
     lib.sosfilt_segments_gen_launch.restype = i
-    lib.sosfilt_timeline_launch.argtypes = [p, q, q, p, q, q, p, p, p, i, i,
-                                            i, p]
+    lib.sosfilt_timeline_launch.argtypes = [p, q, q, p, q, q, p, q, q, p, p,
+                                            i, i, i, p]
     lib.sosfilt_timeline_launch.restype = i
-    lib.sosfilt_batch_launch.argtypes = [p, q, q, q, p, q, q, q, p, p, p, i,
-                                         i, i, i, i, p]
+    lib.sosfilt_batch_launch.argtypes = [p, q, q, q, p, q, q, q, p, q, q, q,
+                                         p, p, i, i, i, i, i, p]
     lib.sosfilt_batch_launch.restype = i
     lib.sosfilt_segments_vjp_launch.argtypes = [p, p, q, q, p, p, f, i, p,
                                                 i, p, p, p, i, i, i, i, i, i,

@@ -5,8 +5,9 @@
 //   * sosfilt_batch_launch    <- _batch_kernel / sosfilt_batch (K3): B
 //     independent windows of L rows, x_t (L, B, ch) read through its element
 //     strides (overlapping windows of one timeline, a broadcast channel);
-//     only the last `tail` rows of each window are written, (tail, B, ch);
-//     the first L - tail only warm the state up
+//     only the last `tail` rows of each window are written, (tail, B, ch)
+//     through the output's element strides; the first L - tail only warm
+//     the state up
 //   * sosfilt_timeline_launch <- _section_kernel / sosfilt_pallas (K4): one
 //     window, tail = L: a whole (N, ch) timeline, every row written
 // Both run the coupled-form cascade of cascade.cuh, 1-4 sections per lane in
@@ -54,6 +55,23 @@
 // loads (independent of each other), then the serial cascade; the passes
 // after the first read their rows again from L1.
 //
+// Output layout.  Row r of lane (b, c) goes to out + r*o_row + b*o_win +
+// c*o_ch.  Lane-major, (tail, B, ch) contiguous, a warp's 32 lanes store one
+// row as 128 contiguous bytes.  Time-major (o_row = 1: each lane's rows
+// consecutive, as the vmap layout of PolyPatch wants one voice's blocks) a
+// thread's kept rows of a full chunk are 64 contiguous bytes: it stores them
+// as four 16-byte vector stores where that address is 16-byte aligned (a
+// chunk wholly past the warmup, the lane's base and the chunk's first
+// output row multiples of 4 floats), else row by row.  The kept rows are
+// half the bytes a whole-window call needs (677 MB in the 64-voice score's
+// 60 s; the other half is the timeline its overlapping windows read), so
+// the store pattern is what the layout may cost; writing time-major saves
+// the caller a transposing copy of all of them.  At that shape (its input
+// voice-major too) the time-major stores took 2.46 ms against 2.16
+// lane-major, and the copy they save took 5.5 ms (PERF.md section 6).  The
+// cascade, the scan and every stored value are the same in both layouts:
+// only addresses change.
+//
 // Rounding: the cascade and the scan are left to nvcc's default contraction
 // (--fmad=true), which changes results only at f32 round-off.
 
@@ -85,6 +103,7 @@ struct RowsGeo {
     int n_rows;                     // rows per window
     int skip;                       // rows before the output (L - tail)
     int64_t x_row, x_win, x_ch;     // strides of x_t (L, B, ch)
+    int64_t o_row, o_win, o_ch;     // strides of out (tail, B, ch)
     int64_t co_win, co_sec, co_ch;  // strides of coeffs (B, nsec, ch, 11)
     int lt, lt_log, slice, n_slices;
 };
@@ -92,9 +111,10 @@ struct RowsGeo {
 // One pass over rows [row_a, row_b) of one lane (its input column xl)
 // through the first NS sections from the states in cas.  TRACK: return the
 // transfer of section NS-1 over the rows (its end state is then in cas).
-// EMIT: write the rows from g.skip on to out, the lane's output column.
-// Rows are addressed by pointers that step by their strides, and an
-// inactive lane reads lane 0's rows (valid memory) and writes nothing.
+// EMIT: write the rows from g.skip on to out, the lane's output column
+// (row r at out + (r - g.skip) * g.o_row).  Rows are addressed by pointers
+// that step by their strides, and an inactive lane reads lane 0's rows
+// (valid memory) and writes nothing.
 template <int NSEC, int NS, bool TRACK, bool EMIT>
 __device__ __forceinline__ Cplx walk(Cascade<NSEC>& cas,
                                      const float* __restrict__ xl,
@@ -127,12 +147,21 @@ __device__ __forceinline__ Cplx walk(Cascade<NSEC>& cas,
         }
         if (!EMIT || !active) continue;
         const int lo = max(g.skip - r0, 0);          // the first output row
-        float* o = out + (int64_t)(r0 + lo - g.skip) * g.lanes;
+        float* o = out + (int64_t)(r0 + lo - g.skip) * g.o_row;
+        if (g.o_row == 1 && lo == 0 && n == kRows
+                && (reinterpret_cast<uintptr_t>(o) & 15) == 0) {
+            float4* o4 = reinterpret_cast<float4*>(o);   // time-major, whole
+#pragma unroll
+            for (int i = 0; i < kRows / 4; ++i)
+                o4[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                                    v[4 * i + 3]);
+            continue;
+        }
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
             if (i < lo || i >= n) continue;
             *o = v[i];
-            o += g.lanes;
+            o += g.o_row;
         }
     }
     return a;
@@ -166,11 +195,11 @@ __device__ __forceinline__ void scan_sections(Cascade<NSEC>& cas,
 }
 
 // grid: lane tiles of lt over the windows' lanes; block: lt lanes x
-// n_slices slices, lanes fastest.  out (tail, lanes), contiguous; zi and zf
-// (windows, NSEC, 2, ch) contiguous, or null.  The
-// explicit minimum of one block per SM lets ptxas use up to 128 registers:
-// without it, it held 1-2 sections to 64 and spilled at 2 (a few blocks on
-// the whole card run here, so occupancy buys nothing).
+// n_slices slices, lanes fastest.  out (tail, B, ch) through the strides
+// (o_row, o_win, o_ch); zi and zf (windows, NSEC, 2, ch) contiguous, or
+// null.  The explicit minimum of one block per SM lets ptxas use up to 128
+// registers: without it, it held 1-2 sections to 64 and spilled at 2 (a few
+// blocks on the whole card run here, so occupancy buys nothing).
 template <int NSEC>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 rows_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
@@ -204,8 +233,9 @@ rows_cascade(const float* __restrict__ coeffs, const float* __restrict__ x,
     }
     // the final replay, in the slices that hold output rows
     if (row_b > g.skip)
-        walk<NSEC, NSEC, false, true>(cas, xl, out + lane, row_a, row_b,
-                                      active, g);
+        walk<NSEC, NSEC, false, true>(cas, xl,
+                                      out + b * g.o_win + c * g.o_ch, row_a,
+                                      row_b, active, g);
     // the last slice's replay ends on the window's end state
     if (zf != nullptr && active && k == g.n_slices - 1) {
 #pragma unroll
@@ -252,16 +282,16 @@ extern "C" {
 
 // The launchers return the cudaError_t of the launch (0 on success);
 // nsec outside 1..4 is refused with cudaErrorInvalidValue.  Strides are in
-// elements; the 11 coefficient columns are contiguous.  zi (the start
-// state) and zf (the end state, written) are (windows, nsec, 2, ch)
-// contiguous, each null for none.
+// elements; the 11 coefficient columns are contiguous.  The output's
+// elements must not overlap.  zi (the start state) and zf (the end state,
+// written) are (windows, nsec, 2, ch) contiguous, each null for none.
 
-// coeffs (nsec, ch, 11), x (n_rows, ch) -> out (n_rows, ch), contiguous.
+// coeffs (nsec, ch, 11), x (n_rows, ch) -> out (n_rows, ch).
 int sosfilt_timeline_launch(const float* coeffs, int64_t co_sec,
                             int64_t co_ch, const float* x, int64_t x_row,
-                            int64_t x_ch, float* out, const float* zi,
-                            float* zf, int nsec, int ch, int n_rows,
-                            void* stream) {
+                            int64_t x_ch, float* out, int64_t o_row,
+                            int64_t o_ch, const float* zi, float* zf,
+                            int nsec, int ch, int n_rows, void* stream) {
     RowsGeo g{};
     g.ch = ch;
     g.lanes = ch;
@@ -269,16 +299,20 @@ int sosfilt_timeline_launch(const float* coeffs, int64_t co_sec,
     g.skip = 0;
     g.x_row = x_row;
     g.x_ch = x_ch;
+    g.o_row = o_row;
+    g.o_ch = o_ch;
     g.co_sec = co_sec;
     g.co_ch = co_ch;
     return launch(coeffs, x, out, zi, zf, g, nsec, stream);
 }
 
 // coeffs (n_windows, nsec, ch, 11), x (n_rows, n_windows, ch) -> out (tail,
-// n_windows, ch), contiguous.
+// n_windows, ch): lane-major (n_windows * ch, ch, 1) or time-major (1,
+// tail, tail * n_windows), or any strides.
 int sosfilt_batch_launch(const float* coeffs, int64_t co_win, int64_t co_sec,
                          int64_t co_ch, const float* x, int64_t x_row,
                          int64_t x_win, int64_t x_ch, float* out,
+                         int64_t o_row, int64_t o_win, int64_t o_ch,
                          const float* zi, float* zf, int nsec, int n_windows,
                          int ch, int n_rows, int tail, void* stream) {
     RowsGeo g{};
@@ -289,6 +323,9 @@ int sosfilt_batch_launch(const float* coeffs, int64_t co_win, int64_t co_sec,
     g.x_row = x_row;
     g.x_win = x_win;
     g.x_ch = x_ch;
+    g.o_row = o_row;
+    g.o_win = o_win;
+    g.o_ch = o_ch;
     g.co_win = co_win;
     g.co_sec = co_sec;
     g.co_ch = co_ch;

@@ -69,6 +69,12 @@ LAUNCHES = {'segments_gen': 0, 'segments': 0, 'batch': 0, 'timeline': 0,
 # beside it, COPIES and reset_copy_counts (from core.xp, whose to_device
 # makes them): the host-to-device copies of the render and fit paths
 
+#: calls of :func:`sosfilt_batch`'s kernel (or, on the CPU, its plain
+#: version) by the layout they wrote, since :func:`reset_launch_counts`:
+#: ``time_major`` each lane's rows consecutive, ``lane_major`` each row's
+#: lanes (kept apart from :data:`LAUNCHES`, which counts launches by kernel)
+ROWS_OUT = {'time_major': 0, 'lane_major': 0}
+
 #: sections per lane the segment kernels take (the Butterworth designs: 1
 #: for low/high-pass, 2 for band-pass/band-stop)
 SEGMENT_SECTIONS = (1, 2)
@@ -79,8 +85,9 @@ _SIN_C = (ctypes.c_double * len(_SIN2PI_COEFFS))(*_SIN2PI_COEFFS)
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROWS_OUT):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check_common(coeffs, n_segments, seg_frames, context, sum_groups,
@@ -451,7 +458,7 @@ def _timeline_launch(coeffs, x, out, zi, zf, nsec, ch, what: str) -> None:
     coeffs = _columns_contiguous(coeffs)
     code = lib.sosfilt_timeline_launch(
         coeffs.data_ptr(), *coeffs.stride()[:2], x.data_ptr(), *x.stride(),
-        out.data_ptr(), None if zi is None else zi.data_ptr(),
+        out.data_ptr(), *out.stride(), None if zi is None else zi.data_ptr(),
         None if zf is None else zf.data_ptr(), nsec, ch, x.shape[0],
         _stream(x.device))
     _build.check(code, what)
@@ -543,7 +550,8 @@ def sosfilt_batch_plain(coeffs, x_t, *, tail=None, zi=None,
     return y, zf.reshape(nsec, 2, B, ch).permute(2, 0, 1, 3).contiguous()
 
 
-def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False):
+def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False,
+                  time_major=False):
     """Cascade over ``B`` independent windows, from zero state or from
     ``zi``.
 
@@ -559,6 +567,12 @@ def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False):
     ``zf`` ``(B, nsec, 2, ch)`` the state after each window's last row (how
     a streaming filter's whole-window form gets the zero-state end state of
     every block in one launch).
+
+    ``time_major=True`` returns ``y`` with each lane's rows consecutive in
+    memory (strides ``(1, tail, B * tail)``) instead of each row's lanes
+    (``(B * ch, ch, 1)``): the same values, so that a caller that wants a
+    window's blocks one after another (:class:`_BatchFn`'s ``vmap`` rule,
+    one lane per voice) views them without a transposing copy.
 
     The kernel reads ``x_t`` and ``coeffs`` through their strides, so the
     windows may be a view of one timeline — overlapping, e.g.
@@ -582,19 +596,27 @@ def sosfilt_batch(coeffs, x_t, *, tail=None, zi=None, return_state=False):
         zi = _check_state(zi, (B, nsec, 2, ch), 'zi')
         tensors.append(zi)
     if _function_call(*tensors):
-        y, zf = _BatchFn.apply(coeffs, x_t, zi, tail)
+        y, zf = _BatchFn.apply(coeffs, x_t, zi, tail, time_major)
         return (y, zf) if return_state else y
-    return _batch_run(coeffs, x_t, zi, tail, return_state)
+    return _batch_run(coeffs, x_t, zi, tail, return_state, time_major)
 
 
-def _batch_run(coeffs, x_t, zi, tail, return_state):
+def _batch_run(coeffs, x_t, zi, tail, return_state, time_major):
     L, B = x_t.shape[0], x_t.shape[1]
     nsec, ch = coeffs.shape[1], coeffs.shape[2]
     tensors = [coeffs, x_t] + ([] if zi is None else [zi])
+    out = (torch.empty_strided((tail, B, ch), (1, tail, B * tail),
+                               dtype=torch.float32, device=x_t.device)
+           if time_major else
+           torch.empty((tail, B, ch), dtype=torch.float32, device=x_t.device))
+    layout = 'time_major' if time_major else 'lane_major'
     if _device_kind(*tensors) == 'cpu':
-        return sosfilt_batch_plain(coeffs, x_t, tail=tail, zi=zi,
-                                   return_state=return_state)
-    out = torch.empty((tail, B, ch), dtype=torch.float32, device=x_t.device)
+        ROWS_OUT[layout] += 1
+        y = sosfilt_batch_plain(coeffs, x_t, tail=tail, zi=zi,
+                                return_state=return_state)
+        if not return_state:
+            return out.copy_(y)
+        return out.copy_(y[0]), y[1]
     zf = (torch.empty((B, nsec, 2, ch), dtype=torch.float32,
                       device=x_t.device) if return_state else None)
     if B * ch == 0:
@@ -604,12 +626,13 @@ def _batch_run(coeffs, x_t, zi, tail, return_state):
     coeffs = _columns_contiguous(coeffs)
     code = lib.sosfilt_batch_launch(
         coeffs.data_ptr(), *coeffs.stride()[:3], x_t.data_ptr(),
-        *x_t.stride(), out.data_ptr(),
+        *x_t.stride(), out.data_ptr(), *out.stride(),
         None if zi is None else zi.data_ptr(),
         None if zf is None else zf.data_ptr(), nsec, B, ch, L, tail,
         _stream(x_t.device))
     _build.check(code, 'sosfilt_batch')
     LAUNCHES['batch'] += 1
+    ROWS_OUT[layout] += 1
     return (out, zf) if return_state else out
 
 
@@ -1005,12 +1028,12 @@ class _SegmentsFn(torch.autograd.Function):
 
 class _BatchFn(torch.autograd.Function):
     @staticmethod
-    def forward(coeffs, x_t, zi, tail):
-        return _batch_run(coeffs, x_t, zi, tail, True)
+    def forward(coeffs, x_t, zi, tail, time_major):
+        return _batch_run(coeffs, x_t, zi, tail, True, time_major)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        coeffs, x_t, zi, tail = inputs
+        coeffs, x_t, zi, tail, _ = inputs
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(coeffs, x_t, zi)
         ctx.tail = tail
@@ -1023,15 +1046,21 @@ class _BatchFn(torch.autograd.Function):
                           device=x_t.device) if gy is None else gy)
         gco, gx, gzi = sosfilt_batch_vjp(coeffs, x_t, gy, tail=ctx.tail,
                                          zi=zi, gzf=gzf)
-        return gco, gx, gzi, None
+        return gco, gx, gzi, None, None
 
     @staticmethod
-    def vmap(info, in_dims, coeffs, x_t, zi, tail):
+    def vmap(info, in_dims, coeffs, x_t, zi, tail, time_major):
+        # With one lane per voice (the lanes are the voices of each window)
+        # the kernel writes time-major: a voice's (tail, B, 1) result is then
+        # its windows' rows one after another, and the caller's (B * tail)
+        # rows of the voice a view, not a transposing copy of every row.
         n = info.batch_size
+        x_t = _fold(x_t, in_dims[1], n, 2)
         y, zf = sosfilt_batch(
-            _fold(coeffs, in_dims[0], n, 2), _fold(x_t, in_dims[1], n, 2),
-            tail=tail, zi=None if zi is None else _fold(zi, in_dims[2], n, 3),
-            return_state=True)
+            _fold(coeffs, in_dims[0], n, 2), x_t, tail=tail,
+            zi=None if zi is None else _fold(zi, in_dims[2], n, 3),
+            return_state=True,
+            time_major=time_major or (tail > 1 and x_t.shape[2] == n))
         return (_unfold(y, n, 2), _unfold(zf, n, 3)), (0, 0)
 
 

@@ -779,6 +779,87 @@ def test_cuda_batch_matches_plain(cuda_device, nsec, case):
     assert float((got - want).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize('state', [False, True], ids=['zero', 'zi_zf'])
+@pytest.mark.parametrize('case', list(BATCH_EDGES))
+def test_batch_time_major_plain(case, state):
+    """``time_major=True`` on the CPU: the plain version's rows written
+    into the time-major buffer (strides ``(1, tail, B * tail)``), the
+    lane-major call's values and end states exactly."""
+    L, B, ch, tail = BATCH_EDGES[case]
+    rng = np.random.default_rng(100 + list(BATCH_EDGES).index(case))
+    co = t(cascade_windows(rng, B, ch, 2))
+    x = t(rng.standard_normal((L, B, ch)).astype(np.float32))
+    zi = (t(rng.standard_normal((B, 2, 2, ch)).astype(np.float32))
+          if state else None)
+    K.reset_launch_counts()
+    lane = K.sosfilt_batch(co, x, tail=tail, zi=zi, return_state=state)
+    tm = K.sosfilt_batch(co, x, tail=tail, zi=zi, return_state=state,
+                         time_major=True)
+    assert K.ROWS_OUT == {'time_major': 1, 'lane_major': 1}
+    lane, tm = (a if state else (a,) for a in (lane, tm))
+    assert lane[0].is_contiguous()
+    assert tm[0].shape == (tail, B, ch)
+    assert tm[0].stride() == (1, tail, B * tail)
+    for a, b in zip(tm, lane):
+        assert torch.equal(a, b)
+
+
+#: K3's two output layouts on the card: (L, windows, channels, tail,
+#: windows read in place from one timeline ``tail`` rows apart).  A tail of
+#: 77 rows (no multiple of 4) and a 31-row single slice store row by row; 15
+#: and 100 lanes are no multiple of a warp; the render-ahead batch, the
+#: sampled filter's windows (tail 1) and the 64-voice score's whole 60 s
+#: (2584 blocks, context 1024, tail 1024) read overlapping views.
+LAYOUT_EDGES = {
+    'render_ahead': (1152, 8, 16, 1024, True),
+    'ragged_tail77': (300, 5, 3, 77, False),
+    'L31_one_slice': (31, 4, 3, 31, False),
+    'lanes100': (1088, 25, 4, 64, True),
+    'sampled': (129, 8, 16, 1, True),
+    'score': (2048, 2584, 64, 1024, True),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('state', [False, True], ids=['zero', 'zi_zf'])
+@pytest.mark.parametrize('case', list(LAYOUT_EDGES))
+@pytest.mark.parametrize('nsec', [1, 2, 3, 4])
+def test_cuda_batch_time_major_equals_lane_major(cuda_device, nsec, case,
+                                                 state):
+    """K3 storing through the time-major strides gives the lane-major
+    launch's rows and end states bit for bit (the cascade and scan are the
+    same; only the addresses differ), one launch each."""
+    L, B, ch, tail, in_place = LAYOUT_EDGES[case]
+    k = list(LAYOUT_EDGES).index(case)
+    rng = np.random.default_rng(110 + nsec + 10 * k)
+    # the score shares one cutoff across its voices: a broadcast lane
+    co = t(cascade_windows(rng, B, 1 if case == 'score' else ch, nsec)).to(
+        cuda_device).expand(B, nsec, ch, 11)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(120 + nsec + 10 * k)
+    if in_place:
+        xt = torch.randn((L - tail + B * tail, ch), generator=gen,
+                         device=cuda_device)
+        x = xt.unfold(0, L, tail)[:B].permute(2, 0, 1)
+    else:
+        x = torch.randn((L, B, ch), generator=gen, device=cuda_device)
+    zi = (torch.randn((B, nsec, 2, ch), generator=gen, device=cuda_device)
+          if state else None)
+    K.reset_launch_counts()
+    lane = K.sosfilt_batch(co, x, tail=tail, zi=zi, return_state=state)
+    torch.cuda.synchronize()
+    tm = K.sosfilt_batch(co, x, tail=tail, zi=zi, return_state=state,
+                         time_major=True)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES['batch'] == 2
+    assert K.ROWS_OUT == {'time_major': 1, 'lane_major': 1}
+    lane, tm = (a if state else (a,) for a in (lane, tm))
+    assert tm[0].stride() == (1, tail, B * tail)
+    assert bool(torch.isfinite(lane[0]).all())
+    for a, b in zip(tm, lane):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('case', list(TIMELINE_EDGES))
 @pytest.mark.parametrize('nsec', [1, 2, 3, 4])

@@ -467,6 +467,20 @@ def test_score_render_counts_its_lookups(layout, monkeypatch):
     assert torch.equal(counted, searched)
 
 
+@pytest.mark.parametrize('layout,rows', [('vmap', 'time_major'),
+                                         ('channels', 'lane_major')])
+def test_score_render_k3_layout(layout, rows):
+    """The benchmark's score voice at a tiny size makes one K3 call a
+    render: time-major in the vmap layout (one lane a voice, so each
+    voice's blocks are a view of it), lane-major in the channels layout
+    (the voices are one patch's lanes, outside any vmap)."""
+    sc = score_of('cpu', voices=4, score_seconds=2.0, melody_notes=8,
+                  chords=2, layout=layout)
+    K.reset_launch_counts()
+    sc.render(0, 8)
+    assert K.ROWS_OUT == dict({'time_major': 0, 'lane_major': 0}, **{rows: 1})
+
+
 def force_searched(monkeypatch):
     """Every compiled ``PitchSeq`` searched, looped or not."""
     seq = mod(PKGS[1], 'nodes.seq')
@@ -832,6 +846,62 @@ def test_vmap_poly_equals_sum_of_solo_voices():
     assert np.abs(audio.numpy() - total).max() <= TOL
     # the live node keeps its one-voice state in this layout
     assert hz.get_state().value.shape == (1, 1)
+
+
+def test_vmap_whole_window_lowpass_writes_time_major(monkeypatch):
+    """A one-channel voice's whole-window ``LowPass`` under the vmap layout
+    (the score's: ``_batch_compute`` under ``_mega_kernel``) makes its one
+    batch call time-major, and ``_mega_kernel``'s ``(nb * F, 1)`` rows of
+    every voice are a view of that call's output, not a copy.  The mix is
+    the lane-major call's bit for bit, and within V x 1e-5 of the solo
+    voices' pull oracles and of the JAX package's vmap layout."""
+    fx = mod(PKGS[1], 'nodes.fx')
+    nb = 6
+    root, hz = subtractive(PKGS[1])
+    poly = poly_of(PKGS[1], root, {(hz, 'value'): FREQS}, len(FREQS))
+    assert poly.compiled.plan(nb) == 'mega'
+    outs, rows = [], []
+    run, kern = K._batch_run, fx.CritFilter._mega_kernel
+
+    def run_spy(*a, **k):
+        outs.append(run(*a, **k))
+        return outs[-1]
+
+    def kern_spy(self, *a, **k):
+        y = kern(self, *a, **k)
+        rows.append(torch._C._functorch.get_unwrapped(y))
+        return y
+
+    monkeypatch.setattr(K, '_batch_run', run_spy)
+    monkeypatch.setattr(fx.CritFilter, '_mega_kernel', kern_spy)
+    K.reset_launch_counts()
+    got, _ = poly.render(n_blocks=nb)
+    assert K.ROWS_OUT == {'time_major': 1, 'lane_major': 0}
+    (y, _zf), = outs
+    assert y.shape == (F, nb, len(FREQS)) and y.stride() == (1, F, nb * F)
+    assert rows[0].shape == (len(FREQS), nb * F, 1)
+    assert rows[0].untyped_storage().data_ptr() == \
+        y.untyped_storage().data_ptr()
+
+    batch = K.sosfilt_batch
+    monkeypatch.setattr(K, 'sosfilt_batch', lambda *a, time_major=False,
+                        **k: batch(*a, **k))
+    K.reset_launch_counts()
+    lane, _ = poly.render(n_blocks=nb)
+    assert K.ROWS_OUT == {'time_major': 0, 'lane_major': 1}
+    assert torch.equal(got, lane)
+
+    total = np.zeros((nb * F, 1), np.float32)
+    for f in FREQS:
+        solo, solo_hz = subtractive(PKGS[1])
+        solo_hz.get_state().value = np.array([[f]], dtype=np.float32)
+        total += pull(solo, nb)
+    assert np.abs(got.numpy() - total).max() <= len(FREQS) * TOL
+    root_j, hz_j = subtractive(PKGS[0])
+    want_j, _ = poly_of(PKGS[0], root_j, {(hz_j, 'value'): FREQS},
+                        len(FREQS)).render(n_blocks=nb)
+    assert np.abs(got.numpy() - np.asarray(want_j)).max() <= \
+        len(FREQS) * TOL
 
 
 def test_vmap_default_layout_is_channels_without_a_mesh():

@@ -110,8 +110,8 @@ def _stream_case(rng):
             (0, None, 0), {})
 
 
-def _batch_case(rng, with_state):
-    B, Lr, ch = 3, 40, 2
+def _batch_case(rng, with_state, ch=2):
+    B, Lr = 3, 40
     co = torch.stack([_coeffs(list(rng.uniform(400, 3000, ch)))
                       for _ in range(B)])             # shared (B, 1, 2, 11)
     x = torch.tensor(rng.standard_normal((V, Lr, B, ch)),
@@ -138,6 +138,7 @@ CASES = {
     'stream': _stream_case,
     'batch': lambda rng: _batch_case(rng, False),
     'batch_state': lambda rng: _batch_case(rng, True),
+    'batch_one_lane': lambda rng: _batch_case(rng, False, ch=1),
 }
 
 
@@ -209,6 +210,60 @@ def test_vmap_rule_nests():
     want = torch.stack([torch.stack([K.sosfilt_timeline(co, x[i, v])
                                      for v in range(V)]) for i in range(2)])
     assert torch.equal(got, want)
+
+
+#: the batch entry's output layout: (channels a voice, rows kept, under
+#: vmap) -> the layout its call writes
+LAYOUTS = {
+    'one_lane': (1, 16, True, 'time_major'),
+    'two_lanes': (2, 16, True, 'lane_major'),
+    'tail1': (1, 1, True, 'lane_major'),
+    'no_vmap': (1, 16, False, 'lane_major'),
+}
+
+
+@pytest.mark.parametrize('case', list(LAYOUTS))
+def test_vmap_rule_picks_the_output_layout(case, monkeypatch):
+    """The batch entry's rule asks for time-major rows when the fold gives
+    one lane a voice and more than one row is kept: a voice's blocks,
+    permuted and flattened as ``_batch_compute`` and ``_mega_kernel`` do,
+    are then a view of the call's output, not a copy.  Two lanes a voice,
+    one row kept (``_sampled_kernel``) or no vmap keep lane-major rows.
+    Each gives the bits of separate calls, and ``ROWS_OUT`` counts the one
+    call by its layout."""
+    ch, tail, vmapped, layout = LAYOUTS[case]
+    rng = np.random.default_rng(14)
+    B, L = 5, 48
+    co = _block_coeffs(rng, B, ch)
+    x = torch.tensor(rng.standard_normal((V, L - tail + B * tail, ch)),
+                     dtype=torch.float32)
+
+    def blocks(xv):
+        xw = xv.unfold(0, L, tail)[:B].permute(2, 0, 1)
+        yt = K.sosfilt_batch(co, xw, tail=tail)
+        return yt.permute(1, 0, 2).reshape(B * tail, ch)
+
+    want = torch.stack([blocks(x[v]) for v in range(V)])
+    outs = []
+    run = K._batch_run
+
+    def spy(*a, **k):
+        outs.append(run(*a, **k))
+        return outs[-1]
+
+    monkeypatch.setattr(K, '_batch_run', spy)
+    K.reset_launch_counts()
+    got = torch.func.vmap(blocks)(x) if vmapped else blocks(x[0])[None]
+    other = ({'time_major', 'lane_major'} - {layout}).pop()
+    assert K.ROWS_OUT == {layout: 1, other: 0} and len(outs) == 1
+    assert torch.equal(got, want if vmapped else want[:1])
+    y = outs[0][0] if vmapped else outs[0]     # the rule asks for zf too
+    assert y.shape == (tail, B, V * ch if vmapped else ch)
+    assert y.is_contiguous() == (layout == 'lane_major')
+    if layout == 'time_major':
+        assert y.stride() == (1, tail, B * tail)
+        assert got.untyped_storage().data_ptr() == \
+            y.untyped_storage().data_ptr()
 
 
 @pytest.fixture
